@@ -11,3 +11,9 @@ def rng():
 @pytest.fixture()
 def key():
     return jax.random.PRNGKey(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card (CUDA kernels); skipped "
+        "without one")
