@@ -10,17 +10,39 @@ The caller keeps ``new_error`` and folds it into the next push, so the
 compression bias telescopes over rounds (Karimireddy et al., 2019).
 Stochastic formats (int4) draw leaf ``i``'s noise under the key
 ``(round_step, i)``, ``i`` in the reference's leaf order.
+
+The flat ``quantize_int8`` / ``dequantize_int8`` pair keeps the
+whole-array layout of the reference's ``kernels/quantize.py`` for callers
+that want it: a CUDA tensor runs the CUDA kernels, a CPU tensor their
+plain versions.
 """
 from __future__ import annotations
 
 from typing import Any, Optional, Tuple
 
+import torch
+
 from repro_torch.dist.wire import NoiseFn, get_format
+from repro_torch.kernels import ops
 from repro_torch.utils.trees import (
     flatten_up_to, tree_flatten, tree_map, tree_unflatten,
 )
 
 Tree = Any
+
+
+def quantize_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``x`` (any shape) -> ``(q (nblocks, 256) int8, scales (nblocks, 1)
+    fp32)``: blockwise absmax over the flattened array, ``scale =
+    max|x_block|/127``, ``q = round(x/scale)``, half to even."""
+    return ops.quantize_int8(x)
+
+
+def dequantize_int8(q: torch.Tensor, scales: torch.Tensor, shape
+                    ) -> torch.Tensor:
+    """Inverse of :func:`quantize_int8`; the trailing block padding is
+    discarded."""
+    return ops.dequantize_int8(q, scales, tuple(shape))
 
 
 def encode_tree(tree: Tree, mode: str, error: Optional[Tree] = None, *,

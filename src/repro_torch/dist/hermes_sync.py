@@ -1,6 +1,7 @@
-"""The synchronous Hermes round over pod-stacked trees (the reference's
+"""The Hermes round over pod-stacked trees (the reference's
 ``dist/hermes_sync.py``: ``hermes_pod_state``, ``admit_gates``,
-``hermes_merge``, ``hermes_round``; unplaced, one cluster).
+``hermes_merge``, ``hermes_round`` and its async halves
+``hermes_dispatch`` / ``hermes_commit``; unplaced, one cluster).
 
 Trees are nested dicts of tensors; a pod-stacked tree carries a leading
 ``(n_pods,)`` axis on every leaf.  The merge is the paper's Algorithm 2 in
@@ -14,9 +15,10 @@ error-feedback residual folded in) and restart from the merged model.
 
 Two merge associations, each pinned to its own reference path:
 
-* kernels (``use_kernel``): int4 merges the packed payload into the global
-  leaf with ``dequant_merge_packed`` (``denom*g + sum w2_i*(q_i*s_i)``),
-  ``none``/``fp16`` use ``loss_weighted_update`` on the reconstructed pods;
+* kernels (``use_kernel``): int8 and int4 merge the wire payload into the
+  global leaf with ``dequant_merge`` / ``dequant_merge_packed`` (``denom*g
+  + sum w2_i*(q_i*s_i)``), ``none``/``fp16`` use ``loss_weighted_update``
+  on the reconstructed pods;
 * plain: the receiver decodes pod ``i``'s payload row and accumulates
   ``w2_i*(g + r_i)`` on ``w1*g`` (the reference's ``_merge_sliced``).
 """
@@ -29,7 +31,7 @@ import torch
 
 from repro_torch.config import HermesConfig
 from repro_torch.core.gup import gup_gate
-from repro_torch.dist.compression import decode_tree, encode_tree
+from repro_torch.dist.compression import encode_tree
 from repro_torch.dist.wire import (
     NoiseFn, block_axis, gather_payloads, get_format, resolve_kernel_dispatch,
 )
@@ -96,25 +98,23 @@ def _merge_leaf(g, pods, w1, w2, denom, any_push):
     return torch.where(any_push, acc / denom, gf).to(g.dtype)
 
 
-def _merge_sliced(w_global, payloads, delta, fmt, w1, w2, denom, any_push,
-                  n_pods):
+def _merge_sliced(w_global, payloads, fmt, w1, w2, denom, any_push, n_pods):
     """Receiver-side plain merge: decode pod ``i``'s payload row and fold
     ``w2_i*(g + r_i)`` into the accumulator, so no pod-stacked fp32 tree is
     materialised.  A leaf blocked on the pod axis itself (a stacked scalar)
     has no per-pod rows and takes the stacked decode."""
     g_leaves, treedef = tree_flatten(w_global)
     out = []
-    for g, p, dl in zip(g_leaves, flatten_up_to(treedef, payloads),
-                        flatten_up_to(treedef, delta)):
+    for g, p in zip(g_leaves, flatten_up_to(treedef, payloads)):
         gf = g.to(torch.float32)
         acc = w1 * gf
         if all(a.ndim >= 1 and a.shape[0] == n_pods for a in p.values()):
             for i in range(n_pods):
                 r = fmt.decode({k: a[i] for k, a in p.items()},
-                               tuple(dl.shape[1:]), dl.dtype)
+                               tuple(g.shape), g.dtype)
                 acc = acc + w2[i] * (g + r).to(torch.float32)
         else:
-            r = fmt.decode(p, dl.shape, dl.dtype)
+            r = fmt.decode(p, (n_pods,) + tuple(g.shape), g.dtype)
             for i in range(n_pods):
                 acc = acc + w2[i] * (g + r[i]).to(torch.float32)
         out.append(torch.where(any_push, acc / denom, gf).to(g.dtype))
@@ -131,6 +131,87 @@ def _merge_recv(w_global, recv, w1, w2, denom, any_push, use_kernel):
                     w_global, recv)
 
 
+def _merge_weights(gates, losses, L):
+    """Algorithm 2's weights: ``(w1, w2, denom, any_push)``, all on the
+    device of ``gates``; a closed pod weighs 0."""
+    dev = gates.device
+    one = torch.ones((), dtype=torch.float32, device=dev)
+    w1 = one / torch.clamp(L.to(device=dev, dtype=torch.float32), min=_EPS)
+    w2 = torch.where(gates,
+                     one / torch.clamp(losses.to(torch.float32), min=_EPS),
+                     torch.zeros((), dtype=torch.float32, device=dev))
+    return w1, w2, w1 + torch.sum(w2), gates.any()
+
+
+def _gate_zero(gates, leaf):
+    """Zero the rows of closed pods: they transmit nothing, so a diverged
+    (nonfinite) replica cannot poison the global model through its
+    0-weight contribution (0 * nan = nan)."""
+    return torch.where(_pod_mask(gates, leaf), leaf,
+                       torch.zeros((), dtype=leaf.dtype, device=leaf.device))
+
+
+def _encode_push(pod_params, gates, w_global, compression, error,
+                 round_step, noise, track_error):
+    """The sender half of a merge: the gate-zeroed deltas (or, uncompressed,
+    replicas) encoded with error feedback and shipped.  Returns
+    ``(payloads, new_error)``; closed pods keep their pending error."""
+    if compression == "none":
+        return (gather_payloads(tree_map(lambda p: _gate_zero(gates, p),
+                                         pod_params)),
+                error if track_error else None)
+    delta = tree_map(lambda p, g: _gate_zero(gates, p - g[None]), pod_params,
+                     w_global)
+    err_in = None if error is None else tree_map(
+        lambda e: _gate_zero(gates, e), error)
+    # the residual stays with the sender: it never crosses the pod axis
+    payloads, _, residual = encode_tree(
+        delta, compression, error=err_in, round_step=round_step,
+        noise=noise, with_residual=track_error)
+    if not track_error:
+        new_error = None
+    elif error is None:
+        new_error = tree_map(lambda r: _gate_zero(gates, r), residual)
+    else:
+        new_error = tree_map(
+            lambda r, e: torch.where(_pod_mask(gates, r), r, e),
+            residual, error)
+    return gather_payloads(payloads), new_error
+
+
+def _merge_payloads(w_global, payloads, w1, w2, denom, any_push, compression,
+                    use_kernel, n_pods):
+    """The receiver half: merge the shipped payloads into ``w_global``
+    (fused kernel, fp32 kernel, or the plain sliced association)."""
+    if compression == "none":
+        return _merge_recv(w_global, payloads, w1, w2, denom, any_push,
+                           use_kernel)
+    fmt = get_format(compression)
+    if not use_kernel:
+        return _merge_sliced(w_global, payloads, fmt, w1, w2, denom,
+                             any_push, n_pods)
+    g_leaves, treedef = tree_flatten(w_global)
+    merged = []
+    for g, p in zip(g_leaves, flatten_up_to(treedef, payloads)):
+        stacked = (n_pods,) + tuple(g.shape)
+        if fmt.fused_merge is not None and block_axis(stacked) >= 1:
+            merged.append(fmt.fused_merge(g, p, w2, denom, any_push))
+            continue
+        recv = g[None] + fmt.decode(p, stacked, g.dtype)
+        if fmt.fused_merge is not None:  # blocked on the pod axis
+            merged.append(_merge_leaf(g, recv, w1, w2, denom, any_push))
+        else:
+            merged.append(ops.loss_weighted_update(g, recv, w1, w2, denom,
+                                                   any_push))
+    return tree_unflatten(treedef, merged)
+
+
+def _refresh(pod_params, gates, new_global):
+    """Pushing pods restart from the merged global model."""
+    return tree_map(lambda p, g: torch.where(_pod_mask(gates, p), g[None], p),
+                    pod_params, new_global)
+
+
 def hermes_merge(pod_params: Tree, gates: torch.Tensor, losses: torch.Tensor,
                  w_global: Tree, L: torch.Tensor, *, compression: str = "none",
                  error: Optional[Tree] = None, use_kernel: bool = False,
@@ -141,72 +222,31 @@ def hermes_merge(pod_params: Tree, gates: torch.Tensor, losses: torch.Tensor,
     pending error, and a fully closed merge returns ``w_global`` values
     unchanged.  ``round_step``/``noise`` drive stochastic formats."""
     gates = gates.to(torch.bool)
-    n_pods = int(gates.shape[0])
-    dev = gates.device
-    any_push = gates.any()
-    one = torch.ones((), dtype=torch.float32, device=dev)
-    w1 = one / torch.clamp(L.to(device=dev, dtype=torch.float32), min=_EPS)
-    w2 = torch.where(gates,
-                     one / torch.clamp(losses.to(torch.float32), min=_EPS),
-                     torch.zeros((), dtype=torch.float32, device=dev))
-    denom = w1 + torch.sum(w2)
+    w1, w2, denom, any_push = _merge_weights(gates, losses, L)
+    payloads, new_error = _encode_push(pod_params, gates, w_global,
+                                       compression, error, round_step, noise,
+                                       track_error)
+    new_global = _merge_payloads(w_global, payloads, w1, w2, denom, any_push,
+                                 compression, use_kernel, int(gates.shape[0]))
+    return (_refresh(pod_params, gates, new_global), new_global, new_error,
+            any_push)
 
-    # Closed pods transmit nothing: zero-masked out of every wire and merge
-    # term, so a diverged (nonfinite) replica cannot poison the global model
-    # through its 0-weight contribution (0 * nan = nan).
-    def _gate_zero(leaf):
-        return torch.where(_pod_mask(gates, leaf), leaf,
-                           torch.zeros((), dtype=leaf.dtype, device=dev))
 
-    if compression != "none":
-        fmt = get_format(compression)
-        delta = tree_map(lambda p, g: _gate_zero(p - g[None]), pod_params,
-                         w_global)
-        err_in = None if error is None else tree_map(_gate_zero, error)
-        # the residual stays with the sender: it never crosses the pod axis
-        payloads, _, residual = encode_tree(
-            delta, compression, error=err_in, round_step=round_step,
-            noise=noise, with_residual=track_error)
-        if not track_error:
-            new_error = None
-        elif error is None:
-            new_error = tree_map(_gate_zero, residual)
-        else:
-            new_error = tree_map(
-                lambda r, e: torch.where(_pod_mask(gates, r), r, e),
-                residual, error)
-        payloads = gather_payloads(payloads)
-        if use_kernel and fmt.fused_merge is not None:
-            g_leaves, treedef = tree_flatten(w_global)
-            merged = []
-            for g, p, dl in zip(g_leaves, flatten_up_to(treedef, payloads),
-                                flatten_up_to(treedef, delta)):
-                if block_axis((n_pods,) + tuple(g.shape)) >= 1:
-                    merged.append(fmt.fused_merge(g, p, w2, denom, any_push))
-                else:  # blocked on the pod axis: no per-pod block layout
-                    r = fmt.decode(p, dl.shape, dl.dtype)
-                    merged.append(_merge_leaf(g, g[None] + r, w1, w2, denom,
-                                              any_push))
-            new_global = tree_unflatten(treedef, merged)
-        elif use_kernel:
-            rec = decode_tree(payloads, delta, compression)
-            recv = tree_map(lambda g, d: g[None] + d, w_global, rec)
-            new_global = _merge_recv(w_global, recv, w1, w2, denom, any_push,
-                                     True)
-        else:
-            new_global = _merge_sliced(w_global, payloads, delta, fmt, w1, w2,
-                                       denom, any_push, n_pods)
-    else:
-        recv = gather_payloads(tree_map(_gate_zero, pod_params))
-        new_error = error if track_error else None
-        new_global = _merge_recv(w_global, recv, w1, w2, denom, any_push,
-                                 use_kernel)
+def _gate(gup_state, pod_losses, cfg):
+    """Per-pod Algorithm-1 gates, then admission: ``(gates, new_gup)``."""
+    if cfg.n_clusters > 1:
+        raise NotImplementedError("two-tier clusters are not ported yet")
+    gates, new_gup = gup_gate(gup_state, pod_losses, cfg)
+    return admit_gates(gates, pod_losses, cfg), new_gup
 
-    # refresh: pushing pods restart from the merged global model
-    new_pods = tree_map(
-        lambda p, g: torch.where(_pod_mask(gates, p), g[None], p),
-        pod_params, new_global)
-    return new_pods, new_global, new_error, any_push
+
+def _closed_error(cfg, err_in, pod_params):
+    """The error state after a closed round: a compressed error-tracking
+    round with no residual yet starts one at zero, as the reference's
+    closed branch does."""
+    if cfg.compression != "none" and cfg.error_feedback and err_in is None:
+        return tree_map(torch.zeros_like, pod_params)
+    return err_in
 
 
 def hermes_round(pod_params: Tree, gup_state: Dict[str, torch.Tensor],
@@ -217,16 +257,13 @@ def hermes_round(pod_params: Tree, gup_state: Dict[str, torch.Tensor],
     """One Level-B round: per-pod Algorithm-1 gates, admission, then the
     merge.  ``use_kernel=None`` resolves ``cfg.kernel_dispatch`` against
     the device of ``pod_losses``.  Returns a dict: pod_params, w_global,
-    gup, error, gates, any_push."""
-    if cfg.async_rounds:
-        raise NotImplementedError("async rounds are not ported yet")
-    if cfg.n_clusters > 1:
-        raise NotImplementedError("two-tier clusters are not ported yet")
+    gup, error, gates, any_push.  ``cfg.async_rounds`` is not read here,
+    as in the reference: the pipelined loop calls :func:`hermes_dispatch`
+    and :func:`hermes_commit` instead."""
     if use_kernel is None:
         use_kernel = resolve_kernel_dispatch(cfg.kernel_dispatch,
                                              pod_losses.device)
-    gates, new_gup = gup_gate(gup_state, pod_losses, cfg)
-    gates = admit_gates(gates, pod_losses, cfg)
+    gates, new_gup = _gate(gup_state, pod_losses, cfg)
     any_push = gates.any()
     err_in = error if cfg.error_feedback else None
     # The reference skips the merge with lax.cond(any_push); here the flag
@@ -238,11 +275,74 @@ def hermes_round(pod_params: Tree, gup_state: Dict[str, torch.Tensor],
             round_step=round_step, noise=noise,
             track_error=cfg.error_feedback)
     else:
-        new_pods, new_global, new_error = pod_params, w_global, err_in
-        # a compressed error-tracking round with no residual yet starts one
-        # at zero, as the reference's closed branch does
-        if (cfg.compression != "none" and cfg.error_feedback
-                and new_error is None):
-            new_error = tree_map(torch.zeros_like, pod_params)
+        new_pods, new_global = pod_params, w_global
+        new_error = _closed_error(cfg, err_in, pod_params)
     return {"pod_params": new_pods, "w_global": new_global, "gup": new_gup,
             "error": new_error, "gates": gates, "any_push": any_push}
+
+
+# Async rounds (the reference's DESIGN.md section 8): ``hermes_round`` split
+# in two.  ``hermes_dispatch`` gates and encodes at round k and returns the
+# payload as ``pending``; ``hermes_commit`` merges it at round k+1, before
+# that round's dispatch.  Between the two no other commit runs, so the
+# commit sees ``w_global`` exactly as the dispatch encoded against, and the
+# merge is the synchronous round-k merge landing one round of local steps
+# late (staleness 1).  With every pod on one card the payload gather is the
+# identity, so the split changes when a merge lands, not what overlaps.
+
+
+def hermes_dispatch(pod_params: Tree, gup_state: Dict[str, torch.Tensor],
+                    pod_losses: torch.Tensor, w_global: Tree, L: torch.Tensor,
+                    cfg: HermesConfig, *, error: Optional[Tree] = None,
+                    round_step: int = 0, noise: Optional[NoiseFn] = None
+                    ) -> Dict[str, Any]:
+    """The dispatch half of a pipelined round: gate, admit, encode, ship.
+
+    The sender-side error residual updates here, at encode time.  Returns
+    a dict: gup, error, gates, any_push, and ``pending`` = ``{"payload",
+    "gates", "losses", "L", "any_push"}`` for :func:`hermes_commit`.  As in
+    :func:`hermes_round`, ``any_push`` is read on the host: a closed
+    dispatch encodes nothing and pends ``payload=None``, which its commit
+    takes as the identity."""
+    gates, new_gup = _gate(gup_state, pod_losses, cfg)
+    gates = gates.to(torch.bool)
+    any_push = gates.any()
+    err_in = error if cfg.error_feedback else None
+    payload = None
+    if bool(any_push):
+        payload, new_error = _encode_push(
+            pod_params, gates, w_global, cfg.compression, err_in, round_step,
+            noise, cfg.error_feedback)
+    else:
+        new_error = _closed_error(cfg, err_in, pod_params)
+    pending = {"payload": payload, "gates": gates,
+               "losses": pod_losses.to(torch.float32),
+               "L": L.to(device=gates.device, dtype=torch.float32),
+               "any_push": any_push}
+    return {"gup": new_gup, "error": new_error, "gates": gates,
+            "any_push": any_push, "pending": pending}
+
+
+def hermes_commit(pod_params: Tree, pending: Dict[str, Any], w_global: Tree,
+                  *, cfg: HermesConfig) -> Dict[str, Any]:
+    """The commit half: merge a pending payload, one round late.
+
+    Re-derives Algorithm 2's weights from the dispatch-time losses and
+    ``L`` in ``pending``, merges with the same fused, kernel or sliced
+    merge as :func:`hermes_merge` (``cfg.kernel_dispatch`` resolved
+    against the device of the gates), and refreshes the pods whose gates were
+    open at dispatch.  Returns ``{"pod_params", "w_global", "gates",
+    "any_push"}``; a closed dispatch commits as the identity.  The caller
+    drops ``pending`` afterwards, which frees the payload."""
+    gates = pending["gates"]
+    if pending["payload"] is None:
+        return {"pod_params": pod_params, "w_global": w_global,
+                "gates": gates, "any_push": pending["any_push"]}
+    use_kernel = resolve_kernel_dispatch(cfg.kernel_dispatch, gates.device)
+    w1, w2, denom, any_push = _merge_weights(gates, pending["losses"],
+                                             pending["L"])
+    new_global = _merge_payloads(w_global, pending["payload"], w1, w2, denom,
+                                 any_push, cfg.compression, use_kernel,
+                                 int(gates.shape[0]))
+    return {"pod_params": _refresh(pod_params, gates, new_global),
+            "w_global": new_global, "gates": gates, "any_push": any_push}

@@ -9,11 +9,13 @@ is a whole number of blocks, else the zero-padded last axis), so every
 other axis is untouched.  The port keeps the reference's parameter shapes
 precisely because this choice depends on them.
 
-``int4`` ships ``q_packed``: whole 256-blocks nibble-packed by the CUDA
-``pack_int4`` kernel (plain PyTorch on a CPU tensor), a short tail of
-``rem`` elements paired ``(k, k + ceil(rem/2))``; its ``fused_merge``
-reads the packed payload straight into the global leaf.  Registered:
-``none``, ``fp16``, ``int4``.
+``int8`` ships ``q`` trimmed to the real elements, rounded half to even
+(deterministic: it takes no noise); its ``fused_merge`` is the CUDA
+``dequant_merge`` kernel.  ``int4`` ships ``q_packed``: whole 256-blocks
+nibble-packed by the CUDA ``pack_int4`` kernel (plain PyTorch on a CPU
+tensor), a short tail of ``rem`` elements paired ``(k, k + ceil(rem/2))``;
+its ``fused_merge`` reads the packed payload straight into the global
+leaf.  Registered: ``none``, ``fp16``, ``int8``, ``int4``.
 """
 from __future__ import annotations
 
@@ -159,6 +161,23 @@ class BlockedIntFormat(WireFormat):
         return flat.narrow(ax, 0, d).reshape(shape).to(dtype)
 
 
+class Int8Format(BlockedIntFormat):
+    """Blockwise int8 absmax, round half to even: 1 byte/element + scales."""
+
+    name = "int8"
+
+    def encode(self, x, *, key=None, noise=None):
+        q, scale, s, ax, d, nb = self._quantize(x, key, noise)
+        return {"q": q.narrow(ax, 0, d).contiguous(), "scales": scale}
+
+    def fused_merge(self, g, payload, w2, denom, any_push):
+        # the blocked axis of the stacked delta leaf, (n_pods,) + g.shape
+        n_pods = payload["q"].shape[0]
+        ax = block_axis((n_pods,) + tuple(g.shape))
+        return ops.dequant_merge(g, payload["q"], payload["scales"], w2,
+                                 denom, any_push, axis=ax)
+
+
 class Int4Format(BlockedIntFormat):
     """Blockwise int4 with stochastic rounding, nibble-packed.
 
@@ -261,4 +280,5 @@ def payload_nbytes(payload: Payload) -> int:
 
 register(NoneFormat())
 register(Fp16Format())
+register(Int8Format())
 register(Int4Format())

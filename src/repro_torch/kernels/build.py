@@ -37,6 +37,9 @@ ARGTYPES = {
     "dequant_merge_packed": (_P, _P, _P, _P, _P, _I32, _I64, _I64, _I64,
                              _I64, _P),
     "loss_weighted_update": (_P, _P, _P, _P, _I32, _I64, _P),
+    "dequant_merge": (_P, _P, _P, _P, _P, _I32, _I64, _I64, _I64, _I64, _P),
+    "quantize_int8": (_P, _P, _P, _I64, _I64, _P),
+    "dequantize_int8": (_P, _P, _P, _I64, _P),
 }
 
 #: successful launches per kernel since the last :func:`reset_launches`

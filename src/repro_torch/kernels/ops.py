@@ -8,6 +8,7 @@ import torch
 from repro_torch.kernels import dequant_merge as _dqm
 from repro_torch.kernels import loss_weighted_update as _lwu
 from repro_torch.kernels import pack as _pk
+from repro_torch.kernels import quantize as _qz
 
 
 def pack_int4(q: torch.Tensor, *, axis: int = -1) -> torch.Tensor:
@@ -22,6 +23,31 @@ def unpack_int4(p: torch.Tensor, *, axis: int = -1) -> torch.Tensor:
     if p.is_cuda:
         return _pk.unpack_int4_cuda(p, axis=axis)
     return _pk.unpack_int4_plain(p, axis=axis)
+
+
+def quantize_int8(x: torch.Tensor):
+    """Flat blockwise absmax int8: ``(q (nb, 256), scales (nb, 1))``."""
+    if x.is_cuda:
+        return _qz.quantize_int8_cuda(x)
+    return _qz.quantize_int8_plain(x)
+
+
+def dequantize_int8(q: torch.Tensor, scales: torch.Tensor, shape
+                    ) -> torch.Tensor:
+    """Inverse of :func:`quantize_int8`, cut to ``prod(shape)`` elements."""
+    if q.is_cuda:
+        return _qz.dequantize_int8_cuda(q, scales, shape)
+    return _qz.dequantize_int8_plain(q, scales, shape)
+
+
+def dequant_merge(g, q, scales, w2, denom, any_push, *,
+                  axis: int = -1) -> torch.Tensor:
+    """Merge blocked int8 payloads straight into the global leaf."""
+    if g.is_cuda:
+        return _dqm.dequant_merge_cuda(g, q, scales, w2, denom, any_push,
+                                       axis=axis)
+    return _dqm.dequant_merge_plain(g, q, scales, w2, denom, any_push,
+                                    axis=axis)
 
 
 def dequant_merge_packed(g, q_packed, scales, w2, denom, any_push, *,

@@ -123,6 +123,57 @@ def loss_weighted_update_ref(g: torch.Tensor, pods: torch.Tensor,
     return torch.where(any_push.to(torch.bool), merged, gf).to(g.dtype)
 
 
+def quantize_int8_ref(x: torch.Tensor):
+    """Flat blockwise absmax int8: ``x`` (any shape) -> ``q`` (nb, 256)
+    int8 and ``scales`` (nb, 1) fp32 with ``nb = ceil(numel/256)``, the
+    last block zero-padded.  ``scale = max(max|x|/127, 1e-12)``, ``q =
+    clip(round_half_even(x/scale), -127, 127)``."""
+    flat = x.reshape(-1).to(torch.float32)
+    blocks = pad_axis(flat, 0, -(-flat.numel() // BLOCK) * BLOCK)
+    blocks = blocks.reshape(-1, BLOCK)
+    qmax = torch.tensor(127.0, device=x.device)
+    scale = torch.clamp(torch.amax(torch.abs(blocks), dim=1, keepdim=True)
+                        / qmax, min=1e-12)
+    q = torch.clamp(torch.round(blocks / scale), -127.0, 127.0)
+    return q.to(torch.int8), scale
+
+
+def dequantize_int8_ref(q: torch.Tensor, scales: torch.Tensor, shape
+                        ) -> torch.Tensor:
+    """``q * scales`` flattened and cut to ``prod(shape)`` elements; any
+    row count that covers them."""
+    n = 1
+    for s in shape:
+        n *= int(s)
+    flat = (q.to(torch.float32) * scales).reshape(-1)
+    return flat[:n].reshape(tuple(shape))
+
+
+def dequant_merge_ref(g: torch.Tensor, q: torch.Tensor, scales: torch.Tensor,
+                      w2: torch.Tensor, denom: torch.Tensor,
+                      any_push: torch.Tensor, *, axis: int = -1
+                      ) -> torch.Tensor:
+    """Merge over the blocked int8 payload in the kernel's order:
+    ``acc = denom*g``, then ``acc + w2_i*(q_i*s_i)`` pod by pod, then
+    ``acc/denom``, else ``g``.
+
+    ``q`` is the trimmed wire array (one int8 per element of the
+    pod-stacked leaf) and ``scales`` has one fp32 per 256-block of
+    ``axis`` (``axis - 1`` of ``g``).  On ``q = unpack(q_packed)`` this
+    equals :func:`dequant_merge_packed_ref` bit for bit; the reference's
+    ``dequant_merge_ref`` sums the pods with a tensordot instead."""
+    shape = g.shape
+    gf = (g.reshape(1) if g.ndim == 0 else g).to(torch.float32)
+    ax = axis % q.ndim
+    s = torch.repeat_interleave(scales.to(torch.float32), BLOCK, dim=ax)
+    deq = q.to(torch.float32) * s.narrow(ax, 0, q.shape[ax])
+    acc = denom * gf
+    for i in range(q.shape[0]):
+        acc = acc + w2[i] * deq[i]
+    out = torch.where(any_push.to(torch.bool), acc / denom, gf)
+    return out.reshape(shape).to(g.dtype)
+
+
 def dequant_merge_packed_ref(g: torch.Tensor, q_packed: torch.Tensor,
                              scales: torch.Tensor, w2: torch.Tensor,
                              denom: torch.Tensor, any_push: torch.Tensor, *,

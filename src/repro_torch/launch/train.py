@@ -1,14 +1,18 @@
 """Level-B Hermes trainer (the reference's ``launch/train.py``,
-synchronous rounds).
+synchronous or async rounds).
 
 N pod replicas of the LM train locally on disjoint shards of one synthetic
 token stream.  Every ``lam`` steps (and after the first) each pod's eval
 loss feeds the GUP gate, and the gate-open pods merge into the global model
-through the wire format and restart from it.  All pods are stacked on one
-device, the reference's ``mesh=None`` layout.
+through the wire format and restart from it.  With ``async_rounds`` a
+round's merge lands at the next round boundary (``hermes_dispatch`` then,
+one round later, ``hermes_commit``).  All pods are stacked on one device,
+the reference's ``mesh=None`` layout.
 
 Usage:
     python -m repro_torch.launch.train --preset lm100m --hermes --pods 4
+    python -m repro_torch.launch.train --preset lm100m --hermes --pods 4 \
+        --compression int8 --async-rounds
     python -m repro_torch.launch.train --preset lmtiny --hermes --device cpu
 """
 from __future__ import annotations
@@ -27,7 +31,9 @@ from repro_torch.config import (
     FAMILY_DENSE, HermesConfig, ModelConfig, OptimizerConfig,
 )
 from repro_torch.data.synthetic import make_batches, make_lm_dataset
-from repro_torch.dist.hermes_sync import hermes_pod_state, hermes_round
+from repro_torch.dist.hermes_sync import (
+    hermes_commit, hermes_dispatch, hermes_pod_state, hermes_round,
+)
 from repro_torch.dist.wire import GeneratorNoise, NoiseFn
 from repro_torch.models.lm import init_lm, lm_loss
 from repro_torch.optim.optimizers import make_optimizer
@@ -65,9 +71,10 @@ def train_hermes(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
     port's own init, so a test can start both frameworks from one model;
     ``noise`` replaces the int4 rounding noise (default: a
     :class:`GeneratorNoise` seeded with ``seed``).  Returns the reference's
-    summary (global_loss, merges, rounds, pod_losses, history, ...) plus
-    host-clock times per step and per round, each ending in a device
-    synchronise.
+    summary (global_loss, merges, rounds, pod_losses, history, and the
+    async accounting async_rounds, dispatched, committed, drained; with
+    async rounds ``merges`` counts commits) plus host-clock times per step
+    and per round, each ending in a device synchronise.
     """
     dev = resolve_device(device)
     if dev.type == "cuda":
@@ -126,8 +133,20 @@ def train_hermes(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
         return lm_loss(params, eval_batch, cfg)
 
     rounds, merges = 0, 0
+    dispatched, committed = 0, 0  # async: open rounds shipped and merged
+    pending = None                # the in-flight round (async only)
     history: List = []
     step_s, round_s = 0.0, 0.0
+
+    def commit(pod_params, w_global, L_global, pending):
+        """Merge the pending round; the global loss is re-evaluated only
+        when it merged."""
+        cm = hermes_commit(pod_params, pending, w_global, cfg=hcfg)
+        opened = bool(cm["any_push"])
+        if opened:
+            L_global = eval_global(cm["w_global"])
+        return cm["pod_params"], cm["w_global"], L_global, int(opened)
+
     for i in range(steps):
         # As in the reference, each key draws its own batch, so "targets"
         # are not the shifted "tokens" of the same windows; kept for parity
@@ -147,17 +166,33 @@ def train_hermes(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
         if (i + 1) % hcfg.lam == 0 or i == 0:
             t0 = time.perf_counter()
             rounds += 1
-            with torch.profiler.record_function("hermes/round"):
+            with torch.profiler.record_function("hermes/round"), \
+                    torch.no_grad():
                 pod_losses = pod_eval(pod_params)
-                with torch.no_grad():
+                if hcfg.async_rounds:
+                    # commit round k-1's pending payload, then dispatch
+                    # round k against the freshly merged global model
+                    if pending is not None:
+                        pod_params, w_global, L_global, opened = commit(
+                            pod_params, w_global, L_global, pending)
+                        pending = None  # frees the payload
+                        merges += opened
+                        committed += opened
+                    out = hermes_dispatch(pod_params, gup, pod_losses,
+                                          w_global, L_global, hcfg,
+                                          error=error, round_step=i,
+                                          noise=noise)
+                    pending = out["pending"]
+                    dispatched += int(bool(out["any_push"]))
+                else:
                     out = hermes_round(pod_params, gup, pod_losses, w_global,
                                        L_global, hcfg, error=error,
                                        round_step=i, noise=noise)
-                pod_params, w_global = out["pod_params"], out["w_global"]
+                    pod_params, w_global = out["pod_params"], out["w_global"]
+                    if bool(out["any_push"]):  # re-evaluate after a merge
+                        merges += 1
+                        L_global = eval_global(w_global)
                 gup, error = out["gup"], out["error"]
-                if bool(out["any_push"]):  # re-evaluate only after a merge
-                    merges += 1
-                    L_global = eval_global(w_global)
                 history.append((i + 1, float(torch.mean(pod_losses)),
                                 int(out["gates"].sum())))
                 _sync(dev)
@@ -166,11 +201,22 @@ def train_hermes(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
             print(f"step {i + 1:5d} pod-loss {float(losses.mean()):.4f} "
                   f"global-L {float(L_global):.4f} merges={merges}/{rounds}",
                   flush=True)
+    # drain: the last dispatched payload has no following boundary, so it
+    # is committed here; every open round merges exactly once
+    if pending is not None:
+        with torch.no_grad():
+            pod_params, w_global, L_global, opened = commit(
+                pod_params, w_global, L_global, pending)
+        pending = None
+        merges += opened
+        committed += opened
     gl = float(eval_global(w_global))
     pl = [float(x) for x in pod_eval(pod_params)]
     return {"global_loss": gl, "merges": merges, "rounds": rounds,
             "pod_losses": pl, "best_pod_loss": min(pl), "history": history,
             "steps": steps, "comm_fraction": merges / max(rounds, 1),
+            "async_rounds": hcfg.async_rounds, "dispatched": dispatched,
+            "committed": committed, "drained": pending is None,
             "ms_per_step": 1e3 * step_s / max(steps, 1),
             "ms_per_round": 1e3 * round_s / max(rounds, 1),
             "device": str(dev)}
@@ -190,7 +236,11 @@ def main(argv=None) -> None:
     ap.add_argument("--beta", type=float, default=0.1)
     ap.add_argument("--lam", type=int, default=5)
     ap.add_argument("--compression", default=None,
-                    help="wire format (none, fp16, int4; default int4)")
+                    help="wire format (none, fp16, int8, int4; default int4)")
+    ap.add_argument("--async-rounds", action="store_true",
+                    help="pipeline the rounds: dispatch a round's payload "
+                         "and merge it at the next round boundary "
+                         "(staleness 1)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -198,7 +248,7 @@ def main(argv=None) -> None:
         ap.error("only --hermes training is ported")
     kw = {} if args.compression is None else {"compression": args.compression}
     hcfg = HermesConfig(alpha=args.alpha, beta=args.beta, lam=args.lam,
-                        eta=1.0, **kw)
+                        eta=1.0, async_rounds=args.async_rounds, **kw)
     out = train_hermes(_preset(args.preset), steps=args.steps,
                        batch=args.batch, seq=args.seq, pods=args.pods,
                        opt_cfg=OptimizerConfig(name="adamw", lr=args.lr),

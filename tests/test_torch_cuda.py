@@ -13,9 +13,14 @@ import torch
 from repro_torch.config import HermesConfig, OptimizerConfig
 from repro_torch.dist import wire
 from repro_torch.kernels import build, ops, ref
-from repro_torch.kernels.dequant_merge import dequant_merge_packed_cuda
+from repro_torch.kernels.dequant_merge import (
+    dequant_merge_cuda, dequant_merge_packed_cuda,
+)
 from repro_torch.kernels.loss_weighted_update import loss_weighted_update_cuda
 from repro_torch.kernels.pack import pack_int4_cuda, unpack_int4_cuda
+from repro_torch.kernels.quantize import (
+    dequantize_int8_cuda, quantize_int8_cuda,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -66,6 +71,43 @@ def test_dequant_merge_packed_kernel_bitwise(card, g_shape, n_pods, any_push):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("g_shape,n_pods", [
+    ((4, 512), 2), ((3, 300), 3), ((2, 768, 5), 4), ((700,), 1), ((5, 64), 3),
+    ((512, 300), 3),
+])
+@pytest.mark.parametrize("any_push", [True, False])
+def test_dequant_merge_kernel_bitwise(card, g_shape, n_pods, any_push):
+    gen = torch.Generator(device=card).manual_seed(5)
+    g = torch.randn(g_shape, generator=gen, device=card)
+    delta = torch.randn((n_pods,) + g_shape, generator=gen, device=card)
+    pay = wire.get_format("int8").encode(delta)
+    ax = wire.block_axis((n_pods,) + g_shape)
+    _, w2, denom, push = _scalars(card, n_pods, any_push, 6)
+    got = dequant_merge_cuda(g, pay["q"], pay["scales"], w2, denom, push,
+                             axis=ax)
+    want = ref.dequant_merge_ref(g, pay["q"], pay["scales"], w2, denom, push,
+                                 axis=ax)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n", [1, 256, 1000, 25617, 70000])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_quantize_dequantize_kernels_bitwise(card, n, offset):
+    """``offset`` 1 starts both inputs off their vector alignment, so the
+    kernels take their scalar loads."""
+    gen = torch.Generator(device=card).manual_seed(n)
+    x = torch.randn(n + offset, generator=gen, device=card)[offset:]
+    x[: min(n, 256)] *= 1e-14  # a block whose scale floors at 1e-12
+    q, s = quantize_int8_cuda(x)
+    wq, ws = ref.quantize_int8_ref(x)
+    assert torch.equal(q, wq) and torch.equal(s, ws)
+    buf = torch.empty(q.numel() + offset, dtype=torch.int8, device=card)
+    qv = buf[offset:].view(q.shape)
+    qv.copy_(q)
+    got = dequantize_int8_cuda(qv, s, (n,))
+    assert torch.equal(got, ref.dequantize_int8_ref(q, s, (n,)))
+
+
 @pytest.mark.parametrize("shape,n_pods", [((4, 4096), 2), ((3, 1000), 3),
                                           ((17,), 4)])
 @pytest.mark.parametrize("any_push", [True, False])
@@ -93,21 +135,37 @@ def test_wrappers_check_inputs_and_count_launches(card):
     with pytest.raises(ValueError, match="whole number"):
         pack_int4_cuda(torch.zeros((300,), dtype=torch.int8, device=card))
     assert build.LAUNCHES["pack_int4"] == 1
+    x = torch.randn(1000, device=card)
+    q, s = ops.quantize_int8(x)
+    ops.dequantize_int8(q, s, x.shape)
+    assert build.LAUNCHES["quantize_int8"] == 1
+    assert build.LAUNCHES["dequantize_int8"] == 1
+    with pytest.raises(ValueError, match="elements"):
+        dequantize_int8_cuda(q, s, (5000,))
+    with pytest.raises(TypeError):
+        dequantize_int8_cuda(q.to(torch.int32), s, x.shape)
+    with pytest.raises(ValueError, match="CUDA"):
+        quantize_int8_cuda(x.cpu())
+    assert build.LAUNCHES["dequantize_int8"] == 1
 
 
 def test_train_hermes_on_card_runs_every_kernel(card):
     from repro_torch.launch.train import _preset, train_hermes
     counts = {}
-    for compression in ("int4", "none"):
+    for compression, async_rounds in (("int4", False), ("none", False),
+                                      ("int8", True)):
         build.reset_launches()
         out = train_hermes(_preset("lmtiny"), steps=6, batch=2, seq=32,
                            pods=2, opt_cfg=OptimizerConfig(name="adamw",
                                                            lr=3e-3),
                            hcfg=HermesConfig(alpha=-0.8, lam=2,
-                                             compression=compression),
+                                             compression=compression,
+                                             async_rounds=async_rounds),
                            log_every=10 ** 6)
         assert np.isfinite(out["global_loss"]) and out["merges"] >= 1
+        assert out["dispatched"] == out["committed"] and out["drained"]
         counts[compression] = dict(build.LAUNCHES)
+    assert counts["int8"]["dequant_merge"] > 0
     assert counts["int4"]["pack_int4"] > 0
     assert counts["int4"]["unpack_int4"] > 0
     assert counts["int4"]["dequant_merge_packed"] > 0

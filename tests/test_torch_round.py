@@ -93,6 +93,7 @@ def _assert_merged_close(got, want, glob, pods):
 
 @pytest.mark.parametrize("compression,dispatch", [
     ("none", "off"), ("none", "on"), ("int4", "off"), ("int4", "on"),
+    ("int8", "off"), ("int8", "on"),
 ])
 def test_hermes_round_matches_reference(compression, dispatch):
     n_pods, seed = 3, 5
@@ -130,11 +131,12 @@ def test_hermes_round_matches_reference(compression, dispatch):
         _assert_merged_close(tout["w_global"], jout["w_global"], glob, pods)
         _assert_merged_close(tout["pod_params"], jout["pod_params"], glob,
                              pods)
-        if compression == "int4":
+        if compression in ("int8", "int4"):
             # The reference runs the open round under lax.cond, where XLA
             # may fuse ``eff - q*s`` into one FMA: the residuals agree to a
-            # few ulps.  One int4 quantum flipped on either side would show
-            # as a gap of ~scale/7, far above this bound.
+            # few ulps.  One quantum flipped on either side would show as
+            # a gap of ~scale/7 (int4) or ~scale/127 (int8), far above this
+            # bound.
             _assert_merged_close(tout["error"], jout["error"], glob, pods)
         else:
             assert tout["error"] is None and jout["error"] is None
@@ -152,10 +154,15 @@ def test_hermes_round_matches_reference(compression, dispatch):
 
 
 def test_hermes_round_rejects_unported_modes():
-    cfg = THermesConfig(async_rounds=True)
-    st = ths.hermes_pod_state(cfg, 2, torch.device("cpu"))
-    with pytest.raises(NotImplementedError):
-        ths.hermes_round({"a": torch.zeros(2, 4)}, st, torch.ones(2),
-                         {"a": torch.zeros(4)}, torch.tensor(1.0), cfg)
-    with pytest.raises(ValueError, match="int8"):
-        THermesConfig(compression="int8").validate()
+    """Two-tier clusters and Bernoulli admission are not ported: both
+    raise instead of running another round than the reference's."""
+    pods, glob = {"a": torch.zeros(2, 4)}, {"a": torch.zeros(4)}
+    for kw, match in (({"n_clusters": 2}, "clusters"),
+                      ({"participation_rate": 0.5, "admission": "prob"},
+                       "admission")):
+        cfg = THermesConfig(**kw)
+        cfg.validate()
+        st = ths.hermes_pod_state(cfg, 2, torch.device("cpu"))
+        for half in (ths.hermes_round, ths.hermes_dispatch):
+            with pytest.raises(NotImplementedError, match=match):
+                half(pods, st, torch.ones(2), glob, torch.tensor(1.0), cfg)

@@ -15,15 +15,13 @@ from repro.dist import compression as jcomp
 from repro.dist import wire as jwire
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
-from repro.launch.train import _preset as jpreset
-from repro.models import init_lm as jinit_lm
 
 from repro_torch.dist import compression as tcomp
 from repro_torch.dist import wire as twire
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 
-from torch_parity import jax_noise
+from torch_parity import jax_noise, leaf_shapes
 from torch_parity import to_numpy as _n
 from torch_parity import to_torch as _t
 
@@ -143,15 +141,9 @@ def test_loss_weighted_update_plain_vs_reference(shape, n_pods, any_push):
 # block_axis and the int4 encode
 # ---------------------------------------------------------------------------
 
-def _leaf_shapes(preset, n_pods=4):
-    shapes = jax.eval_shape(
-        lambda: jinit_lm(jpreset(preset), jax.random.PRNGKey(0))[0])
-    return [(n_pods,) + tuple(s.shape) for s in jax.tree.leaves(shapes)]
-
-
 @pytest.mark.parametrize("preset", ["lmtiny", "lm100m"])
 def test_block_axis_matches_reference_on_every_leaf(preset):
-    for shape in _leaf_shapes(preset):
+    for shape in leaf_shapes(preset):
         assert twire.block_axis(shape) == jwire.block_axis(shape), shape
         assert twire.block_axis(shape[1:]) == jwire.block_axis(shape[1:])
 

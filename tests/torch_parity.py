@@ -16,6 +16,17 @@ def to_numpy(t) -> np.ndarray:
     return np.asarray(t)
 
 
+def leaf_shapes(preset: str, n_pods: int = 4):
+    """Every parameter leaf shape of a reference preset, stacked
+    ``n_pods`` deep, in the reference's leaf order (shapes only: nothing
+    is allocated)."""
+    from repro.launch.train import _preset
+    from repro.models import init_lm
+    shapes = jax.eval_shape(
+        lambda: init_lm(_preset(preset), jax.random.PRNGKey(0))[0])
+    return [(n_pods,) + tuple(s.shape) for s in jax.tree.leaves(shapes)]
+
+
 def jax_noise(seed: int):
     """The reference's int4 noise as a port ``NoiseFn``: the uniform draw
     of ``fold_in(fold_in(PRNGKey(seed), round_step), leaf)``, which is what
