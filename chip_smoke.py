@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's Hermes main path on one NVIDIA card.
+"""Drive the PyTorch port's main paths on one NVIDIA card: the Hermes
+trainer and serving.
 
     python3 chip_smoke.py
 
 Phases (any failure raises and the script exits nonzero):
 
 1. the device: name, count, and ``nvidia-smi``'s name and power limit;
-2. build the CUDA wire kernels from ``src/repro_torch/kernels/csrc``;
+2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
+   ``nvcc`` per source, started together);
 3. each kernel at the lm100m x 4-pod leaf shapes (every leaf of the tree):
    held against its plain PyTorch version (pack/unpack, q and scales
    exactly equal, the merges and the dequantize bitwise), then timed with
@@ -22,7 +24,19 @@ Phases (any failure raises and the script exits nonzero):
    and the flat ``compression.quantize_int8`` / ``dequantize_int8`` over
    every lm100m leaf; then lmtiny runs on the card (int4 sync, int8 async)
    against the same runs on the CPU;
-6. a ``kernels`` JSON line, the ``nvidia-smi`` line, and the result line.
+6. the serving kernels against their plain versions at the serving path's
+   shapes (flash attention at lm100m prefill and decode and a windowed
+   case; WKV6 at rwkv6-3b prefill and decode), timed beside the plain
+   version, the bound and, for attention, one
+   ``scaled_dot_product_attention`` call;
+7. ``serve`` at lm100m (batch 8, prompt 512, 64 new tokens) and at
+   rwkv6-3b (all 32 layers, bf16, batch 4, prompt 256, 32 new tokens),
+   each with the launch counters zeroed just before and read just after,
+   its prefill and first decode logits compared with the plain versions
+   on the same parameters, prompt and first token (held at lm100m, and
+   at rwkv6-3b in an fp32 run of the same model: the random-init bf16
+   stack turns a one-ulp difference into other logits);
+8. a ``kernels`` JSON line, the ``nvidia-smi`` line, and the result line.
 
 It needs the repository's ``src/`` beside it and imports neither JAX nor
 the JAX package.
@@ -40,7 +54,8 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 FP32_FLOPS = 67e12            # H100 SXM data sheet, fp32 outside tensor cores
 EPS32 = 2.0 ** -23            # fp32 machine epsilon
-SOURCE = "src/repro_torch/kernels/csrc/wire_kernels.cu"
+WIRE_SOURCE = "src/repro_torch/kernels/csrc/wire_kernels.cu"
+MODEL_SOURCE = "src/repro_torch/kernels/csrc/model_kernels.cu"
 REPLACES = {
     "pack_int4": "src/repro/kernels/pack.py:85",
     "unpack_int4": "src/repro/kernels/pack.py:104",
@@ -49,6 +64,8 @@ REPLACES = {
     "dequant_merge": "src/repro/kernels/dequant_merge.py:109",
     "quantize_int8": "src/repro/kernels/quantize.py:47",
     "dequantize_int8": "src/repro/kernels/quantize.py:67",
+    "flash_attention": "src/repro/kernels/flash_attention.py:106",
+    "wkv6": "src/repro/kernels/rwkv6_scan.py:99",
 }
 PODS = 4
 
@@ -82,6 +99,262 @@ def time_ms(torch, fn, reps: int, warmup: int = 2) -> float:
 
 def nbytes(ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+def kernel_entry(name, err, ms, plain_ms, flops, moved, library_ms):
+    """One ``kernels`` JSON entry (its ``launches`` filled in later); both
+    serving kernels do fp32 arithmetic on the CUDA cores."""
+    bytes_ms = 1e3 * moved / HBM_BYTES_PER_S
+    ops_ms = 1e3 * flops / FP32_FLOPS
+    return {"name": name, "route": "cuda", "source": MODEL_SOURCE,
+            "replaces": REPLACES[name], "launches": None,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": library_ms}
+
+
+def serving_kernels(torch, dev, results) -> None:
+    """Phase 6: flash attention and WKV6 at the serving path's shapes,
+    against their plain versions, timed."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_cuda, flash_attention_plain, visible)
+    from repro_torch.kernels.rwkv6_scan import wkv6_cuda, wkv6_plain
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device=dev).manual_seed(13)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    i32 = dict(dtype=torch.int32, device=dev)
+    log("[6] serving kernels against their plain versions")
+    # (label, B, Sq, Skv, H, K, D, first query position, written slots,
+    #  window): lm100m prefill into the 577-slot cache of prompt 512 +
+    # 64 new tokens + 1, decode at positions 512 and 575, and a windowed
+    # case at a small size
+    cases = [("lm100m prefill", 8, 512, 577, 12, 4, 64, 0, 512, 0),
+             ("lm100m decode@512", 8, 1, 577, 12, 4, 64, 512, 513, 0),
+             ("lm100m decode@575", 8, 1, 577, 12, 4, 64, 575, 576, 0),
+             ("window 16", 2, 100, 100, 6, 2, 64, 0, 100, 16)]
+    timed = {}
+    worst = 0.0
+    for label, B, Sq, Skv, H, K, D, q0, written, window in cases:
+        q, k, v = randn(B, Sq, H, D), randn(B, Skv, K, D), randn(B, Skv, K, D)
+        qpos = torch.arange(q0, q0 + Sq, **i32)
+        kvpos = torch.arange(Skv, **i32)
+        kvpos[written:] = -1
+        kw = dict(causal=True, window=window)
+        got = flash_attention_cuda(q, k, v, qpos, kvpos, **kw)
+        want = flash_attention_plain(q, k, v, qpos, kvpos, **kw)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        # fp32 on both sides: the softmax sums over <= 577 keys in another
+        # order and the kernel rescales once per 64-key tile; outputs are
+        # means of N(0, 1) values, so 2e-5 absolute is ~100 fp32 ulps
+        if not bool(torch.isfinite(got).all()) or err > 2e-5:
+            raise AssertionError(f"flash_attention {label}: max abs err "
+                                 f"{err} against its plain version")
+        worst = max(worst, err)
+        pairs = int(visible(qpos, kvpos, causal=True, window=window).sum())
+        flops = 4 * D * pairs * B * H
+        moved = (q.numel() + k.numel() + v.numel() + got.numel()) * 4 \
+            + (Sq + Skv) * 4
+        ms = time_ms(torch, lambda: flash_attention_cuda(q, k, v, qpos,
+                                                         kvpos, **kw),
+                     reps=20)
+        plain_ms = time_ms(torch, lambda: flash_attention_plain(
+            q, k, v, qpos, kvpos, **kw), reps=5, warmup=1)
+        # one library call for the same function: SDPA with the boolean
+        # mask of the positions (timed only; the port never calls it)
+        mask = visible(qpos, kvpos, causal=True, window=window)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        lib = sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+        lib_err = float((lib.transpose(1, 2) - want).abs().max())
+        lib_ms = time_ms(torch, lambda: sdpa(qt, kt, vt, attn_mask=mask,
+                                             enable_gqa=True), reps=20)
+        entry = kernel_entry("flash_attention", err, ms, plain_ms, flops,
+                             moved, lib_ms)
+        timed[label] = entry
+        log(f"    flash {label:18s} err {err:.2e}  kernel {ms:8.4f} ms  "
+            f"plain {plain_ms:8.4f} ms  bound {entry['bound_ms']:.4f} ms "
+            f"({entry['bound_by']}; {flops / 1e9:.3f} GFLOP, "
+            f"{moved / 1e6:.2f} MB, {pairs:,} visible pairs per head)  "
+            f"{entry['bound_ms'] / ms:6.1%} of the bound  SDPA {lib_ms:.4f}"
+            f" ms (err {lib_err:.1e})")
+    main_entry = dict(timed["lm100m prefill"])
+    main_entry["max_abs_err"] = worst
+    main_entry["decode"] = {key: timed["lm100m decode@512"][key] for key in
+                            ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                             "bound_by", "library_ms")}
+    results["flash_attention"] = main_entry
+
+    # WKV6 at rwkv6-3b: B 4, 40 heads of 64, bf16 r/k/v, fp32 log_w in the
+    # model's regime (log_w = -exp(decay), decay ~ 0)
+    timed = {}
+    worst = 0.0
+    for label, T, state in (("rwkv6-3b prefill", 256, False),
+                            ("rwkv6-3b decode", 1, True)):
+        B, H, D = 4, 40, 64
+        r, k, v = (randn(B, T, H, D, dtype=torch.bfloat16) for _ in range(3))
+        log_w = -torch.exp(0.3 * randn(B, T, H, D))
+        u = 0.5 * randn(H, D)
+        s0 = randn(B, H, D, D) if state else torch.zeros((B, H, D, D),
+                                                          device=dev)
+        y, s1 = wkv6_cuda(r, k, v, log_w, u, s0)
+        y_ref, s1_ref = wkv6_plain(r, k, v, log_w, u, s0)
+        torch.cuda.synchronize()
+        err_y = float((y.float() - y_ref.float()).abs().max())
+        err_s = float((s1 - s1_ref).abs().max())
+        scale_y = float(y_ref.float().abs().max())
+        scale_s = float(s1_ref.abs().max())
+        # the state is fp32 on both sides, summed over D keys in another
+        # order: 1e-5 of its largest value.  y is that fp32 number rounded
+        # to bf16 on each side, so a rounding may flip: one bf16 ulp (at
+        # most 2^-7 of |y|) plus the fp32 term
+        bad_y = ((y.float() - y_ref.float()).abs()
+                 > 2 ** -7 * y_ref.float().abs() + 1e-5 * scale_y).any()
+        if (bool(bad_y) or err_s > 1e-5 * scale_s
+                or not bool(torch.isfinite(y.float()).all())):
+            raise AssertionError(f"wkv6 {label}: y err {err_y} (max |y| "
+                                 f"{scale_y}), state err {err_s} (max "
+                                 f"{scale_s}) against its plain version")
+        worst = max(worst, err_y, err_s)
+        flops = 7 * D * D * B * H * T
+        moved = 3 * r.numel() * 2 + log_w.numel() * 4 + u.numel() * 4 \
+            + y.numel() * 2 + 2 * s0.numel() * 4
+        ms = time_ms(torch, lambda: wkv6_cuda(r, k, v, log_w, u, s0),
+                     reps=20)
+        plain_ms = time_ms(torch, lambda: wkv6_plain(r, k, v, log_w, u, s0),
+                           reps=3, warmup=1)
+        entry = kernel_entry("wkv6", max(err_y, err_s), ms, plain_ms, flops,
+                             moved, None)
+        timed[label] = entry
+        log(f"    wkv6 {label:18s} y err {err_y:.2e} (max |y| "
+            f"{scale_y:.3g})  state err {err_s:.2e}  kernel {ms:8.4f} ms  "
+            f"plain {plain_ms:8.3f} ms  bound {entry['bound_ms']:.4f} ms "
+            f"({entry['bound_by']}; {flops / 1e9:.3f} GFLOP, "
+            f"{moved / 1e6:.2f} MB)  {entry['bound_ms'] / ms:6.1%} of the "
+            f"bound")
+    main_entry = dict(timed["rwkv6-3b prefill"])
+    main_entry["max_abs_err"] = worst
+    main_entry["decode"] = {key: timed["rwkv6-3b decode"][key] for key in
+                            ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                             "bound_by", "library_ms")}
+    results["wkv6"] = main_entry
+    torch.cuda.empty_cache()
+
+
+def serving_paths(torch, dev, results) -> None:
+    """Phase 7: ``serve`` at lm100m and at rwkv6-3b through the kernels,
+    counted, and held against the plain versions."""
+    from dataclasses import replace
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.launch.serve import prompt_tokens, serve
+    from repro_torch.launch.train import _preset
+    from repro_torch.models.layers import compute_dtype
+    from repro_torch.models.lm import (
+        decode_step, init_cache, init_lm, prefill_step)
+    from repro_torch.utils.trees import tree_leaves
+
+    rwkv = get_config("rwkv6-3b")
+    # (config, batch, prompt, new tokens, kernel, plain attention impl,
+    #  the main path?, tolerance of the logits relative to their largest
+    #  magnitude or None, and why)
+    runs = (
+        (_preset("lm100m"), 8, 512, 64, "flash_attention", "naive", True,
+         1e-4, "fp32 throughout; attention sums in another order, through "
+         "12 layers"),
+        (rwkv, 4, 256, 32, "wkv6", "auto", True, None,
+         "bf16 activations: the random-init 32-layer stack carries a "
+         "one-ulp flip of a bf16 WKV output into other logits, so this "
+         "run is held to finite logits and its gap is reported; the fp32 "
+         "run of the same model holds the numbers"),
+        (replace(rwkv, dtype="float32"), 4, 256, 4, "wkv6", "auto", False,
+         1e-2, "fp32: the kernel and the scan sum in other orders, and the "
+         "random-init 32-layer stack amplifies that difference"),
+    )
+    params, params_for = None, None
+    for (cfg, batch, prompt_len, gen, kernel, plain_impl, main_path, rtol,
+         why) in runs:
+        torch.cuda.reset_peak_memory_stats()
+        if params_for != cfg.name:
+            params = None
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            params = init_lm(cfg, 0, dev, draw_on=dev)
+            torch.cuda.synchronize()
+            params_for = cfg.name
+            n_params = sum(x.numel() for x in tree_leaves(params))
+            if n_params != cfg.param_count():
+                raise AssertionError(f"{cfg.name}: {n_params} parameters, "
+                                     f"config says {cfg.param_count()}")
+            log(f"[7] {cfg.name}: {n_params:,} fp32 parameters drawn on the "
+                f"card in {time.perf_counter() - t0:.1f} s")
+        log(f"[7] {cfg.name} serve, {cfg.dtype} compute: batch {batch}, "
+            f"prompt {prompt_len}, {gen} new tokens"
+            + ("" if main_path else " (a check of the numbers, not the "
+               "main path)"))
+        labels = ((("kernel", "kernel", "kernel"),
+                   ("plain", plain_impl, "scan")) if main_path
+                  else (("kernel", "kernel", "kernel"),))
+        runs_out = {}
+        for label, impl, rec_impl in labels:
+            build.reset_launches()
+            runs_out[label] = out = serve(
+                cfg, batch=batch, prompt_len=prompt_len, gen=gen, device=dev,
+                impl=impl, rec_impl=rec_impl, params=params,
+                keep_logits=True)
+            launches = {k: v for k, v in build.LAUNCHES.items() if v}
+            log(f"    {label:6s} prefill {out['prefill_s']:.4f} s  decode "
+                f"{out['decode_s']:.4f} s  {out['decode_tok_per_s']:.1f} "
+                f"tok/s  launches {launches}")
+            if label == "kernel":
+                want = cfg.num_layers * (1 + gen)
+                if launches.get(kernel, 0) != want:
+                    raise AssertionError(f"{cfg.name} serve launched "
+                                         f"{kernel} {launches.get(kernel, 0)}"
+                                         f" times, want {want}")
+                if main_path:
+                    results[kernel]["launches"] = launches[kernel]
+            elif launches:
+                raise AssertionError(f"the plain serve launched {launches}")
+        ker = runs_out["kernel"]
+        # the plain versions on the same prompt, then one decode step fed
+        # the kernel run's first token
+        cache = init_cache(cfg, batch, prompt_len + gen + 1,
+                           dtype=compute_dtype(cfg), device=dev)
+        prompt = torch.from_numpy(prompt_tokens(cfg, batch, prompt_len,
+                                                0)).to(dev)
+        with torch.no_grad():
+            p_logits, cache = prefill_step(params, cache, {"tokens": prompt},
+                                           cfg, impl=plain_impl,
+                                           rec_impl="scan")
+            d_logits, _ = decode_step(params, cache, ker["tokens"][:, :1],
+                                      prompt_len, cfg, impl=plain_impl,
+                                      rec_impl="scan")
+        for what, got, want in (("prefill", ker["prefill_logits"], p_logits),
+                                ("first decode", ker["decode_logits"],
+                                 d_logits)):
+            got, want = got.float(), want.float()
+            scale = float(want.abs().max())
+            err = float((got - want).abs().max())
+            finite = bool(torch.isfinite(got).all())
+            tol = "not held" if rtol is None else f"tolerance {rtol:.3g} of it"
+            log(f"    {what} logits {tuple(got.shape)}: max abs err {err:.4g}"
+                f" against the plain versions (max |logit| {scale:.4g}; "
+                f"{tol}: {why})")
+            if not finite or got.shape != (batch, 1, cfg.vocab_size) \
+                    or (rtol is not None and err > rtol * scale):
+                raise AssertionError(f"{cfg.name} serve {what} logits")
+        if main_path:
+            same = float((ker["tokens"] == runs_out["plain"]["tokens"])
+                         .float().mean())
+            log(f"    generated tokens equal to the plain run's: {same:.1%}")
+        log(f"    peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        del cache, runs_out, ker, p_logits, d_logits
+    del params
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -123,11 +396,12 @@ def main() -> int:
 
     # ---- 2. build -------------------------------------------------------
     t0 = time.perf_counter()
-    build.lib()
-    log(f"[2] built {build.library_path().name} in "
+    paths = build.build_all()
+    log(f"[2] built {', '.join(p.name for p in paths)} in "
         f"{time.perf_counter() - t0:.1f} s")
     for line in build.build_log.splitlines():
-        if "registers" in line or "spill" in line:
+        if ("registers" in line or "spill" in line or "entry" in line
+                or line.startswith("---")):
             log("    ptxas: " + line.strip())
 
     # ---- 3. every kernel at lm100m x 4 pods, against its plain version ---
@@ -245,7 +519,7 @@ def main() -> int:
         library_ms = None if library is None else time_ms(torch, library,
                                                           reps=20)
         results[name] = {
-            "name": name, "route": "cuda", "source": SOURCE,
+            "name": name, "route": "cuda", "source": WIRE_SOURCE,
             "replaces": REPLACES[name], "launches": None,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(bytes_ms, ops_ms),
@@ -409,7 +683,12 @@ def main() -> int:
             raise AssertionError(f"lmtiny {compression} on the card "
                                  f"disagrees with the CPU run")
 
-    # ---- 6. result lines -------------------------------------------------
+    del w_global, g_leaves
+    torch.cuda.empty_cache()
+    serving_kernels(torch, dev, results)
+    serving_paths(torch, dev, results)
+
+    # ---- 8. result lines -------------------------------------------------
     print(json.dumps({"kernels": list(results.values())}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

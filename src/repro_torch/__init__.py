@@ -1,12 +1,13 @@
 """PyTorch + CUDA port of the Hermes reproduction (``src/repro`` is the
 untouched JAX reference).
 
-This slice runs the synchronous Level-B Hermes LM round: pod-stacked local
-training of the dense GQA LM, the z-score gate, and the gated loss-weighted
-merge over the ``none``/``fp16``/``int4`` wire formats.  The four wire
-kernels (int4 pack, unpack, packed dequant-merge and the fp32 merge) are
-hand-written CUDA for ``sm_90a`` under ``kernels/csrc``; every one has a
-plain PyTorch version beside it that CPU tensors take.
+The port runs the Level-B Hermes LM round (pod-stacked local training of
+the dense GQA LM, the z-score gate, and the gated loss-weighted merge over
+the ``none`` / ``fp16`` / ``int8`` / ``int4`` wires, synchronous or async)
+and serving (prefill and greedy decode of the dense LM and of RWKV6).  Its
+kernels (the wire kernels, flash attention and WKV6) are hand-written CUDA
+for ``sm_90a`` under ``kernels/csrc``; every one has a plain PyTorch
+version beside it that CPU tensors take.
 """
 import torch
 

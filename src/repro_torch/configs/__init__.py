@@ -1,0 +1,35 @@
+"""Architecture registry of the port (the reference's ``repro.configs``,
+for the architectures whose paths are ported).
+
+Each module exports ``CONFIG`` (the published configuration) and
+``smoke_config()`` (a small same-family configuration for the CPU tests).
+"""
+from __future__ import annotations
+
+import importlib
+from typing import Dict
+
+from repro_torch.config import ModelConfig
+
+# arch-id -> module name
+_REGISTRY: Dict[str, str] = {
+    "rwkv6-3b": "rwkv6_3b",
+}
+
+
+def _module(arch: str):
+    if arch not in _REGISTRY:
+        raise KeyError(f"unknown arch {arch!r}; ported: {sorted(_REGISTRY)}")
+    return importlib.import_module(f"repro_torch.configs.{_REGISTRY[arch]}")
+
+
+def get_config(arch: str) -> ModelConfig:
+    cfg = _module(arch).CONFIG
+    cfg.validate()
+    return cfg
+
+
+def get_smoke_config(arch: str) -> ModelConfig:
+    cfg = _module(arch).smoke_config()
+    cfg.validate()
+    return cfg

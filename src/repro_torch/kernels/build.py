@@ -1,11 +1,12 @@
-"""Build and bind the CUDA wire kernels (``csrc/wire_kernels.cu``).
+"""Build and bind the CUDA kernels (``csrc/*.cu``).
 
-``nvcc`` compiles the source for ``sm_90a`` into a shared library with a
-plain C interface at first use, and ``ctypes`` loads it.  The library is
-named after a hash of the source and the flags, so an edited source is
-rebuilt and an unchanged one is built once per checkout.  The build lands
-in ``build/`` at the repository root (git-ignored).  Nothing here runs at
-import: the CPU tests import every module.
+``nvcc`` compiles each source for ``sm_90a`` into a shared library with a
+plain C interface at first use, and ``ctypes`` loads it.  A library is
+named after a hash of its source and the flags, so an edited source is
+rebuilt and an unchanged one is built once per checkout.  The builds land
+in ``build/`` at the repository root (git-ignored); :func:`build_all`
+starts one ``nvcc`` per missing library, all at once.  Nothing here runs
+at import: the CPU tests import every module.
 
 Each launch goes through :func:`launch`, which raises when the C launcher
 reports a CUDA error and counts successful launches per kernel in
@@ -21,32 +22,46 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "wire_kernels.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-ARGTYPES = {
-    "pack_int4": (_P, _P, _I64, _I64, _I64, _P),
-    "unpack_int4": (_P, _P, _I64, _I64, _I64, _P),
-    "dequant_merge_packed": (_P, _P, _P, _P, _P, _I32, _I64, _I64, _I64,
-                             _I64, _P),
-    "loss_weighted_update": (_P, _P, _P, _P, _I32, _I64, _P),
-    "dequant_merge": (_P, _P, _P, _P, _P, _I32, _I64, _I64, _I64, _I64, _P),
-    "quantize_int8": (_P, _P, _P, _I64, _I64, _P),
-    "dequantize_int8": (_P, _P, _P, _I64, _P),
+_P, _I64, _I32, _F32 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                        ctypes.c_float)
+#: library (``csrc/<name>.cu``) -> kernel -> argument types of
+#: ``launch_<kernel>`` before its trailing stream
+LIBRARIES = {
+    "wire_kernels": {
+        "pack_int4": (_P, _P, _I64, _I64, _I64, _P),
+        "unpack_int4": (_P, _P, _I64, _I64, _I64, _P),
+        "dequant_merge_packed": (_P, _P, _P, _P, _P, _I32, _I64, _I64, _I64,
+                                 _I64, _P),
+        "loss_weighted_update": (_P, _P, _P, _P, _I32, _I64, _P),
+        "dequant_merge": (_P, _P, _P, _P, _P, _I32, _I64, _I64, _I64, _I64,
+                          _P),
+        "quantize_int8": (_P, _P, _P, _I64, _I64, _P),
+        "dequantize_int8": (_P, _P, _P, _I64, _P),
+    },
+    "model_kernels": {
+        "flash_attention": (_P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32,
+                            _I32, _I32, _I32, _I32, _I32, _F32, _P),
+        "wkv6": (_P, _P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32,
+                 _I32, _P),
+    },
 }
+_LIBRARY_OF = {kern: lib_name for lib_name, kerns in LIBRARIES.items()
+               for kern in kerns}
 
 #: successful launches per kernel since the last :func:`reset_launches`
-LAUNCHES: Dict[str, int] = {name: 0 for name in ARGTYPES}
+LAUNCHES: Dict[str, int] = {name: 0 for name in _LIBRARY_OF}
 
 _lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
+_libs: Dict[str, ctypes.CDLL] = {}
 build_log: str = ""
 
 
@@ -62,56 +77,78 @@ def _nvcc() -> str:
     fallback = Path("/usr/local/cuda/bin/nvcc")
     if fallback.exists():
         return str(fallback)
-    raise RuntimeError("nvcc not found: the CUDA wire kernels are built on "
-                       "a machine with the CUDA toolkit")
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+                       "machine with the CUDA toolkit")
 
 
-def library_path() -> Path:
-    digest = hashlib.sha1(SOURCE.read_bytes()
+def source(name: str) -> Path:
+    return CSRC / f"{name}.cu"
+
+
+def library_path(name: str) -> Path:
+    digest = hashlib.sha1(source(name).read_bytes()
                           + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"libwire_kernels_{digest}.so"
+    return BUILD_DIR / f"lib{name}_{digest}.so"
 
 
-def build() -> Path:
-    """Compile the source if its library is missing; returns its path."""
+def build_all(names: Optional[List[str]] = None) -> List[Path]:
+    """Compile every missing library of ``names`` (default: all) with one
+    ``nvcc`` each, started together; returns the libraries' paths."""
     global build_log
-    out = library_path()
-    if out.exists():
-        return out
+    names = list(LIBRARIES) if names is None else names
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    jobs = []
     try:
-        res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                             capture_output=True, text=True)
-        build_log = res.stdout + res.stderr
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{build_log}")
-        os.replace(tmp, out)  # atomic: a concurrent builder sees all or none
+        for name in names:
+            out = library_path(name)
+            if out.exists():
+                continue
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            proc = subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(source(name))],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            jobs.append((name, out, tmp, proc))
+        failed = []
+        for name, out, tmp, proc in jobs:
+            log, _ = proc.communicate()
+            build_log += f"--- {source(name).name}\n{log}"
+            if proc.returncode != 0:
+                failed.append(f"{name} ({proc.returncode})")
+            else:
+                os.replace(tmp, out)  # atomic: a concurrent builder sees
+                #                       all or none
+        if failed:
+            raise RuntimeError(f"nvcc failed for {', '.join(failed)}:\n"
+                               f"{build_log}")
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out
+        for _, _, tmp, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    return [library_path(name) for name in names]
 
 
-def lib() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
-    global _lib
+def lib(name: str) -> ctypes.CDLL:
+    """The loaded library ``name`` (built on first call)."""
     with _lock:
-        if _lib is None:
-            handle = ctypes.CDLL(str(build()))
-            for name, argtypes in ARGTYPES.items():
-                fn = getattr(handle, "launch_" + name)
+        if name not in _libs:
+            path, = build_all([name])
+            handle = ctypes.CDLL(str(path))
+            for kern, argtypes in LIBRARIES[name].items():
+                fn = getattr(handle, "launch_" + kern)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
-            _lib = handle
-    return _lib
+            _libs[name] = handle
+    return _libs[name]
 
 
 def launch(name: str, device: torch.device, *args) -> None:
     """Call ``launch_<name>`` on ``device``'s current stream; raise on a
     CUDA error, count the launch otherwise."""
-    fn = getattr(lib(), "launch_" + name)
+    fn = getattr(lib(_LIBRARY_OF[name]), "launch_" + name)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(*args, stream)

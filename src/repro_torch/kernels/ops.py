@@ -6,9 +6,11 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import dequant_merge as _dqm
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import loss_weighted_update as _lwu
 from repro_torch.kernels import pack as _pk
 from repro_torch.kernels import quantize as _qz
+from repro_torch.kernels import rwkv6_scan as _wkv
 
 
 def pack_int4(q: torch.Tensor, *, axis: int = -1) -> torch.Tensor:
@@ -66,3 +68,24 @@ def loss_weighted_update(g, pods, w1, w2, denom, any_push) -> torch.Tensor:
         return _lwu.loss_weighted_update_cuda(g, pods, w1, w2, denom,
                                               any_push)
     return _lwu.loss_weighted_update_plain(g, pods, w1, w2, denom, any_push)
+
+
+def flash_attention(q, k, v, q_positions, kv_positions, *,
+                    causal: bool = True, window: int = 0,
+                    scale=None) -> torch.Tensor:
+    """GQA attention masked by positions: q (B,Sq,H,D), k/v (B,Skv,K,Dv)
+    -> (B,Sq,H,Dv) in q's dtype."""
+    if q.is_cuda:
+        return _fa.flash_attention_cuda(q, k, v, q_positions, kv_positions,
+                                        causal=causal, window=window,
+                                        scale=scale)
+    return _fa.flash_attention_plain(q, k, v, q_positions, kv_positions,
+                                     causal=causal, window=window,
+                                     scale=scale)
+
+
+def wkv6(r, k, v, log_w, u, state):
+    """The exact WKV6 recurrence: (B,T,H,D) inputs -> (y, new state)."""
+    if r.is_cuda:
+        return _wkv.wkv6_cuda(r, k, v, log_w, u, state)
+    return _wkv.wkv6_plain(r, k, v, log_w, u, state)

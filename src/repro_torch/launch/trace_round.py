@@ -22,11 +22,11 @@ from repro_torch.launch.train import _preset, train_hermes
 RANGES = ("hermes/pod_step", "hermes/round")
 
 
-def _device_us(evt) -> float:
+def device_us(evt, ranges=RANGES) -> float:
     """Device time of a kernel or copy entry; 0 for host-side ops, whose
     attributed device time would count each kernel twice, and for the
-    trainer's named ranges, which the trace mirrors on the device."""
-    if evt.device_type != torch.autograd.DeviceType.CUDA or evt.key in RANGES:
+    named ``ranges``, which the trace mirrors on the device."""
+    if evt.device_type != torch.autograd.DeviceType.CUDA or evt.key in ranges:
         return 0.0
     return float(evt.self_device_time_total)
 
@@ -53,9 +53,9 @@ def main(argv=None) -> None:
     avgs = prof.key_averages()
     host_us = {r: sum(e.cpu_time_total for e in avgs if e.key == r)
                for r in RANGES}
-    kernels = sorted((e for e in avgs if _device_us(e) > 0),
-                     key=_device_us, reverse=True)
-    device_us = sum(_device_us(e) for e in kernels)
+    kernels = sorted((e for e in avgs if device_us(e) > 0),
+                     key=device_us, reverse=True)
+    device_us = sum(device_us(e) for e in kernels)
     span_us = sum(host_us.values())
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
@@ -65,7 +65,7 @@ def main(argv=None) -> None:
         "device_kernel_ms": device_us / 1e3,
         "device_busy_share": device_us / span_us if span_us else None,
         "top_kernels": [{"name": e.key[:90], "calls": e.count,
-                         "device_ms": _device_us(e) / 1e3}
+                         "device_ms": device_us(e) / 1e3}
                         for e in kernels[:25]],
     }))
 

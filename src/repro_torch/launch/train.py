@@ -30,6 +30,7 @@ from repro_torch.bridge import from_numpy
 from repro_torch.config import (
     FAMILY_DENSE, HermesConfig, ModelConfig, OptimizerConfig,
 )
+from repro_torch.configs import get_smoke_config
 from repro_torch.data.synthetic import make_batches, make_lm_dataset
 from repro_torch.dist.hermes_sync import (
     hermes_commit, hermes_dispatch, hermes_pod_state, hermes_round,
@@ -43,16 +44,19 @@ Tree = Any
 
 
 def _preset(name: str) -> ModelConfig:
+    """The reference's ``_preset``: the two Level-B LMs (fp32), else the
+    smoke configuration of a ported architecture."""
     if name == "lm100m":
         return ModelConfig(
             name="lm100m", family=FAMILY_DENSE, num_layers=12, d_model=768,
             num_heads=12, num_kv_heads=4, d_ff=2048, vocab_size=32000,
-            qk_norm=True)
+            qk_norm=True, dtype="float32")
     if name == "lmtiny":
         return ModelConfig(
             name="lmtiny", family=FAMILY_DENSE, num_layers=2, d_model=64,
-            num_heads=4, num_kv_heads=2, d_ff=128, vocab_size=512)
-    raise KeyError(f"unknown preset {name!r} (want lm100m or lmtiny)")
+            num_heads=4, num_kv_heads=2, d_ff=128, vocab_size=512,
+            dtype="float32")
+    return get_smoke_config(name)
 
 
 def _sync(device: torch.device) -> None:

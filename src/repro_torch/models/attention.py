@@ -1,11 +1,24 @@
-"""GQA attention (the reference's ``models/attention.py``, dense train
-path): ``naive`` materialises the (Sq, Skv) scores, ``blocked`` is the
-flash-style online softmax over KV chunks in plain PyTorch.  ``auto``
-picks naive up to 256 x 256 scores, as the reference does.
+"""GQA attention and its KV caches (the reference's ``models/attention.py``,
+GQA path).
+
+``naive`` materialises the (Sq, Skv) scores, ``blocked`` is the
+flash-style online softmax over KV chunks in plain PyTorch, and ``auto``
+picks naive up to 256 x 256 scores, as the reference does; all three run
+in fp32 and return q's dtype.  ``kernel`` is the port's counterpart of the
+reference's ``pallas``: it reaches ``kernels.ops.flash_attention`` (the
+CUDA kernel for a CUDA tensor), which takes the positions the reference's
+Pallas wrapper drops.  The kernel has no backward, so training keeps
+``auto``.
+
+Masks: key ``s`` is visible to query ``i`` when its position is ``>= 0``
+(a written cache slot), and, when causal, not after the query, and, with
+a window, less than ``window`` before it.
 
 Layouts are the reference's: q (B, S, H, D), k/v (B, S, K, D), H = K*G,
 and the projections ``wq (d, H, hd)``, ``wk/wv (d, K, hd)``,
-``wo (H, hd, d)``.
+``wo (H, hd, d)``.  Decode caches are updated in place (the reference
+returns new arrays): ``decode_attention`` writes the new keys and values
+into the cache it is given and returns that same dict.
 """
 from __future__ import annotations
 
@@ -14,36 +27,41 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.config import ModelConfig
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels.flash_attention import NEG_INF, visible
 from repro_torch.models.layers import apply_rope, dense_init, rms_norm
 
-NEG_INF = -1e30
+
+def _positions(positions, n: int, device) -> torch.Tensor:
+    if positions is None:
+        return torch.arange(n, device=device)
+    return positions
 
 
-def _mask(qpos, kpos, causal: bool) -> torch.Tensor:
-    m = kpos[None, :] >= 0
-    if causal:
-        m = m & (kpos[None, :] <= qpos[:, None])
-    return m
-
-
-def naive_attention(q, k, v, *, causal: bool = True,
+def naive_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    q_positions: Optional[torch.Tensor] = None,
+                    kv_positions: Optional[torch.Tensor] = None,
                     scale: Optional[float] = None) -> torch.Tensor:
     B, Sq, H, D = q.shape
-    K, Skv = k.shape[2], k.shape[1]
+    K = k.shape[2]
     G = H // K
     scale = scale if scale is not None else D ** -0.5
-    qq = q.reshape(B, Sq, K, G, D)
-    scores = torch.einsum("bqkgd,bskd->bkgqs", qq, k) * scale
-    pos = torch.arange(max(Sq, Skv), device=q.device)
-    mask = _mask(pos[:Sq], pos[:Skv], causal)
+    qq = q.reshape(B, Sq, K, G, D).to(torch.float32)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qq,
+                          k.to(torch.float32)) * scale
+    mask = visible(_positions(q_positions, Sq, q.device),
+                   _positions(kv_positions, k.shape[1], q.device),
+                   causal=causal, window=window)
     scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
     probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkgqs,bskd->bqkgd", probs, v)
-    return out.reshape(B, Sq, H, v.shape[-1])
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs, v.to(torch.float32))
+    return out.reshape(B, Sq, H, v.shape[-1]).to(q.dtype)
 
 
-def blocked_attention(q, k, v, *, causal: bool = True, q_chunk: int = 1024,
-                      kv_chunk: int = 1024,
+def blocked_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                      q_positions: Optional[torch.Tensor] = None,
+                      kv_positions: Optional[torch.Tensor] = None,
+                      q_chunk: int = 1024, kv_chunk: int = 1024,
                       scale: Optional[float] = None) -> torch.Tensor:
     """Online-softmax attention carrying (acc, row_max, row_sum) over KV
     chunks for each query chunk; equal to :func:`naive_attention`."""
@@ -54,8 +72,8 @@ def blocked_attention(q, k, v, *, causal: bool = True, q_chunk: int = 1024,
     scale = scale if scale is not None else D ** -0.5
     q_chunk, kv_chunk = min(q_chunk, Sq), min(kv_chunk, Skv)
     pq, pk = (-Sq) % q_chunk, (-Skv) % kv_chunk
-    qpos = torch.arange(Sq, device=q.device)
-    kpos = torch.arange(Skv, device=q.device)
+    qpos = _positions(q_positions, Sq, q.device)
+    kpos = _positions(kv_positions, Skv, q.device)
     if pq:
         q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, pq))
         qpos = torch.cat([qpos, qpos[-1:].expand(pq)])
@@ -64,21 +82,21 @@ def blocked_attention(q, k, v, *, causal: bool = True, q_chunk: int = 1024,
         v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pk))
         kpos = torch.cat([kpos, kpos.new_full((pk,), -1)])
     nq, nk = q.shape[1] // q_chunk, k.shape[1] // kv_chunk
-    qc = q.reshape(B, nq, q_chunk, K, G, D)
-    kc = k.reshape(B, nk, kv_chunk, K, D)
-    vc = v.reshape(B, nk, kv_chunk, K, Dv)
+    qc = q.reshape(B, nq, q_chunk, K, G, D).to(torch.float32)
+    kc = k.reshape(B, nk, kv_chunk, K, D).to(torch.float32)
+    vc = v.reshape(B, nk, kv_chunk, K, Dv).to(torch.float32)
     outs = []
     for qi in range(nq):
         qb = qc[:, qi]
         qp = qpos[qi * q_chunk:(qi + 1) * q_chunk]
-        acc = q.new_zeros((B, K, G, q_chunk, Dv))
-        mx = q.new_full((B, K, G, q_chunk), NEG_INF)
-        sm = q.new_zeros((B, K, G, q_chunk))
+        acc = qc.new_zeros((B, K, G, q_chunk, Dv))
+        mx = qc.new_full((B, K, G, q_chunk), NEG_INF)
+        sm = qc.new_zeros((B, K, G, q_chunk))
         for ki in range(nk):
             kp = kpos[ki * kv_chunk:(ki + 1) * kv_chunk]
             s = torch.einsum("bqkgd,bskd->bkgqs", qb, kc[:, ki]) * scale
-            s = torch.where(_mask(qp, kp, causal), s,
-                            torch.full_like(s, NEG_INF))
+            s = torch.where(visible(qp, kp, causal=causal, window=window),
+                            s, torch.full_like(s, NEG_INF))
             new_mx = torch.maximum(mx, torch.amax(s, dim=-1))
             alpha = torch.exp(mx - new_mx)
             p = torch.exp(s - new_mx[..., None])
@@ -89,18 +107,29 @@ def blocked_attention(q, k, v, *, causal: bool = True, q_chunk: int = 1024,
         outs.append(acc / torch.clamp(sm, min=1e-30)[..., None])
     out = torch.stack(outs)  # (nq, B, K, G, qc, Dv)
     out = out.permute(1, 0, 4, 2, 3, 5).reshape(B, nq * q_chunk, H, Dv)
-    return out[:, :Sq]
+    return out[:, :Sq].to(q.dtype)
 
 
-def attention_impl(q, k, v, *, causal: bool = True,
-                   impl: str = "auto") -> torch.Tensor:
+def attention_impl(q, k, v, *, causal: bool = True, window: int = 0,
+                   q_positions: Optional[torch.Tensor] = None,
+                   kv_positions: Optional[torch.Tensor] = None,
+                   impl: str = "auto",
+                   scale: Optional[float] = None) -> torch.Tensor:
     if impl == "auto":
         impl = "naive" if q.shape[1] * k.shape[1] <= 256 * 256 else "blocked"
+    kw = dict(causal=causal, window=window, scale=scale)
+    if impl == "kernel":
+        return kops.flash_attention(
+            q, k, v, _positions(q_positions, q.shape[1], q.device),
+            _positions(kv_positions, k.shape[1], q.device), **kw)
     if impl == "naive":
-        return naive_attention(q, k, v, causal=causal)
+        return naive_attention(q, k, v, q_positions=q_positions,
+                               kv_positions=kv_positions, **kw)
     if impl == "blocked":
-        return blocked_attention(q, k, v, causal=causal)
-    raise ValueError(f"attention impl {impl!r} (want auto|naive|blocked)")
+        return blocked_attention(q, k, v, q_positions=q_positions,
+                                 kv_positions=kv_positions, **kw)
+    raise ValueError(f"attention impl {impl!r} "
+                     f"(want auto|naive|blocked|kernel)")
 
 
 def init_attention(cfg: ModelConfig, gen: torch.Generator,
@@ -120,9 +149,10 @@ def init_attention(cfg: ModelConfig, gen: torch.Generator,
 
 
 def _project_qkv(p, x, cfg: ModelConfig, positions):
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    dt = x.dtype
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
+    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(dt))
+    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(dt))
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"])
         k = rms_norm(k, p["k_norm"])
@@ -134,8 +164,62 @@ def _project_qkv(p, x, cfg: ModelConfig, positions):
 
 def apply_attention(p, x: torch.Tensor, cfg: ModelConfig, *,
                     positions: torch.Tensor, causal: bool = True,
-                    impl: str = "auto") -> torch.Tensor:
+                    window: int = 0, impl: str = "auto") -> torch.Tensor:
     """Full-sequence self-attention.  x: (B, S, d)."""
     q, k, v = _project_qkv(p, x, cfg, positions)
-    out = attention_impl(q, k, v, causal=causal, impl=impl)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    out = attention_impl(q, k, v, causal=causal, window=window,
+                         q_positions=positions, impl=impl)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+                  window: int = 0, dtype=torch.bfloat16,
+                  device="cpu") -> Dict[str, torch.Tensor]:
+    """Linear cache, or ring buffer of ``window`` slots for local
+    attention; ``pos`` is each slot's absolute position, -1 if unwritten."""
+    hd = cfg.resolved_head_dim
+    slots = min(max_len, window) if window > 0 else max_len
+    shape = (batch, slots, cfg.num_kv_heads, hd)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "pos": torch.full((slots,), -1, dtype=torch.int32, device=device),
+    }
+
+
+def decode_attention(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
+                     cfg: ModelConfig, *, pos: int, window: int = 0,
+                     impl: str = "auto"):
+    """Stateful attention: x (B, T, d) starting at absolute position
+    ``pos``.  T == 1 is token decode; T > 1 is prefill.  A linear cache
+    attends over all its slots (unwritten ones masked by ``pos = -1``);
+    a ring buffer (``window > 0``) prefills over the raw sequence and
+    keeps the last ``slots`` positions.  Returns ``(out, cache)``, the
+    cache written in place."""
+    T = x.shape[1]
+    positions = torch.arange(pos, pos + T, dtype=torch.int32, device=x.device)
+    q, k, v = _project_qkv(p, x, cfg, positions)
+    ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
+    slots = ck.shape[1]
+    if window > 0 and T > 1:
+        out = attention_impl(q, k, v, causal=True, window=window,
+                             q_positions=positions, impl=impl)
+        tail = min(slots, T)
+        tail_pos = positions[-tail:]
+        idx = tail_pos % slots
+        ck[:, idx] = k[:, -tail:].to(ck.dtype)
+        cv[:, idx] = v[:, -tail:].to(cv.dtype)
+        cpos[idx] = tail_pos.to(torch.int32)
+    else:
+        slot = pos % slots if window > 0 else pos
+        if slot + T > slots:
+            raise ValueError(f"decode_attention: {T} positions from slot "
+                             f"{slot} overrun a {slots}-slot cache")
+        ck[:, slot:slot + T] = k.to(ck.dtype)
+        cv[:, slot:slot + T] = v.to(cv.dtype)
+        cpos[slot:slot + T] = positions.to(torch.int32)
+        out = attention_impl(q, ck, cv, causal=True, window=window,
+                             q_positions=positions, kv_positions=cpos,
+                             impl=impl)
+    out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
+    return out, cache

@@ -1,10 +1,12 @@
-"""Layer primitives of the dense LM (the reference's ``models/layers.py``,
-fp32): RMSNorm, SwiGLU MLP, RoPE, embedding / unembedding, ``dense_init``.
+"""Layer primitives (the reference's ``models/layers.py``): norms, the
+SwiGLU MLP, RoPE, embedding / unembedding, ``dense_init``.
 
-Parameters are plain dicts of tensors in the reference's layout, e.g.
+Parameters are plain dicts of fp32 tensors in the reference's layout, e.g.
 ``mlp.wi (d, f)`` and ``embedding.head (d, V)``, never ``nn.Linear``'s
 ``(out, in)``: the int4 wire blocks the rightmost 256-divisible axis of
-each leaf, so a transposed layout would quantize different blocks.
+each leaf, so a transposed layout would quantize different blocks.  Each
+function casts the weights it reads to the activations' dtype (the
+compute dtype), as the reference does.
 """
 from __future__ import annotations
 
@@ -13,7 +15,13 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.config import ModelConfig
+
 Params = Dict[str, torch.Tensor]
+
+
+def compute_dtype(cfg: ModelConfig) -> torch.dtype:
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
 def dense_init(gen: torch.Generator, shape: Sequence[int], device,
@@ -26,22 +34,43 @@ def dense_init(gen: torch.Generator, shape: Sequence[int], device,
     if len(shape) == 3:
         fan_in = shape[1]
     s = scale if scale is not None else 1.0 / np.sqrt(fan_in)
-    return (torch.randn(shape, generator=gen, dtype=torch.float32)
-            * s).to(device)
+    return (torch.randn(shape, generator=gen, dtype=torch.float32,
+                        device=gen.device) * s).to(device)
+
+
+def init_norm(cfg: ModelConfig, dim: int, device) -> Params:
+    p = {"scale": torch.ones((dim,), device=device)}
+    if cfg.norm_kind == "layernorm":
+        p["bias"] = torch.zeros((dim,), device=device)
+    return p
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
-    """RMS norm over the last axis: ``x * rsqrt(mean(x^2) + eps) * scale``."""
-    ms = torch.mean(torch.square(x), dim=-1, keepdim=True)
-    return x * torch.rsqrt(ms + eps) * scale
+    """RMS norm over the last axis: fp32 statistics, compute-dtype apply."""
+    ms = torch.mean(torch.square(x.to(torch.float32)), dim=-1, keepdim=True)
+    inv = torch.rsqrt(ms + eps).to(x.dtype)
+    return x * inv * scale.to(x.dtype)
+
+
+def apply_norm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Layernorm when ``p`` has a bias, else RMS norm; fp32 statistics
+    (population variance), compute-dtype apply."""
+    if "bias" not in p:
+        return rms_norm(x, p["scale"], eps)
+    xf = x.to(torch.float32)
+    var, mu = torch.var_mean(xf, dim=-1, keepdim=True, correction=0)
+    inv = torch.rsqrt(var + eps).to(x.dtype)
+    y = (x - mu.to(x.dtype)) * inv
+    return y * p["scale"].to(x.dtype) + p["bias"].to(x.dtype)
 
 
 def apply_mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
     """SwiGLU: ``(silu(x @ wg) * (x @ wi)) @ wo``."""
-    h = x @ p["wi"]
-    g = x @ p["wg"]
-    return (torch.nn.functional.silu(g) * h) @ p["wo"]
+    dt = x.dtype
+    h = x @ p["wi"].to(dt)
+    g = x @ p["wg"].to(dt)
+    return (torch.nn.functional.silu(g) * h) @ p["wo"].to(dt)
 
 
 def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
@@ -55,16 +84,19 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     hd = x.shape[-1]
     freqs = torch.from_numpy(rope_freqs(hd, theta)).to(x.device)
     angles = positions.to(torch.float32)[:, None] * freqs   # (seq, hd/2)
-    cos = torch.cos(angles)[:, None, :]
-    sin = torch.sin(angles)[:, None, :]
+    cos = torch.cos(angles)[:, None, :].to(x.dtype)
+    sin = torch.sin(angles)[:, None, :].to(x.dtype)
     x1, x2 = torch.chunk(x, 2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
 
-def embed(p: Params, tokens: torch.Tensor) -> torch.Tensor:
-    return p["table"][tokens]
+def embed(p: Params, tokens: torch.Tensor, dtype: torch.dtype
+          ) -> torch.Tensor:
+    """Gather rows, then cast (the same values as the reference's cast of
+    the whole table, without a compute-dtype copy of it)."""
+    return p["table"][tokens].to(dtype)
 
 
 def unembed(p: Params, x: torch.Tensor) -> torch.Tensor:
     w = p["head"] if "head" in p else p["table"].T
-    return x @ w
+    return x @ w.to(x.dtype)

@@ -1,4 +1,5 @@
-"""The CUDA wire kernels against their plain PyTorch versions, on a card.
+"""The CUDA kernels (wire and serving) against their plain PyTorch
+versions, on a card.
 
 Every test carries the ``cuda`` marker and skips without a card.  The file
 imports neither JAX nor the reference, so it also runs on a machine that
@@ -16,11 +17,15 @@ from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels.dequant_merge import (
     dequant_merge_cuda, dequant_merge_packed_cuda,
 )
+from repro_torch.kernels.flash_attention import (
+    flash_attention_cuda, flash_attention_plain,
+)
 from repro_torch.kernels.loss_weighted_update import loss_weighted_update_cuda
 from repro_torch.kernels.pack import pack_int4_cuda, unpack_int4_cuda
 from repro_torch.kernels.quantize import (
     dequantize_int8_cuda, quantize_int8_cuda,
 )
+from repro_torch.kernels.rwkv6_scan import wkv6_cuda, wkv6_plain
 
 pytestmark = pytest.mark.cuda
 
@@ -28,7 +33,7 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture()
 def card():
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card: the wire kernels are CUDA only")
+        pytest.skip("needs an NVIDIA card: the kernels are CUDA only")
     return torch.device("cuda")
 
 
@@ -170,3 +175,109 @@ def test_train_hermes_on_card_runs_every_kernel(card):
     assert counts["int4"]["unpack_int4"] > 0
     assert counts["int4"]["dequant_merge_packed"] > 0
     assert counts["none"]["loss_weighted_update"] > 0
+
+
+def _attention_inputs(card, B, Sq, Skv, H, K, D, dtype, seed):
+    gen = torch.Generator(device=card).manual_seed(seed)
+    q, k, v = (torch.randn((B, S, n, D), generator=gen, device=card)
+               .to(dtype) for S, n in ((Sq, H), (Skv, K), (Skv, K)))
+    return q, k, v
+
+
+# (B, Sq, Skv, H, K, D, causal, window, q_start, written): queries at
+# positions q_start.., cache slots 0..written-1 at positions 0.. and the
+# rest unwritten (-1); written=None means a full contiguous KV.
+ATTENTION_CASES = [
+    (2, 37, 37, 6, 2, 64, True, 0, 0, None),      # G=3, ragged tiles
+    (2, 37, 37, 6, 2, 64, False, 0, 0, None),
+    (1, 100, 100, 4, 4, 32, True, 16, 0, None),   # sliding window
+    (3, 1, 90, 6, 2, 64, True, 0, 70, 71),        # decode at position 70
+    (2, 1, 90, 6, 2, 16, True, 16, 70, 71),       # windowed decode
+    (1, 20, 77, 4, 1, 128, True, 0, 0, 20),       # prefill into a cache
+]
+
+
+@pytest.mark.parametrize("case", ATTENTION_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain(card, case, dtype):
+    B, Sq, Skv, H, K, D, causal, window, q_start, written = case
+    q, k, v = _attention_inputs(card, B, Sq, Skv, H, K, D, dtype, 5)
+    qpos = torch.arange(q_start, q_start + Sq, dtype=torch.int32,
+                        device=card)
+    kvpos = torch.arange(Skv, dtype=torch.int32, device=card)
+    if written is not None:
+        kvpos[written:] = -1
+    kw = dict(causal=causal, window=window)
+    got = flash_attention_cuda(q, k, v, qpos, kvpos, **kw)
+    want = flash_attention_plain(q, k, v, qpos, kvpos, **kw)
+    assert got.dtype == dtype and got.shape == (B, Sq, H, D)
+    # fp32: sums over <= 100 keys in another order, a few rescalings per
+    # tile; bf16: both round one fp32 result, so one bf16 ulp (at most 2^-7
+    # of the value) apart
+    tol = 2e-5 if dtype == torch.float32 else 2 ** -7
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("B,T,H,D", [(2, 1, 3, 64), (1, 37, 2, 64),
+                                     (2, 70, 2, 32), (1, 5, 1, 16),
+                                     (1, 9, 2, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv6_kernel_matches_plain(card, B, T, H, D, dtype):
+    gen = torch.Generator(device=card).manual_seed(6)
+    r, k, v = (torch.randn((B, T, H, D), generator=gen, device=card)
+               .to(dtype) for _ in range(3))
+    # the model's decay regime: log_w = -exp(~0) ~ -1 per step
+    log_w = -torch.exp(0.3 * torch.randn((B, T, H, D), generator=gen,
+                                         device=card))
+    u = 0.5 * torch.randn((H, D), generator=gen, device=card)
+    s0 = torch.randn((B, H, D, D), generator=gen, device=card)
+    y, s = wkv6_cuda(r, k, v, log_w, u, s0)
+    y_ref, s_ref = wkv6_plain(r, k, v, log_w, u, s0)
+    assert y.dtype == dtype and s.dtype == torch.float32
+    # fp32 sums over D keys in another order: 1e-5 of the largest value;
+    # bf16 y: one bf16 ulp (at most 2^-7 of the value) on top
+    scale = float(y_ref.float().abs().max())
+    rtol = 1e-5 if dtype == torch.float32 else 2 ** -7
+    torch.testing.assert_close(y.float(), y_ref.float(), rtol=rtol,
+                               atol=1e-5 * scale)
+    torch.testing.assert_close(s, s_ref, rtol=1e-5,
+                               atol=1e-5 * float(s_ref.abs().max()))
+
+
+def test_model_kernel_wrappers_check_inputs_and_count_launches(card):
+    build.reset_launches()
+    q, k, v = _attention_inputs(card, 1, 4, 4, 2, 1, 64, torch.float32, 0)
+    pos = torch.arange(4, dtype=torch.int32, device=card)
+    ops.flash_attention(q, k, v, pos, pos)
+    assert build.LAUNCHES["flash_attention"] == 1
+    with pytest.raises(ValueError, match="head dims"):
+        flash_attention_cuda(q[..., :48], k[..., :48], v[..., :48], pos, pos)
+    with pytest.raises(TypeError):
+        flash_attention_cuda(q.half(), k.half(), v.half(), pos, pos)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_cuda(q, k, v, pos.cpu(), pos)
+    assert build.LAUNCHES["flash_attention"] == 1
+    r = torch.zeros((1, 3, 2, 64), device=card)
+    s0 = torch.zeros((1, 2, 64, 64), device=card)
+    u = torch.zeros((2, 64), device=card)
+    ops.wkv6(r, r, r, r, u, s0)
+    assert build.LAUNCHES["wkv6"] == 1
+    with pytest.raises(TypeError, match="log_w"):
+        wkv6_cuda(r, r, r, r.bfloat16(), u, s0)
+    with pytest.raises(ValueError, match="state"):
+        wkv6_cuda(r, r, r, r, u, s0[:, :1])
+    assert build.LAUNCHES["wkv6"] == 1
+
+
+@pytest.mark.parametrize("preset", ["lmtiny", "rwkv6-3b"])
+def test_serve_on_card_runs_the_kernels(card, preset):
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.train import _preset
+    cfg = _preset(preset)
+    name = "wkv6" if cfg.is_attention_free else "flash_attention"
+    build.reset_launches()
+    out = serve(cfg, batch=2, prompt_len=24, gen=6, keep_logits=True)
+    assert build.LAUNCHES[name] == cfg.num_layers * (1 + 6)
+    assert out["tokens"].shape == (2, 7)
+    assert bool(torch.isfinite(out["prefill_logits"].float()).all())

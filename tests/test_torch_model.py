@@ -31,7 +31,7 @@ def _cfgs(which):
     if which == "lmtiny":
         return jpreset("lmtiny"), tpreset("lmtiny")
     return (JModelConfig(remat=False, dtype="float32", **SMALL_QK),
-            ModelConfig(**SMALL_QK))
+            ModelConfig(dtype="float32", **SMALL_QK))
 
 
 def _batch(vocab, B, S, seed=0):
