@@ -4,10 +4,11 @@ untouched JAX reference).
 The port runs the Level-B Hermes LM round (pod-stacked local training of
 the dense GQA LM, the z-score gate, and the gated loss-weighted merge over
 the ``none`` / ``fp16`` / ``int8`` / ``int4`` wires, synchronous or async)
-and serving (prefill and greedy decode of the dense LM and of RWKV6).  Its
-kernels (the wire kernels, flash attention and WKV6) are hand-written CUDA
-for ``sm_90a`` under ``kernels/csrc``; every one has a plain PyTorch
-version beside it that CPU tensors take.
+and serving (prefill and greedy decode of the dense LM, of RWKV6 and of
+the RecurrentGemma hybrid).  Its kernels (the wire kernels, flash
+attention, WKV6 and the RG-LRU) are hand-written CUDA for ``sm_90a``
+under ``kernels/csrc``; every one has a plain PyTorch version beside it
+that CPU tensors take.
 """
 import torch
 

@@ -1,8 +1,9 @@
 """Parameter and cache trees across the framework boundary, through numpy.
 
-``from_numpy`` takes the JAX package's parameters (a nested dict of numpy
-arrays, ``jax.device_get(init_lm(...)[0])``) or one of its decode caches
-(``init_cache`` of the dense or the RWKV6 stack) and returns the port's
+``from_numpy`` takes the JAX package's parameters (nested dicts and lists
+of numpy arrays, ``jax.device_get(init_lm(...)[0])``) or one of its
+decode caches (``init_cache`` of the dense or the RWKV6 stack, or the
+hybrid's per-layer list) and returns the port's
 tensors on a device; ``to_numpy`` is the reverse, for the parity tests,
 and always copies, since the port updates its caches in place
 (bf16 leaves come back as fp32, which holds them exactly).  The

@@ -1,6 +1,7 @@
 """Run configuration: the subset of the reference's ``ModelConfig`` that
-the ported paths read (the dense GQA LM and the attention-free RWKV6 LM),
-plus ``HermesConfig`` and ``OptimizerConfig``.
+the ported paths read (the dense GQA LM, the attention-free RWKV6 LM and
+the RecurrentGemma hybrid), plus ``HermesConfig`` and
+``OptimizerConfig``.
 
 A copy, not an import: the port never imports the JAX package.  Field
 names and defaults are the reference's (``src/repro/config.py``) so one
@@ -26,18 +27,21 @@ VALID_FAMILIES = (FAMILY_DENSE, FAMILY_MOE, FAMILY_SSM, FAMILY_HYBRID,
 @dataclass(frozen=True)
 class RecurrentConfig:
     """Linear-recurrence blocks: ``rwkv6`` with an empty ``block_pattern``
-    is the attention-free RWKV6 LM; ``rglru`` and a non-empty pattern (the
-    RecurrentGemma hybrid) are not ported yet."""
+    is the attention-free RWKV6 LM; ``rglru`` with a pattern such as
+    ``("rec", "rec", "attn")`` is the RecurrentGemma hybrid."""
 
     kind: str  # "rwkv6" | "rglru"
+    lru_width: int = 0  # RG-LRU recurrence width (0 = d_model)
+    conv1d_width: int = 4  # temporal conv width of the RG-LRU block
     block_pattern: Tuple[str, ...] = ()
 
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """A decoder LM: the dense GQA stack (RMSNorm, SwiGLU, RoPE) or the
-    RWKV6 stack (layernorm, time-mix, channel-mix).  Parameters are fp32
-    (``param_dtype``); activations run in ``dtype``."""
+    """A decoder LM: the dense GQA stack (RMSNorm, SwiGLU, RoPE), the
+    RWKV6 stack (layernorm, time-mix, channel-mix) or the RecurrentGemma
+    hybrid (RG-LRU and local-attention blocks, GeLU MLP).  Parameters are
+    fp32 (``param_dtype``); activations run in ``dtype``."""
 
     name: str
     family: str
@@ -52,7 +56,7 @@ class ModelConfig:
     attn_window: int = 0  # 0 = global attention; >0 = sliding window
     rope_theta: float = 10000.0
     use_rope: bool = True
-    mlp_kind: str = "swiglu"  # swiglu | relu_sq (RWKV channel-mix)
+    mlp_kind: str = "swiglu"  # swiglu | gelu | relu_sq (RWKV channel-mix)
     norm_kind: str = "rmsnorm"  # rmsnorm | layernorm
     tie_embeddings: bool = False
     recurrent: Optional[RecurrentConfig] = None
@@ -67,6 +71,16 @@ class ModelConfig:
     @property
     def is_attention_free(self) -> bool:
         return self.recurrent is not None and not self.recurrent.block_pattern
+
+    @property
+    def is_hybrid(self) -> bool:
+        return self.recurrent is not None and bool(self.recurrent.block_pattern)
+
+    def layer_is_recurrent(self, layer_idx: int) -> bool:
+        """A hybrid layer's kind by the pattern: ``rec`` (RG-LRU) or an
+        attention block."""
+        pat = self.recurrent.block_pattern
+        return pat[layer_idx % len(pat)] == "rec"
 
     def validate(self) -> None:
         if self.family not in VALID_FAMILIES:
@@ -91,6 +105,20 @@ class ModelConfig:
             self.d_ff
         emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
         norm = 2 * d if self.norm_kind == "layernorm" else d
+        n_q, n_kv = self.num_heads * hd, self.num_kv_heads * hd
+        attn = d * n_q + 2 * d * n_kv + n_q * d + (2 * hd if self.qk_norm
+                                                   else 0)
+        mlp = (3 if self.mlp_kind == "swiglu" else 2) * d * f
+        if self.is_hybrid:
+            # RG-LRU: w_in_x, w_in_g (d x w), gate_a_w, gate_x_w (w x w),
+            # w_out (w x d), conv_w (cw x w) and conv_b, gate_a_b,
+            # gate_x_b, lam (w each)
+            w = self.recurrent.lru_width or d
+            rec = 3 * d * w + 2 * w * w + self.recurrent.conv1d_width * w \
+                + 4 * w
+            n_rec = sum(self.layer_is_recurrent(i) for i in range(L))
+            return (emb + n_rec * rec + (L - n_rec) * attn
+                    + L * (mlp + 2 * norm) + norm)
         if self.is_attention_free:
             # time-mix: 5 d x d projections, the mix and decay LoRAs, and
             # 10 vectors of d (mu_x, 5 mu, decay_base, bonus_u, ln_scale,
@@ -99,9 +127,7 @@ class ModelConfig:
             channel_mix = 2 * d * f + d * d + 2 * d
             per_layer = time_mix + channel_mix + 2 * norm
         else:
-            n_q, n_kv = self.num_heads * hd, self.num_kv_heads * hd
-            per_layer = (d * n_q + 2 * d * n_kv + n_q * d + 3 * d * f
-                         + 2 * norm + (2 * hd if self.qk_norm else 0))
+            per_layer = attn + mlp + 2 * norm
         return emb + L * per_layer + norm
 
 

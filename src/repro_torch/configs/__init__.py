@@ -13,6 +13,7 @@ from repro_torch.config import ModelConfig
 
 # arch-id -> module name
 _REGISTRY: Dict[str, str] = {
+    "recurrentgemma-2b": "recurrentgemma_2b",
     "rwkv6-3b": "rwkv6_3b",
 }
 

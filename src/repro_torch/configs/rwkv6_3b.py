@@ -2,7 +2,7 @@
 
 32L d_model=2560 (attention-free) d_ff=8960 vocab=65536.  WKV head dim 64
 (40 heads).  bf16 compute (the ``ModelConfig`` default), fp32 parameters:
-3,104,481,280 of them.  A copy of the reference's
+3,099,857,920 of them.  A copy of the reference's
 ``repro/configs/rwkv6_3b.py``.
 """
 from dataclasses import replace

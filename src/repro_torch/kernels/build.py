@@ -34,7 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I64, _I32, _F32 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                         ctypes.c_float)
 #: library (``csrc/<name>.cu``) -> kernel -> argument types of
-#: ``launch_<kernel>`` before its trailing stream
+#: ``launch_<kernel>``, the trailing stream included
 LIBRARIES = {
     "wire_kernels": {
         "pack_int4": (_P, _P, _I64, _I64, _I64, _P),
@@ -52,6 +52,7 @@ LIBRARIES = {
                             _I32, _I32, _I32, _I32, _I32, _F32, _P),
         "wkv6": (_P, _P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32,
                  _I32, _P),
+        "rglru": (_P, _P, _P, _P, _P, _I32, _I32, _I32, _P),
     },
 }
 _LIBRARY_OF = {kern: lib_name for lib_name, kerns in LIBRARIES.items()

@@ -1,5 +1,5 @@
 // Hopper (sm_90a) kernels of the serving path: GQA flash attention with
-// position masks, and the RWKV6 WKV recurrence.
+// position masks, the RWKV6 WKV recurrence and the RG-LRU recurrence.
 //
 // Built by repro_torch/kernels/build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -7,9 +7,10 @@
 // and bound with ctypes.  Every launcher takes device pointers and the
 // caller's stream, launches on that stream without synchronising, and
 // returns cudaGetLastError() (0 on success).  The Python wrappers
-// (flash_attention.py, rwkv6_scan.py) check device, dtype, shape and
-// contiguity before they call in.  Both kernels are simple first versions:
-// fp32 FMAs on the CUDA cores, no tensor cores, no TMA.
+// (flash_attention.py, rwkv6_scan.py, rglru_scan.py) check device, dtype,
+// shape and contiguity before they call in.  All three kernels are simple
+// first versions: fp32 arithmetic on the CUDA cores, no tensor cores, no
+// TMA.
 
 #include <climits>
 #include <cstdint>
@@ -66,9 +67,16 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(
 // cache) the 131,328 visible pairs per head cost 4*D FLOPs each, 3.23
 // GFLOP a layer, 48 us at the 67 TFLOP/s fp32 peak, against 34.6 MB
 // (10 us at 3.35 TB/s) of q, k, v and out: operations bound it.  Decode
-// (Sq 1) reads the 577-slot cache, 9.5 MB (2.8 us): bytes bound it.  This kernel does its FMAs on the CUDA cores
-// and stages every tile through shared memory; tensor cores (TF32 stays
-// off for fp32, so wgmma would need bf16 operands) are later work.
+// (Sq 1) reads the 577-slot cache, 9.5 MB (2.8 us): bytes bound it.  At
+// recurrentgemma-2b (10 query heads of 256 on one KV head, window 2048)
+// prefill over 2560 tokens has 3,146,752 visible pairs per head, 128.9
+// GFLOP a layer (1.92 ms in fp32; in bf16, 0.130 ms at the 989 TFLOP/s
+// tensor-core peak): operations; decode reads the 2048-slot ring,
+// 8.4 MB (2.5 us): bytes.  D 256 takes 214,016 bytes of shared memory at
+// 64 rows and 152,192 at 16, so one block fits an SM.  This kernel does
+// its FMAs on the CUDA cores and stages every tile through shared memory;
+// tensor cores (TF32 stays off for fp32, so wgmma would need bf16
+// operands) are later work.
 // ---------------------------------------------------------------------------
 
 constexpr int kFaThreads = 256;
@@ -305,6 +313,9 @@ int flash_by_dim(const void* q, const void* k, const void* v,
     case 128:
       return flash_by_rows<T, 128>(q, k, v, qpos, kvpos, out, B, Sq, Skv, H,
                                    K, causal, window, scale, stream);
+    case 256:
+      return flash_by_rows<T, 256>(q, k, v, qpos, kvpos, out, B, Sq, Skv, H,
+                                   K, causal, window, scale, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -328,11 +339,12 @@ int flash_by_dim(const void* q, const void* k, const void* v,
 // staged in shared memory at a time (one barrier pair per 16 steps).
 //
 // Bound: at rwkv6-3b prefill (B 4, T 256, 40 heads of 64) a step costs
-// 7*D*D FLOPs per (b, h), 1.17 GFLOP a layer (18 us at 67 TFLOP/s), against
-// 36.7 MB of r, k, v (bf16), log_w (fp32), y and the two states (11 us at
-// 3.35 TB/s): operations bound it.  The steps of one head are sequential,
-// and only B*H = 160 blocks of 8 warps exist, so latency, not either
-// bound, is expected to set the time.  At T = 1 (decode) the states'
+// 7*D*D FLOPs per (b, h), 1.17 GFLOP a layer (1.2 us at the 989 TFLOP/s
+// bf16 peak of its bf16 inputs; 18 us at the fp32 rate this kernel
+// computes at), against 36.7 MB of r, k, v (bf16), log_w (fp32), y and
+// the two states (11 us at 3.35 TB/s): bytes bound it.  The steps of one
+// head are sequential, and only B*H = 160 blocks of 8 warps exist, so
+// latency, not either bound, is expected to set the time.  At T = 1 (decode) the states'
 // 5.2 MB dominate: bytes bound it.
 // ---------------------------------------------------------------------------
 
@@ -435,6 +447,76 @@ int wkv6_by_dim(const void* r, const void* k, const void* v,
   }
 }
 
+// ---------------------------------------------------------------------------
+// RG-LRU (replaces src/repro/kernels/rglru_scan.py:71, rglru_chunked, grid
+// (B, W/512, T/128) with the chunk axis sequential and the state in VMEM).
+//
+//   h_t[c] = a_t[c] * h_{t-1}[c] + b_t[c]    for every channel c = (b, w)
+//
+// The channels are independent, so one thread owns one channel and walks
+// T in order with h in a register; 64 threads a block, so B*W = 10,240
+// channels at recurrentgemma-2b make 160 blocks over the 132 SMs.  Loads
+// and stores are coalesced across w.  The loads of a and b do not depend
+// on h, so each thread keeps the next kLruSteps steps' a and b in flight
+// (loaded one chunk ahead) while it computes the current chunk.  The step
+// is __fmul_rn then __fadd_rn, never a contracted FMA, so the kernel equals
+// the plain version (a[:, t] * h + b[:, t], two torch ops) bit for bit.
+// The TPU kernel pads T with (a=1, b=0) and W to its tile; the guards here
+// need no padding.
+//
+// Bound: at recurrentgemma-2b prefill (B 4, T 2560, W 2560) a, b and y are
+// 3 x 104.9 MB fp32, 94 us at 3.35 TB/s, against 52 MFLOP: bytes bound
+// it.  Decode (T 1) moves 5 x 41 KB and is latency, not bandwidth.
+// ---------------------------------------------------------------------------
+
+constexpr int kLruThreads = 64;
+constexpr int kLruSteps = 8;
+
+__global__ void __launch_bounds__(kLruThreads)
+rglru_kernel(const float* __restrict__ a, const float* __restrict__ b,
+             const float* __restrict__ h0, float* __restrict__ y,
+             float* __restrict__ hT, int B, int Tn, int W) {
+  const long long c = static_cast<long long>(blockIdx.x) * kLruThreads +
+                      threadIdx.x;
+  if (c >= static_cast<long long>(B) * W) return;
+  const long long bi = c / W, w = c % W;
+  const size_t base = static_cast<size_t>(bi) * Tn * W + w;
+  float h = h0 != nullptr ? h0[c] : 0.f;
+
+  float av[kLruSteps], bv[kLruSteps];
+#pragma unroll
+  for (int u = 0; u < kLruSteps; ++u) {
+    const size_t off = base + static_cast<size_t>(u) * W;
+    av[u] = u < Tn ? a[off] : 1.f;
+    bv[u] = u < Tn ? b[off] : 0.f;
+  }
+  for (int t0 = 0; t0 < Tn; t0 += kLruSteps) {
+    // the next chunk's loads go out before this chunk's dependent steps
+    float an[kLruSteps], bn[kLruSteps];
+#pragma unroll
+    for (int u = 0; u < kLruSteps; ++u) {
+      const int t = t0 + kLruSteps + u;
+      const size_t off = base + static_cast<size_t>(t) * W;
+      an[u] = t < Tn ? a[off] : 1.f;
+      bn[u] = t < Tn ? b[off] : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < kLruSteps; ++u) {
+      const int t = t0 + u;
+      if (t < Tn) {
+        h = __fadd_rn(__fmul_rn(av[u], h), bv[u]);
+        y[base + static_cast<size_t>(t) * W] = h;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kLruSteps; ++u) {
+      av[u] = an[u];
+      bv[u] = bn[u];
+    }
+  }
+  hT[c] = h;
+}
+
 }  // namespace
 
 extern "C" {
@@ -468,6 +550,19 @@ int launch_wkv6(const void* r, const void* k, const void* v,
     return wkv6_by_dim<__nv_bfloat16>(r, k, v, log_w, u, s0, y, sT, B, Tn,
                                       H, D, stream);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// a, b, y: (B, T, W) float32; h0 (may be null: zeros) and hT: (B, W)
+// float32
+int launch_rglru(const void* a, const void* b, const void* h0, void* y,
+                 void* hT, int B, int Tn, int W, cudaStream_t stream) {
+  const long long channels = static_cast<long long>(B) * W;
+  const long long blocks = (channels + kLruThreads - 1) / kLruThreads;
+  rglru_kernel<<<static_cast<unsigned>(blocks), kLruThreads, 0, stream>>>(
+      static_cast<const float*>(a), static_cast<const float*>(b),
+      static_cast<const float*>(h0), static_cast<float*>(y),
+      static_cast<float*>(hT), B, Tn, W);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

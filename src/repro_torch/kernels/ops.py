@@ -10,6 +10,7 @@ from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import loss_weighted_update as _lwu
 from repro_torch.kernels import pack as _pk
 from repro_torch.kernels import quantize as _qz
+from repro_torch.kernels import rglru_scan as _lru
 from repro_torch.kernels import rwkv6_scan as _wkv
 
 
@@ -89,3 +90,11 @@ def wkv6(r, k, v, log_w, u, state):
     if r.is_cuda:
         return _wkv.wkv6_cuda(r, k, v, log_w, u, state)
     return _wkv.wkv6_plain(r, k, v, log_w, u, state)
+
+
+def rglru(a, b, h0=None):
+    """The diagonal recurrence ``h_t = a_t h_{t-1} + b_t``: fp32 (B,T,W)
+    inputs -> (every step's h, the last h)."""
+    if a.is_cuda:
+        return _lru.rglru_cuda(a, b, h0)
+    return _lru.rglru_plain(a, b, h0)

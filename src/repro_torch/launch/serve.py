@@ -2,15 +2,19 @@
 reference's ``launch/serve.py``).
 
 On a card, prefill and decode run attention through the flash-attention
-kernel and the RWKV6 time-mix through the WKV6 kernel (``impl="kernel"``,
-``rec_impl="kernel"``); on the CPU the same calls take the kernels' plain
-versions.
+kernel, the RWKV6 time-mix through the WKV6 kernel and the RG-LRU through
+its kernel (``impl="kernel"``, ``rec_impl="kernel"``); on the CPU the
+same calls take the kernels' plain versions.
 
     python -m repro_torch.launch.serve --preset lmtiny --device cpu
+    python -m repro_torch.launch.serve --preset recurrentgemma-2b \
+        --device cpu --prompt-len 40
     python -m repro_torch.launch.serve --preset lm100m --batch 8 \
         --prompt-len 512 --gen 64
     python -m repro_torch.launch.serve --arch rwkv6-3b --batch 4 \
         --prompt-len 256 --gen 32
+    python -m repro_torch.launch.serve --arch recurrentgemma-2b --batch 4 \
+        --prompt-len 2560 --gen 32
 
 ``--preset`` takes lm100m, lmtiny or a ported architecture's smoke
 configuration; ``--arch`` a ported architecture's published one.
@@ -112,7 +116,7 @@ def main(argv=None) -> None:
                             "smoke configuration")
     which.add_argument("--arch", default=None,
                        help="a ported architecture's published "
-                            "configuration (rwkv6-3b)")
+                            "configuration (rwkv6-3b, recurrentgemma-2b)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=32)

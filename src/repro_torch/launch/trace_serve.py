@@ -6,6 +6,8 @@ warm-up run in the same process.
         [--batch 8 --prompt-len 512 --gen 16] [--trace PATH]
     python -m repro_torch.launch.trace_serve --arch rwkv6-3b \
         --batch 4 --prompt-len 256 --gen 8
+    python -m repro_torch.launch.trace_serve --arch recurrentgemma-2b \
+        --batch 4 --prompt-len 2560 --gen 8
 
 Prints one JSON line: the profiled host time inside ``serve``'s
 ``serve/prefill`` and ``serve/decode`` ranges (each ends in a device

@@ -1,5 +1,5 @@
 """Layer primitives (the reference's ``models/layers.py``): norms, the
-SwiGLU MLP, RoPE, embedding / unembedding, ``dense_init``.
+SwiGLU and GeLU MLPs, RoPE, embedding / unembedding, ``dense_init``.
 
 Parameters are plain dicts of fp32 tensors in the reference's layout, e.g.
 ``mlp.wi (d, f)`` and ``embedding.head (d, V)``, never ``nn.Linear``'s
@@ -65,12 +65,35 @@ def apply_norm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return y * p["scale"].to(x.dtype) + p["bias"].to(x.dtype)
 
 
-def apply_mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU: ``(silu(x @ wg) * (x @ wi)) @ wo``."""
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default, the tanh approximation (torch's default
+    is the erf form)."""
+    return torch.nn.functional.gelu(x, approximate="tanh")
+
+
+def init_mlp(cfg: ModelConfig, gen: torch.Generator, device) -> Params:
+    """``wi (d, f)``, ``wg (d, f)`` for SwiGLU only, ``wo (f, d)``."""
+    d, f = cfg.d_model, cfg.d_ff
+    p = {"wi": dense_init(gen, (d, f), device)}
+    if cfg.mlp_kind == "swiglu":
+        p["wg"] = dense_init(gen, (d, f), device)
+    p["wo"] = dense_init(gen, (f, d), device)
+    return p
+
+
+def apply_mlp(p: Params, x: torch.Tensor, kind: str = "swiglu"
+              ) -> torch.Tensor:
+    """SwiGLU, ``(silu(x @ wg) * (x @ wi)) @ wo``, or GeLU,
+    ``gelu(x @ wi) @ wo``."""
     dt = x.dtype
     h = x @ p["wi"].to(dt)
-    g = x @ p["wg"].to(dt)
-    return (torch.nn.functional.silu(g) * h) @ p["wo"].to(dt)
+    if kind == "swiglu":
+        h = torch.nn.functional.silu(x @ p["wg"].to(dt)) * h
+    elif kind == "gelu":
+        h = gelu(h)
+    else:
+        raise ValueError(f"mlp kind {kind!r} (want swiglu|gelu)")
+    return h @ p["wo"].to(dt)
 
 
 def rope_freqs(head_dim: int, theta: float) -> np.ndarray:

@@ -1,19 +1,24 @@
-"""The decoder LM (the reference's ``models/lm.py``): the dense GQA stack
-and the attention-free RWKV6 stack, with their forward, prefill and
-decode.
+"""The decoder LM (the reference's ``models/lm.py``): the dense GQA stack,
+the attention-free RWKV6 stack and the RecurrentGemma hybrid, with their
+forward, prefill and decode.
 
 ``init_lm`` returns the reference's parameter tree: ``embedding.{table,
-head}``, ``layers.{norm1,mixer,norm2,mlp}`` with every layer leaf stacked
-on a leading ``(num_layers,)`` axis, and ``final_norm``.  The forward walks
-the layer stack in a Python loop over ``torch.unbind`` views, so the
-backward stacks each leaf's layer grads once.
+head}``, ``final_norm``, and the blocks.  The dense and RWKV6 stacks keep
+``layers.{norm1,mixer,norm2,mlp}`` with every layer leaf stacked on a
+leading ``(num_layers,)`` axis, and the forward walks them in a Python
+loop over ``torch.unbind`` views, so the backward stacks each leaf's
+layer grads once.  The hybrid keeps a list ``blocks`` of per-layer dicts,
+RG-LRU (``rec``) and local attention (``attn_local``) blocks by the
+config's ``block_pattern``, each with a GeLU MLP.
 
-Serving: ``init_cache`` builds the stacked per-layer cache (KV caches for
-the dense stack, RWKV states for the RWKV6 stack), ``prefill_step``
+Serving: ``init_cache`` builds the per-layer decode cache (KV caches
+stacked on a layer axis for the dense stack, RWKV states likewise, and
+for the hybrid a list: ``h`` and ``conv`` per RG-LRU layer, an
+``attn_window``-slot ring buffer per attention layer), ``prefill_step``
 consumes a prompt and ``decode_step`` one token per sequence.  Both take
 ``impl`` (attention: auto | naive | blocked | kernel) and ``rec_impl``
-(WKV: scan | kernel), and write the cache in place.  The other
-families of the reference (MoE / MLA, the RecurrentGemma hybrid, the
+(the recurrences: scan | kernel), and write
+the cache in place.  The other families of the reference (MoE / MLA, the
 encoder-decoder, the VLM frontend) raise ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -22,27 +27,35 @@ from typing import Dict, Optional
 
 import torch
 
-from repro_torch.config import FAMILY_DENSE, FAMILY_SSM, ModelConfig
+from repro_torch.config import (
+    FAMILY_DENSE, FAMILY_HYBRID, FAMILY_SSM, ModelConfig,
+)
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import rglru as G
 from repro_torch.models import rwkv as R
 from repro_torch.utils.trees import tree_flatten, tree_map, tree_unflatten
 
 Params = Dict
 
 
-def block_kind(cfg: ModelConfig) -> str:
-    """``dense`` or ``rwkv``; the reference's other block kinds are not
-    ported."""
+def block_kind(cfg: ModelConfig, layer_idx: int = 0) -> str:
+    """``dense``, ``rwkv``, or for the hybrid ``rec`` / ``attn_local`` by
+    the pattern; the reference's other block kinds are not ported."""
     if cfg.family == FAMILY_DENSE and cfg.recurrent is None \
             and cfg.mlp_kind == "swiglu":
         return "dense"
     if cfg.family == FAMILY_SSM and cfg.is_attention_free \
             and cfg.recurrent.kind == "rwkv6":
         return "rwkv"
+    if cfg.family == FAMILY_HYBRID and cfg.is_hybrid \
+            and cfg.recurrent.kind == "rglru" \
+            and cfg.mlp_kind in ("gelu", "swiglu"):
+        return "rec" if cfg.layer_is_recurrent(layer_idx) else "attn_local"
     raise NotImplementedError(
-        f"{cfg.name}: only the dense GQA and the RWKV6 stacks are ported "
-        f"(family {cfg.family!r}, recurrent {cfg.recurrent})")
+        f"{cfg.name}: only the dense GQA, the RWKV6 and the RecurrentGemma "
+        f"hybrid stacks are ported (family {cfg.family!r}, recurrent "
+        f"{cfg.recurrent})")
 
 
 def init_lm(cfg: ModelConfig, seed: int, device,
@@ -54,30 +67,38 @@ def init_lm(cfg: ModelConfig, seed: int, device,
     differ from ``jax.random``: parity tests start both sides from one
     init through ``bridge``."""
     cfg.validate()
-    kind = block_kind(cfg)
+    kinds = [block_kind(cfg, i) for i in range(cfg.num_layers)]
     gen = torch.Generator(device=draw_on or "cpu").manual_seed(int(seed))
-    d, f = cfg.d_model, cfg.d_ff
+    d = cfg.d_model
 
-    def block():
+    def block(kind):
         p = {"norm1": L.init_norm(cfg, d, device),
              "norm2": L.init_norm(cfg, d, device)}
         if kind == "rwkv":
             p["mixer"] = R.init_time_mix(cfg, gen, device)
             p["mlp"] = R.init_channel_mix(cfg, gen, device)
+            return p
+        if kind == "rec":
+            p["mixer"] = G.init_rglru_block(cfg, gen, device)
         else:
             p["mixer"] = A.init_attention(cfg, gen, device)
-            p["mlp"] = {"wi": L.dense_init(gen, (d, f), device),
-                        "wg": L.dense_init(gen, (d, f), device),
-                        "wo": L.dense_init(gen, (f, d), device)}
+        p["mlp"] = L.init_mlp(cfg, gen, device)
         return p
 
-    blocks = [block() for _ in range(cfg.num_layers)]
-    layers = tree_map(lambda *xs: torch.stack(xs), *blocks)
+    blocks = [block(kind) for kind in kinds]
     emb = {"table": L.dense_init(gen, (cfg.vocab_size, d), device, scale=1.0)}
     if not cfg.tie_embeddings:
         emb["head"] = L.dense_init(gen, (d, cfg.vocab_size), device)
-    return {"embedding": emb, "layers": layers,
+    if cfg.is_hybrid:
+        stack = {"blocks": blocks}
+    else:
+        stack = {"layers": tree_map(lambda *xs: torch.stack(xs), *blocks)}
+    return {"embedding": emb, **stack,
             "final_norm": L.init_norm(cfg, d, device)}
+
+
+# rec_impl -> the RG-LRU block's impl (the reference's names)
+_RGLRU_IMPL = {"scan": "seq", "kernel": "kernel"}
 
 
 def apply_block(p, x: torch.Tensor, cfg: ModelConfig, *, kind: str,
@@ -100,33 +121,50 @@ def apply_block(p, x: torch.Tensor, cfg: ModelConfig, *, kind: str,
         if decode:
             new_cache = {**tm_state, **cm_state}
         return x + h2, new_cache
-    window = cfg.attn_window
-    if decode:
-        h, new_cache = A.decode_attention(p["mixer"], h, cache, cfg, pos=pos,
-                                          window=window, impl=impl)
+    if kind == "rec":
+        if rec_impl not in _RGLRU_IMPL:
+            raise ValueError(f"rec_impl {rec_impl!r} (want scan|kernel)")
+        h, rec_state = G.apply_rglru_block(p["mixer"], h, cfg,
+                                           state=cache if decode else None,
+                                           impl=_RGLRU_IMPL[rec_impl])
+        if decode:
+            new_cache = rec_state
     else:
-        h = A.apply_attention(p["mixer"], h, cfg, positions=positions,
-                              window=window, impl=impl)
+        # the reference's rule: only a hybrid's local-attention block
+        # takes the window
+        window = cfg.attn_window if kind == "attn_local" else 0
+        if decode:
+            h, new_cache = A.decode_attention(p["mixer"], h, cache, cfg,
+                                              pos=pos, window=window,
+                                              impl=impl)
+        else:
+            h = A.apply_attention(p["mixer"], h, cfg, positions=positions,
+                                  window=window, impl=impl)
     x = x + h
     h2 = L.apply_norm(p["norm2"], x)
-    return x + L.apply_mlp(p["mlp"], h2), new_cache
+    return x + L.apply_mlp(p["mlp"], h2, cfg.mlp_kind), new_cache
 
 
 def _layers(params, cfg: ModelConfig):
-    """Per-layer parameter views of the stacked tree."""
+    """Each layer's index, kind and parameters (views of the stacked tree,
+    or the hybrid's per-layer dicts)."""
+    if cfg.is_hybrid:
+        for li, lp in enumerate(params["blocks"]):
+            yield li, block_kind(cfg, li), lp
+        return
+    kind = block_kind(cfg)
     leaves, treedef = tree_flatten(params["layers"])
     per_leaf = [torch.unbind(leaf) for leaf in leaves]
     for li in range(cfg.num_layers):
-        yield li, tree_unflatten(treedef, [u[li] for u in per_leaf])
+        yield li, kind, tree_unflatten(treedef, [u[li] for u in per_leaf])
 
 
 def lm_forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
                impl: str = "auto", rec_impl: str = "scan") -> torch.Tensor:
     """tokens (B, S) int64 -> logits (B, S, V) in the compute dtype."""
-    kind = block_kind(cfg)
     x = L.embed(params["embedding"], tokens, L.compute_dtype(cfg))
     positions = torch.arange(tokens.shape[1], device=tokens.device)
-    for _, lp in _layers(params, cfg):
+    for _, kind, lp in _layers(params, cfg):
         x, _ = apply_block(lp, x, cfg, kind=kind, positions=positions,
                            impl=impl, rec_impl=rec_impl)
     x = L.apply_norm(params["final_norm"], x)
@@ -156,16 +194,23 @@ def lm_loss(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
-               dtype=torch.bfloat16, device="cpu") -> Dict:
-    """The per-layer decode cache, stacked on a leading layer axis: a KV
-    cache of ``max_len`` slots (``attn_window`` slots as a ring buffer)
-    per dense layer, the WKV state and last tokens per RWKV6 layer."""
-    kind = block_kind(cfg)
-    if kind == "rwkv":
+               dtype=torch.bfloat16, device="cpu"):
+    """The per-layer decode cache.  Stacked on a leading layer axis: a KV
+    cache of ``max_len`` slots per dense layer, the WKV state and last
+    tokens per RWKV6 layer.  For the hybrid, a list: ``h`` (fp32) and
+    the conv tail per RG-LRU layer, a ring buffer of ``min(max_len,
+    attn_window)`` slots per attention layer."""
+    kinds = [block_kind(cfg, i) for i in range(cfg.num_layers)]
+    if cfg.is_hybrid:
+        return [G.init_rglru_state(cfg, batch, dtype, device) if k == "rec"
+                else A.init_kv_cache(cfg, batch, max_len,
+                                     window=cfg.attn_window, dtype=dtype,
+                                     device=device) for k in kinds]
+    if kinds[0] == "rwkv":
         one = R.init_rwkv_state(cfg, batch, dtype, device)
     else:
-        one = A.init_kv_cache(cfg, batch, max_len, window=cfg.attn_window,
-                              dtype=dtype, device=device)
+        one = A.init_kv_cache(cfg, batch, max_len, dtype=dtype,
+                              device=device)
     return tree_map(
         lambda x: x[None].repeat((cfg.num_layers,) + (1,) * x.ndim), one)
 
@@ -173,17 +218,18 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 def _stateful_stack(params, cache, x, cfg: ModelConfig, *, pos: int,
                     impl: str, rec_impl: str):
     """Run every layer statefully from ``pos``; each layer's new cache is
-    written into its slice of the stacked cache."""
-    kind = block_kind(cfg)
+    written into its part of the cache (its slice of the stacked cache,
+    or the hybrid's per-layer dict)."""
     positions = torch.arange(pos, pos + x.shape[1], device=x.device)
-    for li, lp in _layers(params, cfg):
-        layer_cache = {name: t[li] for name, t in cache.items()}
+    for li, kind, lp in _layers(params, cfg):
+        layer_cache = cache[li] if isinstance(cache, list) else \
+            {name: t[li] for name, t in cache.items()}
         x, new = apply_block(lp, x, cfg, kind=kind, positions=positions,
                              impl=impl, rec_impl=rec_impl,
                              cache=layer_cache, pos=pos)
         for name, t in new.items():
             if t is not layer_cache[name]:
-                cache[name][li].copy_(t)
+                layer_cache[name].copy_(t)
     return x
 
 

@@ -1,10 +1,12 @@
-"""Nested-dict parameter trees, flattened in JAX's leaf order.
+"""Parameter trees of dicts and lists, flattened in JAX's leaf order.
 
-``jax.tree.flatten`` visits dict keys in sorted order; the port keeps that
-order because the int4 wire folds its rounding noise per *leaf index*
-(the reference's ``compression.encode_tree``), so the order is part of the
-wire contract.  A tree is a dict whose values are dicts or leaves; a tree
-of per-leaf payload dicts is read back with :func:`flatten_up_to`.
+``jax.tree.flatten`` visits dict keys in sorted order and list items in
+index order; the port keeps that order because the int4 wire folds its
+rounding noise per *leaf index* (the reference's
+``compression.encode_tree``), so the order is part of the wire contract.
+A tree is a dict or a list whose values are trees or leaves (the
+RecurrentGemma hybrid holds a list of per-layer dicts); a tree of
+per-leaf payload dicts is read back with :func:`flatten_up_to`.
 """
 from __future__ import annotations
 
@@ -14,13 +16,20 @@ Tree = Any
 Treedef = Any
 
 
+def _children(t):
+    """``(key, child)`` pairs of a dict (sorted keys) or a list."""
+    return sorted(t.items()) if isinstance(t, dict) else enumerate(t)
+
+
 def tree_flatten(tree: Tree) -> Tuple[List[Any], Treedef]:
-    """Leaves in sorted-key depth-first order, plus a structure token."""
+    """Leaves in JAX's depth-first order, plus a structure token."""
     leaves: List[Any] = []
 
     def rec(t):
         if isinstance(t, dict):
             return {k: rec(t[k]) for k in sorted(t)}
+        if isinstance(t, list):
+            return [rec(x) for x in t]
         leaves.append(t)
         return None
 
@@ -33,6 +42,8 @@ def tree_unflatten(treedef: Treedef, leaves: List[Any]) -> Tree:
     def rec(d):
         if d is None:
             return next(it)
+        if isinstance(d, list):
+            return [rec(v) for v in d]
         return {k: rec(v) for k, v in d.items()}
 
     out = rec(treedef)
@@ -50,7 +61,7 @@ def flatten_up_to(treedef: Treedef, tree: Tree) -> List[Any]:
         if d is None:
             out.append(t)
         else:
-            for k, v in d.items():
+            for k, v in _children(d):
                 rec(v, t[k])
 
     rec(treedef, tree)

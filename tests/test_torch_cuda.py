@@ -25,6 +25,7 @@ from repro_torch.kernels.pack import pack_int4_cuda, unpack_int4_cuda
 from repro_torch.kernels.quantize import (
     dequantize_int8_cuda, quantize_int8_cuda,
 )
+from repro_torch.kernels.rglru_scan import rglru_cuda, rglru_plain
 from repro_torch.kernels.rwkv6_scan import wkv6_cuda, wkv6_plain
 
 pytestmark = pytest.mark.cuda
@@ -186,7 +187,10 @@ def _attention_inputs(card, B, Sq, Skv, H, K, D, dtype, seed):
 
 # (B, Sq, Skv, H, K, D, causal, window, q_start, written): queries at
 # positions q_start.., cache slots 0..written-1 at positions 0.. and the
-# rest unwritten (-1); written=None means a full contiguous KV.
+# rest unwritten (-1); written=None means a full contiguous KV, and
+# "ring" a wrapped ring buffer of Skv slots, slot s holding the latest
+# position <= q_start that is s modulo Skv (out of order, as a local-
+# attention cache holds them after decode at q_start).
 ATTENTION_CASES = [
     (2, 37, 37, 6, 2, 64, True, 0, 0, None),      # G=3, ragged tiles
     (2, 37, 37, 6, 2, 64, False, 0, 0, None),
@@ -194,6 +198,9 @@ ATTENTION_CASES = [
     (3, 1, 90, 6, 2, 64, True, 0, 70, 71),        # decode at position 70
     (2, 1, 90, 6, 2, 16, True, 16, 70, 71),       # windowed decode
     (1, 20, 77, 4, 1, 128, True, 0, 0, 20),       # prefill into a cache
+    # recurrentgemma-2b's attention: MQA (K 1, G 10), head dim 256
+    (2, 150, 150, 10, 1, 256, True, 64, 0, None),  # windowed prefill
+    (2, 1, 96, 10, 1, 256, True, 96, 200, "ring"),  # decode on the ring
 ]
 
 
@@ -205,7 +212,9 @@ def test_flash_attention_kernel_matches_plain(card, case, dtype):
     qpos = torch.arange(q_start, q_start + Sq, dtype=torch.int32,
                         device=card)
     kvpos = torch.arange(Skv, dtype=torch.int32, device=card)
-    if written is not None:
+    if written == "ring":
+        kvpos = q_start - (q_start - kvpos) % Skv
+    elif written is not None:
         kvpos[written:] = -1
     kw = dict(causal=causal, window=window)
     got = flash_attention_cuda(q, k, v, qpos, kvpos, **kw)
@@ -245,6 +254,41 @@ def test_wkv6_kernel_matches_plain(card, B, T, H, D, dtype):
                                atol=1e-5 * float(s_ref.abs().max()))
 
 
+@pytest.mark.parametrize("B,T,W", [(2, 45, 24), (1, 128, 64), (3, 1, 100),
+                                   (2, 300, 2560), (4, 1, 2560)])
+@pytest.mark.parametrize("with_h0", [True, False])
+def test_rglru_kernel_equals_plain_bitwise(card, B, T, W, with_h0):
+    """Ragged B, T and W (T 1 is decode): the kernel's fp32 multiply then
+    add, never an FMA, equals the plain version's two torch ops."""
+    gen = torch.Generator(device=card).manual_seed(T * W)
+    a = torch.sigmoid(torch.randn((B, T, W), generator=gen, device=card)) \
+        * 0.3 + 0.7
+    b = 0.2 * torch.randn((B, T, W), generator=gen, device=card)
+    h0 = 0.5 * torch.randn((B, W), generator=gen, device=card) if with_h0 \
+        else None
+    y, hT = rglru_cuda(a, b, h0)
+    y_ref, hT_ref = rglru_plain(a, b, h0)
+    assert y.dtype == hT.dtype == torch.float32
+    assert torch.equal(y, y_ref) and torch.equal(hT, hT_ref)
+
+
+def test_rglru_wrapper_checks_inputs_and_counts_launches(card):
+    build.reset_launches()
+    a = torch.rand((2, 5, 64), device=card)
+    ops.rglru(a, a, torch.zeros((2, 64), device=card))
+    ops.rglru(a, a)
+    assert build.LAUNCHES["rglru"] == 2
+    with pytest.raises(TypeError, match="float32"):
+        rglru_cuda(a.bfloat16(), a.bfloat16())
+    with pytest.raises(ValueError, match="h0"):
+        rglru_cuda(a, a, torch.zeros((2, 63), device=card))
+    with pytest.raises(ValueError, match="CUDA"):
+        rglru_cuda(a, a.cpu())
+    with pytest.raises(ValueError, match="empty"):
+        rglru_cuda(a[:, :0], a[:, :0])
+    assert build.LAUNCHES["rglru"] == 2
+
+
 def test_model_kernel_wrappers_check_inputs_and_count_launches(card):
     build.reset_launches()
     q, k, v = _attention_inputs(card, 1, 4, 4, 2, 1, 64, torch.float32, 0)
@@ -270,14 +314,24 @@ def test_model_kernel_wrappers_check_inputs_and_count_launches(card):
     assert build.LAUNCHES["wkv6"] == 1
 
 
-@pytest.mark.parametrize("preset", ["lmtiny", "rwkv6-3b"])
+@pytest.mark.parametrize("preset", ["lmtiny", "rwkv6-3b",
+                                    "recurrentgemma-2b"])
 def test_serve_on_card_runs_the_kernels(card, preset):
+    """Every layer's kernel once per call; rg-smoke's 40-token prompt
+    wraps its 32-slot ring."""
     from repro_torch.launch.serve import serve
     from repro_torch.launch.train import _preset
     cfg = _preset(preset)
-    name = "wkv6" if cfg.is_attention_free else "flash_attention"
+    if cfg.is_hybrid:
+        n_rec = sum(cfg.layer_is_recurrent(i) for i in range(cfg.num_layers))
+        want = {"rglru": n_rec, "flash_attention": cfg.num_layers - n_rec}
+    elif cfg.is_attention_free:
+        want = {"wkv6": cfg.num_layers}
+    else:
+        want = {"flash_attention": cfg.num_layers}
     build.reset_launches()
-    out = serve(cfg, batch=2, prompt_len=24, gen=6, keep_logits=True)
-    assert build.LAUNCHES[name] == cfg.num_layers * (1 + 6)
+    out = serve(cfg, batch=2, prompt_len=40, gen=6, keep_logits=True)
+    assert {k: v for k, v in build.LAUNCHES.items() if v} == \
+        {k: n * (1 + 6) for k, n in want.items()}
     assert out["tokens"].shape == (2, 7)
     assert bool(torch.isfinite(out["prefill_logits"].float()).all())

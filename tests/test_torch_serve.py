@@ -1,13 +1,16 @@
 """The port's serving path (``init_cache``, ``prefill_step``, greedy
 ``decode_step``, ``launch/serve.py``) against the JAX reference, on the
-CPU, at lmtiny and rwkv6-smoke.
+CPU, at lmtiny, rwkv6-smoke and rg-smoke (the RecurrentGemma hybrid,
+``--preset recurrentgemma-2b``).
 
 Both sides start from the reference's parameters (handed over through
 ``repro_torch.bridge``) and the same numpy prompt.  RWKV prompts stay at
 most 64 tokens, so the reference's prefill takes its exact ``scan`` path
 (beyond 64 it takes ``chunked``, which clamps and is off under the
-model's decay).  On the CPU ``impl="kernel"`` / ``rec_impl="kernel"``
-take the kernels' plain versions.
+model's decay).  rg-smoke prompts of 40 and 290 tokens wrap its 32-slot
+ring buffer; the reference's prefill takes the RG-LRU's associative scan
+at 40 and its chunked form past 256.  On the CPU ``impl="kernel"`` /
+``rec_impl="kernel"`` take the kernels' plain versions.
 """
 import dataclasses
 import json
@@ -31,7 +34,7 @@ from repro.models import prefill_step as jprefill_step
 
 from repro_torch import bridge
 from repro_torch.config import (
-    FAMILY_AUDIO, FAMILY_HYBRID, FAMILY_MOE, FAMILY_VLM, RecurrentConfig,
+    FAMILY_AUDIO, FAMILY_MOE, FAMILY_SSM, FAMILY_VLM, RecurrentConfig,
 )
 from repro_torch.configs import get_config
 from repro_torch.launch.serve import prompt_tokens, serve
@@ -129,7 +132,39 @@ def test_greedy_serve_matches_reference_fp32(preset, prompt_len, impls):
             _close(a, b, 1e-4)
 
 
-@pytest.mark.parametrize("preset", ["lmtiny", "rwkv6-3b"])
+@pytest.mark.parametrize("prompt_len", [40, 290])
+@pytest.mark.parametrize("impls", [("kernel", "kernel"), ("auto", "scan")])
+def test_greedy_serve_matches_reference_fp32_hybrid(prompt_len, impls):
+    """rg-smoke: prompts past the 32-token window, so the ring buffer has
+    wrapped before decode starts; equal greedy tokens over 6 decode steps,
+    every step's logits and the caches within fp32 tolerance."""
+    jcfg, tcfg = _cfgs("recurrentgemma-2b", "float32")
+    params = jax.device_get(jinit_lm(jcfg, jax.random.PRNGKey(0))[0])
+    prompt = prompt_tokens(tcfg, 2, prompt_len, seed=1)
+    jt, jsteps, jcaches = _jax_serve(jcfg, params, prompt, 6)
+    tt, tsteps, tcaches = _torch_serve(
+        tcfg, bridge.from_numpy(params, CPU), prompt, 6,
+        impl=impls[0], rec_impl=impls[1])
+    np.testing.assert_array_equal(tt, jt)
+    # fp32 matmuls, softmax and recurrence sums in other orders (past 256
+    # tokens the reference's RG-LRU is its chunked closed form), through
+    # 3 layers and the unembedding: 1e-4 of the logits' scale
+    for got, want in zip(tsteps, jsteps):
+        _close(got, want, 1e-4)
+    for tc, jc in zip(tcaches, jcaches):
+        assert isinstance(tc, list) and len(tc) == tcfg.num_layers
+        tl, jl = tree_flatten(tc)[0], jax.tree.leaves(jc)
+        assert len(tl) == len(jl)
+        for a, b in zip(tl, jl):
+            _close(a, b, 1e-4)
+    # the attention layer's ring: 32 slots holding the last 32 positions
+    ring = tcaches[-1][2]["pos"]
+    assert sorted(ring.tolist()) == list(range(prompt_len + 6 - 32,
+                                               prompt_len + 6))
+
+
+@pytest.mark.parametrize("preset", ["lmtiny", "rwkv6-3b",
+                                    "recurrentgemma-2b"])
 def test_serve_steps_match_reference_bf16(preset):
     """In bf16 each side rounds every activation in its own order, so a
     near-tie may pick another argmax: both sides are fed the reference's
@@ -148,7 +183,8 @@ def test_serve_steps_match_reference_bf16(preset):
         _close(got, want, 2 ** -4)
 
 
-@pytest.mark.parametrize("preset", ["lmtiny", "rwkv6-3b"])
+@pytest.mark.parametrize("preset", ["lmtiny", "rwkv6-3b",
+                                    "recurrentgemma-2b"])
 def test_reference_cache_carries_across_the_bridge(preset):
     """The reference's bf16 cache after its prefill crosses the bridge bit
     for bit, and the port's decode step from it matches the reference's."""
@@ -177,7 +213,8 @@ def test_reference_cache_carries_across_the_bridge(preset):
     _close(td.float().numpy(), np.asarray(jd.astype(jnp.float32)), 2 ** -4)
 
 
-@pytest.mark.parametrize("preset", ["lmtiny", "rwkv6-3b"])
+@pytest.mark.parametrize("preset", ["lmtiny", "rwkv6-3b",
+                                    "recurrentgemma-2b"])
 def test_decode_token_by_token_equals_one_prefill(preset):
     """Prefill of one token then decode of the rest gives every position's
     logits of the full forward, and the same final cache as one prefill
@@ -223,10 +260,35 @@ def test_port_tree_and_count_match_reference_rwkv():
         [tuple(x.shape) for x in tree_flatten(tc)[0]]
 
 
+def test_port_tree_and_count_match_reference_hybrid():
+    jcfg, tcfg = jpreset("recurrentgemma-2b"), tpreset("recurrentgemma-2b")
+    jp = jinit_lm(jcfg, jax.random.PRNGKey(0))[0]
+    tp = lm.init_lm(tcfg, 0, CPU)
+    assert isinstance(tp["blocks"], list)
+    assert [sorted(b["mixer"]) for b in tp["blocks"]] == \
+        [sorted(b["mixer"]) for b in jp["blocks"]]
+    jl, tl = jax.tree.leaves(jp), tree_flatten(tp)[0]
+    assert [x.shape for x in jl] == [tuple(x.shape) for x in tl]
+    assert sum(x.numel() for x in tl) == tcfg.param_count()
+    # the published config, by shape only: nothing is allocated
+    for arch, count in (("recurrentgemma-2b", 3_038_753_280),
+                        ("rwkv6-3b", 3_099_857_920)):
+        full = jax.eval_shape(
+            lambda a=arch: jinit_lm(jget_config(a), jax.random.PRNGKey(0))[0])
+        n = sum(int(np.prod(x.shape)) for x in jax.tree.leaves(full))
+        assert n == get_config(arch).param_count() == count
+    jc = jax.eval_shape(lambda: jinit_cache(jcfg, 2, 40))
+    tc = lm.init_cache(tcfg, 2, 40)
+    assert [(x.shape, str(x.dtype)) for x in jax.tree.leaves(jc)] == \
+        [(tuple(x.shape), str(x.dtype).replace("torch.", ""))
+         for x in tree_flatten(tc)[0]]
+
+
 @pytest.mark.parametrize("family,recurrent", [
     (FAMILY_MOE, None), (FAMILY_AUDIO, None), (FAMILY_VLM, None),
-    (FAMILY_HYBRID, RecurrentConfig(kind="rglru",
-                                    block_pattern=("rec", "rec", "attn"))),
+    # Hawk, the attention-free RG-LRU stack: the hybrid's blocks without
+    # its pattern
+    (FAMILY_SSM, RecurrentConfig(kind="rglru")),
 ])
 def test_unported_families_raise(family, recurrent):
     cfg = dataclasses.replace(tpreset("lmtiny"), family=family,
