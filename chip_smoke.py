@@ -41,7 +41,17 @@ Phases (any failure raises and the script exits nonzero):
    parameters, prompt and first token (held at lm100m, and at rwkv6-3b
    and recurrentgemma-2b in an fp32 run of the same model, beside the
    bf16 gap);
-8. a ``kernels`` JSON line, the ``nvidia-smi`` line, and the result line.
+8. the static analyzer, ``repro_torch.launch.analyze --self-test`` on
+   the card, with the launch counters zeroed just before and read just
+   after: every ported kernel's launch spec and the pack constants lint
+   clean, ``train_hermes``'s loop passes the host-sync guard, and each
+   fixture raises its named class; the mis-tiled copy (the last TPU
+   kernel, ``selftest_bad_tiles``) launches there and equals its plain
+   version bit for bit.  Then the copy is timed beside its plain version
+   and ``x.clone()``, and the synchronising calls of one lm100m int4
+   round, one int8 dispatch + commit and a short trainer run are counted
+   under ``torch.cuda.set_sync_debug_mode("warn")``;
+9. a ``kernels`` JSON line, the ``nvidia-smi`` line, and the result line.
 
 It needs the repository's ``src/`` beside it and imports neither JAX nor
 the JAX package.
@@ -53,6 +63,7 @@ import math
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -65,6 +76,7 @@ PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12, "float16": 989e12,
 EPS32 = 2.0 ** -23            # fp32 machine epsilon
 WIRE_SOURCE = "src/repro_torch/kernels/csrc/wire_kernels.cu"
 MODEL_SOURCE = "src/repro_torch/kernels/csrc/model_kernels.cu"
+FIXTURE_SOURCE = "src/repro_torch/kernels/csrc/fixture_kernels.cu"
 REPLACES = {
     "pack_int4": "src/repro/kernels/pack.py:85",
     "unpack_int4": "src/repro/kernels/pack.py:104",
@@ -76,6 +88,7 @@ REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention.py:106",
     "wkv6": "src/repro/kernels/rwkv6_scan.py:99",
     "rglru": "src/repro/kernels/rglru_scan.py:71",
+    "tile_copy": "src/repro/launch/analyze.py:499",
 }
 PODS = 4
 
@@ -609,6 +622,136 @@ def layerwise_check(torch, dev, cfg, params, prompt, token) -> None:
         raise AssertionError(f"{cfg.name}: " + "; ".join(failures))
 
 
+def count_syncs(torch, fn):
+    """The synchronising CUDA calls ``fn()`` makes (each one warns under
+    ``torch.cuda.set_sync_debug_mode("warn")``): ``(count, {"file:line":
+    count})`` by the Python line that made them."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    sites = {}
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            path = Path(w.filename)
+            where = (f"{path.relative_to(ROOT)}:{w.lineno}"
+                     if path.is_relative_to(ROOT) else f"{path.name}:"
+                     f"{w.lineno}")
+            sites[where] = sites.get(where, 0) + 1
+    return sum(sites.values()), dict(sorted(sites.items(),
+                                            key=lambda kv: -kv[1]))
+
+
+def analyzer(torch, dev, results) -> None:
+    """Phase 8: the analyzer's self-test on the card, the mis-tiled copy
+    against its plain version, timed, and the round's host syncs."""
+    from repro_torch.config import HermesConfig, OptimizerConfig
+    from repro_torch.core.gup import gup_gate
+    from repro_torch.dist import hermes_sync
+    from repro_torch.kernels import build
+    from repro_torch.kernels.tile_copy import (
+        SHAPE, tile_copy_cuda, tile_copy_plain)
+    from repro_torch.launch import analyze
+    from repro_torch.launch.train import _preset, train_hermes
+    from repro_torch.models.lm import init_lm
+    from repro_torch.utils.trees import tree_map
+
+    log("[8] python -m repro_torch.launch.analyze --self-test, on the card")
+    build.reset_launches()
+    record = analyze.main(["--self-test", "--device", str(dev)])
+    launches = {k: v for k, v in build.LAUNCHES.items() if v}
+    fixtures = {f["fixture"]: f for f in record["self_test"]}
+    labels = [t["label"] for t in record["targets"]]
+    specs = [lb for lb in labels
+             if lb.startswith("kernel[") and lb != "kernel[pack-constants]"]
+    log(f"    {len(specs)} launch specs, the pack constants and "
+        f"train_hermes's loop clean: {record['ok']}; fixtures "
+        f"{sorted(fixtures)} raised their classes; the copy equal to its "
+        f"plain version: {fixtures['bad-tiles']['copy_equal']}; launches "
+        f"{launches}")
+    if (not record["ok"] or launches != {"tile_copy": 1} or len(specs) != 11
+            or fixtures["bad-tiles"]["copy_equal"] is not True
+            or "train_hermes[source]" not in labels):
+        raise AssertionError(f"the analyzer's self-test on the card: "
+                             f"{record}")
+
+    x = torch.randn(SHAPE, generator=torch.Generator(device=dev)
+                    .manual_seed(3), device=dev)
+    got, want = tile_copy_cuda(x), tile_copy_plain(x)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError("tile_copy differs from its plain version")
+    moved = 2 * x.numel() * x.element_size()
+    bound_ms, bound_by = bound(0, moved, (x.dtype,))
+    ms = time_ms(torch, lambda: tile_copy_cuda(x), reps=20)
+    plain_ms = time_ms(torch, lambda: tile_copy_plain(x), reps=20)
+    clone_ms = time_ms(torch, lambda: x.clone(), reps=20)
+    results["tile_copy"] = {
+        "name": "tile_copy", "route": "cuda", "source": FIXTURE_SOURCE,
+        "replaces": REPLACES["tile_copy"], "launches": launches["tile_copy"],
+        "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": clone_ms}
+    log(f"    tile_copy {tuple(SHAPE)} in (8, 100) tiles on an (8, 3) grid: "
+        f"equal=True  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+        f"x.clone() {clone_ms:.4f} ms  bound {bound_ms:.6f} ms ({bound_by};"
+        f" {moved:,} B): the launch floor, not the bytes, sets all three")
+
+    # the host syncs of one round at lm100m x 4 pods, gates open
+    cfg = _preset("lm100m")
+    w_global = init_lm(cfg, 0, dev)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    pods = tree_map(lambda g: g[None] + 1e-3 * torch.randn(
+        (PODS,) + tuple(g.shape), generator=gen, device=dev), w_global)
+    L = torch.tensor(3.4, device=dev)
+    low = torch.tensor([2.1, 2.2, 2.0, 2.3], device=dev)
+    syncs = {}
+    for compression in ("int4", "int8"):
+        hcfg = HermesConfig(compression=compression)
+        gup = hermes_sync.hermes_pod_state(hcfg, PODS, dev)
+        for level in (3.0, 3.2):  # a loss history the next losses beat
+            _, gup = gup_gate(gup, torch.full((PODS,), level, device=dev),
+                              hcfg)
+        if compression == "int4":
+            def one_round(gup=gup, hcfg=hcfg):
+                return hermes_sync.hermes_round(pods, gup, low, w_global, L,
+                                                hcfg)["gates"]
+            label = "int4 hermes_round"
+        else:
+            def one_round(gup=gup, hcfg=hcfg):
+                dp = hermes_sync.hermes_dispatch(pods, gup, low, w_global, L,
+                                                 hcfg)
+                hermes_sync.hermes_commit(pods, dp["pending"], w_global,
+                                          cfg=hcfg)
+                return dp["gates"]
+            label = "int8 hermes_dispatch + hermes_commit"
+        # warm-up (kernels loaded, allocator primed), and the gates open
+        if not bool(one_round().all()):
+            raise AssertionError(f"{label}: the gates did not open")
+        syncs[label], where = count_syncs(torch, one_round)
+        log(f"    {label}: {syncs[label]} synchronising calls, at {where}")
+    del pods, w_global
+    torch.cuda.empty_cache()
+    out = {}
+    steps = 4
+    label = f"train_hermes, {steps} steps"
+    syncs[label], where = count_syncs(
+        torch, lambda: out.update(train_hermes(
+            cfg, steps=steps, batch=8, seq=128, pods=PODS,
+            opt_cfg=OptimizerConfig(name="adamw", lr=3e-4),
+            hcfg=HermesConfig(alpha=-1.3, beta=0.1, lam=2, eta=1.0),
+            log_every=10 ** 6, device=dev)))
+    log(f"    {label} ({out['rounds']} rounds, {out['merges']} merges): "
+        f"{syncs[label]} synchronising calls; the most at "
+        f"{dict(list(where.items())[:10])}")
+    log(f"    synchronising calls at lm100m x {PODS} pods (rounds with the "
+        f"gates open): {syncs}")
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -938,8 +1081,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     serving_kernels(torch, dev, results)
     serving_paths(torch, dev, results)
+    analyzer(torch, dev, results)
 
-    # ---- 8. result lines -------------------------------------------------
+    # ---- 9. result lines -------------------------------------------------
     print(json.dumps({"kernels": list(results.values())}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -5,10 +5,14 @@ The port runs the Level-B Hermes LM round (pod-stacked local training of
 the dense GQA LM, the z-score gate, and the gated loss-weighted merge over
 the ``none`` / ``fp16`` / ``int8`` / ``int4`` wires, synchronous or async)
 and serving (prefill and greedy decode of the dense LM, of RWKV6 and of
-the RecurrentGemma hybrid).  Its kernels (the wire kernels, flash
-attention, WKV6 and the RG-LRU) are hand-written CUDA for ``sm_90a``
-under ``kernels/csrc``; every one has a plain PyTorch version beside it
-that CPU tensors take.
+the RecurrentGemma hybrid), and checks itself with a static analyzer
+(``analysis/``, ``launch/analyze.py``: a tile lint over the kernels'
+launch specs and sources, a host-sync guard over the round loop).  Its
+kernels are hand-written CUDA for ``sm_90a`` under ``kernels/csrc``:
+the wire kernels (``wire_kernels.cu``), flash attention, WKV6 and the
+RG-LRU (``model_kernels.cu``), and the analyzer's mis-tiled copy
+(``fixture_kernels.cu``); every one has a plain PyTorch version beside
+it that CPU tensors take.
 """
 import torch
 

@@ -1,0 +1,12 @@
+"""Static analysis of the port (the reference's ``repro.analysis``): a
+rule registry and one entry point (:func:`analyze`), the kernel tile lint
+over the CUDA kernels' launch specs and sources
+(:class:`KernelTileLint`), and the round loop's host-sync guard
+(:class:`HostSyncGuard`).  ``python -m repro_torch.launch.analyze`` runs
+them; nothing here launches a kernel."""
+from repro_torch.analysis.core import (  # noqa: F401
+    RULE_REGISTRY, AnalysisError, Report, Rule, Target, Violation, analyze,
+    register_rule,
+)
+from repro_torch.analysis.hostsync import HostSyncGuard  # noqa: F401
+from repro_torch.analysis.tiles import KernelTileLint  # noqa: F401

@@ -257,9 +257,11 @@ def hermes_round(pod_params: Tree, gup_state: Dict[str, torch.Tensor],
     """One Level-B round: per-pod Algorithm-1 gates, admission, then the
     merge.  ``use_kernel=None`` resolves ``cfg.kernel_dispatch`` against
     the device of ``pod_losses``.  Returns a dict: pod_params, w_global,
-    gup, error, gates, any_push.  ``cfg.async_rounds`` is not read here,
-    as in the reference: the pipelined loop calls :func:`hermes_dispatch`
-    and :func:`hermes_commit` instead."""
+    gup, error, gates, any_push, and ``merged``, the host's copy of
+    ``any_push`` that the round read to skip a closed merge (a caller
+    reads it without another sync).  ``cfg.async_rounds`` is not read
+    here, as in the reference: the pipelined loop calls
+    :func:`hermes_dispatch` and :func:`hermes_commit` instead."""
     if use_kernel is None:
         use_kernel = resolve_kernel_dispatch(cfg.kernel_dispatch,
                                              pod_losses.device)
@@ -268,7 +270,8 @@ def hermes_round(pod_params: Tree, gup_state: Dict[str, torch.Tensor],
     err_in = error if cfg.error_feedback else None
     # The reference skips the merge with lax.cond(any_push); here the flag
     # is read on the host, once per round boundary.
-    if bool(any_push):
+    merged = bool(any_push)
+    if merged:
         new_pods, new_global, new_error, _ = hermes_merge(
             pod_params, gates, pod_losses, w_global, L,
             compression=cfg.compression, error=err_in, use_kernel=use_kernel,
@@ -278,7 +281,8 @@ def hermes_round(pod_params: Tree, gup_state: Dict[str, torch.Tensor],
         new_pods, new_global = pod_params, w_global
         new_error = _closed_error(cfg, err_in, pod_params)
     return {"pod_params": new_pods, "w_global": new_global, "gup": new_gup,
-            "error": new_error, "gates": gates, "any_push": any_push}
+            "error": new_error, "gates": gates, "any_push": any_push,
+            "merged": merged}
 
 
 # Async rounds (the reference's DESIGN.md section 8): ``hermes_round`` split

@@ -10,7 +10,15 @@ at import: the CPU tests import every module.
 
 Each launch goes through :func:`launch`, which raises when the C launcher
 reports a CUDA error and counts successful launches per kernel in
-:data:`LAUNCHES`.
+:data:`LAUNCHES`.  Each kernel module also has a pure ``launch_spec``
+that repeats its C launcher's arithmetic as a :class:`LaunchSpec` (grid,
+threads, shared memory, each operand's tile): the static tile lint
+(``analysis/tiles.py``) reads those and the sources, and launches
+nothing.
+
+Sources: ``wire_kernels.cu`` (the wire path), ``model_kernels.cu``
+(serving) and ``fixture_kernels.cu``, the analyzer's deliberately
+mis-tiled copy (``kernels/tile_copy.py``).
 """
 from __future__ import annotations
 
@@ -21,8 +29,9 @@ import shutil
 import subprocess
 import tempfile
 import threading
+from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import torch
 
@@ -54,12 +63,66 @@ LIBRARIES = {
                  _I32, _P),
         "rglru": (_P, _P, _P, _P, _P, _I32, _I32, _I32, _P),
     },
+    "fixture_kernels": {
+        "tile_copy": (_P, _P, _I32, _I32, _I32, _I32, _P),
+    },
 }
 _LIBRARY_OF = {kern: lib_name for lib_name, kerns in LIBRARIES.items()
                for kern in kerns}
 
 #: successful launches per kernel since the last :func:`reset_launches`
 LAUNCHES: Dict[str, int] = {name: 0 for name in _LIBRARY_OF}
+
+#: ``kThreads`` of ``csrc/wire_kernels.cu``: every wire kernel's block
+WIRE_THREADS = 256
+
+
+def grid_for(n: int) -> int:
+    """The wire kernels' grid for ``n`` work items (``grid_for`` of
+    ``csrc/wire_kernels.cu``): one thread each, capped at 132 SMs x 16
+    resident blocks, grid-stride loops covering the rest."""
+    return min(-(-n // WIRE_THREADS), 132 * 16)
+
+
+@dataclass(frozen=True)
+class Operand:
+    """One array of a launch, as the kernel indexes it: ``array`` its
+    shape, ``tile`` the part of it one block touches in one step (a
+    dimension equal to the array's is untiled), ``dtype`` its torch name.
+    ``gather`` marks an operand read or written one value per block
+    (the quantization scales): a gather, not a tile."""
+    name: str
+    array: Tuple[int, ...]
+    tile: Tuple[int, ...]
+    dtype: str
+    gather: bool = False
+
+
+@dataclass(frozen=True)
+class LaunchSpec:
+    """What a kernel's C launcher does for given shapes, without launching.
+
+    ``kernel`` is the :data:`LAUNCHES` name, ``source`` its ``.cu`` file
+    and ``function`` the ``__global__`` function there; ``grid``,
+    ``threads`` and ``smem`` (dynamic shared bytes) are the launch.
+    ``accumulator`` names the variable the kernel sums in (None: it sums
+    nothing), ``template`` binds the function's type parameters to dtype
+    names, ``threads_of`` is the C expression of ``constexpr`` names the
+    block size comes from, and ``constants`` the ``constexpr`` values the
+    Python arithmetic here assumed; the lint holds all of these to the
+    source."""
+    kernel: str
+    source: Path
+    function: str
+    grid: Tuple[int, int, int]
+    threads: int
+    smem: int
+    operands: Tuple[Operand, ...]
+    accumulator: Optional[str] = None
+    template: Mapping[str, str] = field(default_factory=dict)
+    threads_of: Optional[str] = None
+    constants: Mapping[str, int] = field(default_factory=dict)
+
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

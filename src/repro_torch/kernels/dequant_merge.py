@@ -96,3 +96,37 @@ def dequant_merge_packed_cuda(g: torch.Tensor, q_packed: torch.Tensor,
                          f"{gs} blocked on axis {ax}")
     return _launch("dequant_merge_packed", g, q_packed, scales, w2, denom,
                    any_push, n_pods, gs, ax, d, nb)
+
+
+def launch_spec(kernel: str, g_shape, n_pods: int, axis: int = -1
+                ) -> build.LaunchSpec:
+    """The launch ``kernel`` (``"dequant_merge"`` or
+    ``"dequant_merge_packed"``) makes for a global leaf of ``g_shape`` and
+    ``n_pods`` pods, blocked on ``axis`` of the pod-stacked payload: one
+    thread per output element, every pod read in the same step.  A step's
+    ``WIRE_THREADS`` outputs read as many int8 bytes per pod, or half as
+    many packed bytes, and one scale per pod and block (a gather)."""
+    gs = tuple(g_shape) or (1,)
+    ax = axis % (len(gs) + 1)
+    d = gs[ax - 1]
+    nb = -(-d // BLOCK)
+    outer, inner = math.prod(gs[:ax - 1]), math.prod(gs[ax:])
+    n = outer * d * inner
+    t = build.WIRE_THREADS
+    if kernel == "dequant_merge_packed":
+        q = build.Operand("q_packed", (n_pods, outer * nb * HALF * inner),
+                          (n_pods, t // 2), "int8")
+    else:
+        q = build.Operand("q", (n_pods, n), (n_pods, t), "int8")
+    scales = build.Operand("scales", (n_pods, outer * nb * inner),
+                           (n_pods, 1), "float32", gather=True)
+    return build.LaunchSpec(
+        kernel=kernel, source=build.source("wire_kernels"),
+        function=f"{kernel}_kernel", grid=(build.grid_for(n), 1, 1),
+        threads=t, smem=0,
+        operands=(build.Operand("g", (n,), (t,), "float32"), q, scales,
+                  build.Operand("scal", (2 + n_pods,), (2 + n_pods,),
+                                "float32"),
+                  build.Operand("out", (n,), (t,), "float32")),
+        accumulator="acc", threads_of="kThreads",
+        constants={"kBlock": BLOCK, "kHalf": HALF, "kThreads": t})

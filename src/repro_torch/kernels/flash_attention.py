@@ -26,6 +26,8 @@ from repro_torch.kernels import build
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128, 256)
+THREADS = 256   # kFaThreads of csrc/model_kernels.cu
+KV_TILE = 64    # kBK: keys a block stages per step
 
 
 def visible(q_positions: torch.Tensor, kv_positions: torch.Tensor, *,
@@ -100,3 +102,30 @@ def flash_attention_cuda(q, k, v, q_positions, kv_positions, *,
                  _DTYPES[q.dtype], B, Sq, Skv, H, K, D, int(causal),
                  int(window), float(scale))
     return out
+
+
+def launch_spec(q_shape, k_shape, dtype: str = "float32"
+                ) -> build.LaunchSpec:
+    """The launch :func:`flash_attention_cuda` makes for q ``(B, Sq, H,
+    D)`` and k / v ``(B, Skv, K, D)`` of ``dtype``: one block per (q tile,
+    head, batch), ``dim3((Sq + BQ - 1) / BQ, H, B)`` with BQ 16 rows for
+    Sq <= 16 (decode) and 64 otherwise, walking the keys ``KV_TILE`` at a
+    time; the shared memory of ``fa_smem_bytes<BQ, D>``."""
+    B, Sq, H, D = q_shape
+    Skv, K = k_shape[1], k_shape[2]
+    bq = 16 if Sq <= 16 else 64
+    smem = 4 * (bq * (D + 1) + 2 * KV_TILE * (D + 1) + bq * (KV_TILE + 1))
+    q_tile, kv_tile = (1, bq, 1, D), (1, KV_TILE, 1, D)
+    return build.LaunchSpec(
+        kernel="flash_attention", source=build.source("model_kernels"),
+        function="flash_attention_kernel", grid=(-(-Sq // bq), H, B),
+        threads=THREADS, smem=smem,
+        operands=(build.Operand("q", tuple(q_shape), q_tile, dtype),
+                  build.Operand("k", (B, Skv, K, D), kv_tile, dtype),
+                  build.Operand("v", (B, Skv, K, D), kv_tile, dtype),
+                  build.Operand("q_positions", (Sq,), (bq,), "int32"),
+                  build.Operand("kv_positions", (Skv,), (KV_TILE,),
+                                "int32"),
+                  build.Operand("out", tuple(q_shape), q_tile, dtype)),
+        accumulator="acc", template={"T": dtype}, threads_of="kFaThreads",
+        constants={"kFaThreads": THREADS, "kBK": KV_TILE})

@@ -8,6 +8,8 @@ one flat elementwise pass with the pods accumulated in order, for the
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.kernels import build
@@ -38,3 +40,21 @@ def loss_weighted_update_cuda(g: torch.Tensor, pods: torch.Tensor,
                  pods.data_ptr(), scal.data_ptr(), out.data_ptr(),
                  pods.shape[0], g.numel())
     return out
+
+
+def launch_spec(g_shape, n_pods: int) -> build.LaunchSpec:
+    """The launch :func:`loss_weighted_update_cuda` makes: one thread per
+    element of the flat leaf, every pod read in the same step."""
+    n = math.prod(g_shape)
+    t = build.WIRE_THREADS
+    return build.LaunchSpec(
+        kernel="loss_weighted_update", source=build.source("wire_kernels"),
+        function="loss_weighted_update_kernel",
+        grid=(build.grid_for(n), 1, 1), threads=t, smem=0,
+        operands=(build.Operand("g", (n,), (t,), "float32"),
+                  build.Operand("pods", (n_pods, n), (n_pods, t), "float32"),
+                  build.Operand("scal", (3 + n_pods,), (3 + n_pods,),
+                                "float32"),
+                  build.Operand("out", (n,), (t,), "float32")),
+        accumulator="acc", threads_of="kThreads",
+        constants={"kThreads": t})

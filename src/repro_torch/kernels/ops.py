@@ -98,3 +98,35 @@ def rglru(a, b, h0=None):
     if a.is_cuda:
         return _lru.rglru_cuda(a, b, h0)
     return _lru.rglru_plain(a, b, h0)
+
+
+def kernel_lint_cases():
+    """``(label, LaunchSpec)`` for every ported kernel (the reference's
+    ``kernels/ops.py:wire_lint_cases``).
+
+    The static tile lint (``repro_torch.analysis.KernelTileLint``) reads
+    each spec and its ``.cu`` source; nothing launches.  The wire kernels
+    take the reference's shapes: a ``(4, 512)`` leaf (two 256-element
+    blocks a row) and two pods.  The model kernels take the smallest
+    shapes their real tiling divides: 128 queries and keys (two 64-row
+    tiles) for flash attention at head dims 64 (fp32) and 256 (bf16, on
+    one KV head), 32 steps (two staged chunks) of two heads of 64 for
+    WKV6, 16 steps of 128 channels (two blocks) for the RG-LRU.
+    """
+    pods, g = 2, (4, 512)
+    return [
+        ("quantize_int8", _qz.launch_spec("quantize_int8", g)),
+        ("dequantize_int8", _qz.launch_spec("dequantize_int8", g)),
+        ("pack_int4", _pk.launch_spec("pack_int4", g)),
+        ("unpack_int4", _pk.launch_spec("unpack_int4", (4, 256))),
+        ("loss_weighted_update", _lwu.launch_spec(g, pods)),
+        ("dequant_merge", _dqm.launch_spec("dequant_merge", g, pods)),
+        ("dequant_merge_packed",
+         _dqm.launch_spec("dequant_merge_packed", g, pods)),
+        ("flash_attention[D64]",
+         _fa.launch_spec((1, 128, 4, 64), (1, 128, 2, 64), "float32")),
+        ("flash_attention[D256]",
+         _fa.launch_spec((1, 128, 2, 256), (1, 128, 1, 256), "bfloat16")),
+        ("wkv6", _wkv.launch_spec((1, 32, 2, 64), "bfloat16")),
+        ("rglru", _lru.launch_spec((1, 16, 128))),
+    ]

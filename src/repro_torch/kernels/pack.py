@@ -64,3 +64,23 @@ def unpack_int4_cuda(p: torch.Tensor, axis: int = -1) -> torch.Tensor:
     build.launch("unpack_int4", p.device, p.data_ptr(), q.data_ptr(), outer,
                  dh, inner)
     return q
+
+
+def launch_spec(kernel: str, shape, axis: int = -1) -> build.LaunchSpec:
+    """The launch ``kernel`` (``"pack_int4"``, ``shape`` = q's, or
+    ``"unpack_int4"``, ``shape`` = p's) makes: one thread per packed byte,
+    so a block's step covers ``WIRE_THREADS`` packed bytes and the
+    ``2 * WIRE_THREADS`` nibble bytes they pair."""
+    pack = kernel == "pack_int4"
+    outer, d, inner, _ = _view3(tuple(shape), axis, BLOCK if pack else HALF)
+    n = outer * (d // 2 if pack else d) * inner
+    t = build.WIRE_THREADS
+    packed = build.Operand("p", (n,), (t,), "int8")
+    nibbles = build.Operand("q", (2 * n,), (2 * t,), "int8")
+    return build.LaunchSpec(
+        kernel=kernel, source=build.source("wire_kernels"),
+        function=f"{kernel}_kernel", grid=(build.grid_for(n), 1, 1),
+        threads=t, smem=0,
+        operands=(nibbles, packed) if pack else (packed, nibbles),
+        threads_of="kThreads",
+        constants={"kBlock": BLOCK, "kHalf": HALF, "kThreads": t})

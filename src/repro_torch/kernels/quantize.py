@@ -66,3 +66,33 @@ def dequantize_int8_cuda(q: torch.Tensor, scales: torch.Tensor, shape
     build.launch("dequantize_int8", q.device, q.data_ptr(), scales.data_ptr(),
                  out.data_ptr(), n)
     return out
+
+
+def launch_spec(kernel: str, shape) -> build.LaunchSpec:
+    """The launch ``kernel`` (``"quantize_int8"`` or ``"dequantize_int8"``)
+    makes for an fp32 array of ``shape``.  The quantize takes one warp per
+    256-block, so a block's step is ``WIRE_THREADS // 32`` rows of the
+    ``(nb, 256)`` layout; the dequantize four elements per thread.  Each
+    block's scale is a gather."""
+    n = math.prod(shape)
+    nb = -(-n // BLOCK)
+    t = build.WIRE_THREADS
+    if kernel == "quantize_int8":
+        rows = t // 32
+        grid = build.grid_for(nb * 32)
+        ops = (build.Operand("x", (nb, BLOCK), (rows, BLOCK), "float32"),
+               build.Operand("q", (nb, BLOCK), (rows, BLOCK), "int8"),
+               build.Operand("scales", (nb,), (rows,), "float32",
+                             gather=True))
+    else:
+        step = 4 * t
+        grid = build.grid_for(-(-n // 4))
+        ops = (build.Operand("q", (n,), (step,), "int8"),
+               build.Operand("scales", (nb,), (step // BLOCK,), "float32",
+                             gather=True),
+               build.Operand("out", (n,), (step,), "float32"))
+    return build.LaunchSpec(
+        kernel=kernel, source=build.source("wire_kernels"),
+        function=f"{kernel}_kernel", grid=(grid, 1, 1), threads=t, smem=0,
+        operands=ops, threads_of="kThreads",
+        constants={"kBlock": BLOCK, "kThreads": t})

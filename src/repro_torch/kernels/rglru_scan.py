@@ -21,6 +21,9 @@ import torch
 
 from repro_torch.kernels import build
 
+THREADS = 64   # kLruThreads of csrc/model_kernels.cu: channels per block
+STEPS = 8      # kLruSteps: steps each thread loads ahead
+
 
 def rglru_plain(a: torch.Tensor, b: torch.Tensor,
                 h0: Optional[torch.Tensor] = None):
@@ -60,3 +63,22 @@ def rglru_cuda(a: torch.Tensor, b: torch.Tensor,
                  0 if h0 is None else h0.data_ptr(), y.data_ptr(),
                  hT.data_ptr(), B, T, W)
     return y, hT
+
+
+def launch_spec(shape) -> build.LaunchSpec:
+    """The launch :func:`rglru_cuda` makes for fp32 a / b of ``shape``
+    ``(B, T, W)``: one thread per (batch, channel), ``THREADS`` channels a
+    block, each walking T ``STEPS`` steps at a time."""
+    B, T, W = shape
+    step, state = (1, STEPS, THREADS), (1, THREADS)
+    return build.LaunchSpec(
+        kernel="rglru", source=build.source("model_kernels"),
+        function="rglru_kernel", grid=(-(-B * W // THREADS), 1, 1),
+        threads=THREADS, smem=0,
+        operands=(build.Operand("a", (B, T, W), step, "float32"),
+                  build.Operand("b", (B, T, W), step, "float32"),
+                  build.Operand("h0", (B, W), state, "float32"),
+                  build.Operand("y", (B, T, W), step, "float32"),
+                  build.Operand("hT", (B, W), state, "float32")),
+        accumulator="h", threads_of="kLruThreads",
+        constants={"kLruThreads": THREADS, "kLruSteps": STEPS})

@@ -25,6 +25,8 @@ from repro_torch.kernels import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)
+SPLIT = 4    # kWkvSplit of csrc/model_kernels.cu: threads per value column
+STEPS = 16   # kWkvSteps: steps a block stages in shared memory at a time
 
 
 def wkv6_plain(r, k, v, log_w, u, state):
@@ -75,3 +77,27 @@ def wkv6_cuda(r, k, v, log_w, u, state):
                  y.data_ptr(), new_state.data_ptr(), _DTYPES[r.dtype], B, T,
                  H, D)
     return y, new_state
+
+
+def launch_spec(shape, dtype: str = "bfloat16") -> build.LaunchSpec:
+    """The launch :func:`wkv6_cuda` makes for r / k / v of ``shape`` ``(B,
+    T, H, D)`` in ``dtype``: one block of ``SPLIT * D`` threads per
+    (batch, head), staging ``STEPS`` steps at a time."""
+    B, T, H, D = shape
+    step = (1, STEPS, 1, D)
+    seq = [build.Operand(name, (B, T, H, D), step, dtype)
+           for name in ("r", "k", "v")]
+    state = (B, H, D, D)
+    return build.LaunchSpec(
+        kernel="wkv6", source=build.source("model_kernels"),
+        function="wkv6_kernel", grid=(B * H, 1, 1), threads=SPLIT * D,
+        smem=0,
+        operands=(*seq, build.Operand("log_w", (B, T, H, D), step, "float32"),
+                  build.Operand("u", (H, D), (1, D), "float32"),
+                  build.Operand("state", state, (1, 1, D, D), "float32"),
+                  build.Operand("y", (B, T, H, D), step, dtype),
+                  build.Operand("new_state", state, (1, 1, D, D),
+                                "float32")),
+        accumulator="acc", template={"T": dtype},
+        threads_of=f"kWkvSplit * {D}",
+        constants={"kWkvSplit": SPLIT, "kWkvSteps": STEPS})

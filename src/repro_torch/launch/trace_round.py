@@ -5,14 +5,18 @@ warm-up run in the same process.
     python -m repro_torch.launch.trace_round [--steps 4] [--trace PATH]
 
 Prints one JSON line: the profiled host time inside the trainer's
-``hermes/pod_step`` and ``hermes/round`` ranges (each ends in a device
-synchronise), the device time of every kernel summed, the device's busy
-share of those ranges, and the kernels with the most device time.
+``hermes/pod_step`` and ``hermes/round`` ranges (the loop does not wait
+for the card, so this is the host's time to issue the work), the loop's
+window (from the first range's start to the last range's end on the host
+or on the device), the device time of the kernels and copies that start
+in it, the device's busy share of the window, and the kernels with the
+most device time in it.
 """
 from __future__ import annotations
 
 import argparse
 import json
+from typing import Dict
 
 import torch
 
@@ -50,25 +54,34 @@ def main(argv=None) -> None:
         out = train_hermes(cfg, steps=args.steps, **run)
     if args.trace:
         prof.export_chrome_trace(args.trace)
-    avgs = prof.key_averages()
-    host_us = {r: sum(e.cpu_time_total for e in avgs if e.key == r)
-               for r in RANGES}
-    kernels = sorted((e for e in avgs if device_us(e) > 0),
-                     key=device_us, reverse=True)
-    device_us = sum(device_us(e) for e in kernels)
-    span_us = sum(host_us.values())
+    host_us = {r: sum(e.cpu_time_total for e in prof.key_averages()
+                      if e.key == r) for r in RANGES}
+    events = prof.events()
+    spans = [e.time_range for e in events if e.name in RANGES]
+    lo, hi = min(t.start for t in spans), max(t.end for t in spans)
+    by_name: Dict[str, list] = {}
+    for e in events:
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and e.name not in RANGES and lo <= e.time_range.start < hi):
+            calls_us = by_name.setdefault(e.name, [0, 0.0])
+            calls_us[0] += 1
+            calls_us[1] += e.time_range.elapsed_us()
+    busy_us = sum(us for _, us in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: kv[1][1], reverse=True)
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
         "steps": args.steps, "rounds": out["rounds"],
         "merges": out["merges"],
+        "ms_per_step": out["ms_per_step"],
+        "ms_per_round": out["ms_per_round"],
         "host_ms": {r: v / 1e3 for r, v in host_us.items()},
-        "device_kernel_ms": device_us / 1e3,
-        "device_busy_share": device_us / span_us if span_us else None,
-        "top_kernels": [{"name": e.key[:90], "calls": e.count,
-                         "device_ms": device_us(e) / 1e3}
-                        for e in kernels[:25]],
+        "loop_ms": (hi - lo) / 1e3,
+        "device_kernel_ms": busy_us / 1e3,
+        "device_busy_share": busy_us / (hi - lo),
+        "launches": sum(n for n, _ in by_name.values()),
+        "top_kernels": [{"name": name[:90], "calls": n, "device_ms": us / 1e3}
+                        for name, (n, us) in top[:25]],
     }))
-
 
 if __name__ == "__main__":
     main()

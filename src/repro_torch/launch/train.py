@@ -59,9 +59,54 @@ def _preset(name: str) -> ModelConfig:
     return get_smoke_config(name)
 
 
-def _sync(device: torch.device) -> None:
+def _host_fetch(values):
+    """The round loop's one device-to-host read (the reference's
+    ``_host_fetch``): a tuple of tensors copied to the host.  The loop
+    calls it only at log steps and once after the loop, never per round,
+    so the host keeps the card's queue full; ``analysis.hostsync``
+    allows no other host read in the loop."""
+    return tuple(v.detach().cpu() for v in values)
+
+
+class _PhaseClock:
+    """Sums the time of one phase of the loop without a host sync: on the
+    card a pair of CUDA events around each span, read after the loop; on
+    the CPU the host clock."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.spans: List = []
+        self.host_s = 0.0
+
+    def start(self):
+        if not self.cuda:
+            return time.perf_counter()
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        return event
+
+    def stop(self, started) -> None:
+        if not self.cuda:
+            self.host_s += time.perf_counter() - started
+            return
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        self.spans.append((started, event))
+
+    def seconds(self) -> float:
+        """The summed spans; on the card this waits for the last one."""
+        if not self.spans:
+            return self.host_s
+        self.spans[-1][1].synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.spans) / 1e3
+
+
+def _to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A host batch onto ``device``: from pinned memory without blocking
+    on the card (a pageable copy waits for the stream)."""
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
 
 
 def train_hermes(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
@@ -77,8 +122,17 @@ def train_hermes(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
     :class:`GeneratorNoise` seeded with ``seed``).  Returns the reference's
     summary (global_loss, merges, rounds, pod_losses, history, and the
     async accounting async_rounds, dispatched, committed, drained; with
-    async rounds ``merges`` counts commits) plus host-clock times per step
-    and per round, each ending in a device synchronise.
+    async rounds ``merges`` counts commits) plus the time per step and per
+    round: CUDA events on the card, the host clock on the CPU.
+
+    As in the reference, the loop reads the device only through
+    :func:`_host_fetch`, at log steps and after the loop: the counters and
+    the per-round history stay on the device and are fetched once.  After
+    a merge the global loss is re-evaluated on the round function's own
+    host copy of its gate flag (``merged``; for async rounds, a payload
+    pending), so the loop adds neither a sync nor an eval forward per
+    round.  The round functions' own host reads stand in for the
+    reference's ``lax.cond``.
     """
     dev = resolve_device(device)
     if dev.type == "cuda":
@@ -136,28 +190,32 @@ def train_hermes(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
     def eval_global(params):
         return lm_loss(params, eval_batch, cfg)
 
-    rounds, merges = 0, 0
-    dispatched, committed = 0, 0  # async: open rounds shipped and merged
-    pending = None                # the in-flight round (async only)
-    history: List = []
-    step_s, round_s = 0.0, 0.0
-
     def commit(pod_params, w_global, L_global, pending):
         """Merge the pending round; the global loss is re-evaluated only
-        when it merged."""
+        when it merged.  A dispatch encodes a payload only for an open
+        gate (its own host read), so a pending payload is the host's flag.
+        Returns the merge as a device int32 for the counters."""
         cm = hermes_commit(pod_params, pending, w_global, cfg=hcfg)
-        opened = bool(cm["any_push"])
-        if opened:
+        if pending["payload"] is not None:
             L_global = eval_global(cm["w_global"])
-        return cm["pod_params"], cm["w_global"], L_global, int(opened)
+        return (cm["pod_params"], cm["w_global"], L_global,
+                cm["any_push"].to(torch.int32))
+
+    rounds = 0
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    merges, dispatched, committed = zero, zero, zero  # device counters
+    pending = None                # the in-flight round (async only)
+    history: List = []            # (step, device mean loss, device gates)
+    step_clock, round_clock = _PhaseClock(dev), _PhaseClock(dev)
 
     for i in range(steps):
         # As in the reference, each key draws its own batch, so "targets"
         # are not the shifted "tokens" of the same windows; kept for parity
         # (ROADMAP queue 3).
-        stacked = {k: torch.stack([next(b)[k] for b in batch_iters]).to(dev)
+        stacked = {k: _to_device(torch.stack([next(b)[k]
+                                              for b in batch_iters]), dev)
                    for k in ("tokens", "targets")}
-        t0 = time.perf_counter()
+        t0 = step_clock.start()
         # the named ranges are what a torch.profiler trace of a run reads
         with torch.profiler.record_function("hermes/pod_step"):
             losses, grads = pod_losses_and_grads(pod_params, stacked)
@@ -165,10 +223,9 @@ def train_hermes(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
                 pod_params, pod_opt = optimizer.apply(pod_params, grads,
                                                       pod_opt)
             del grads
-            _sync(dev)
-        step_s += time.perf_counter() - t0
+        step_clock.stop(t0)
         if (i + 1) % hcfg.lam == 0 or i == 0:
-            t0 = time.perf_counter()
+            t0 = round_clock.start()
             rounds += 1
             with torch.profiler.record_function("hermes/round"), \
                     torch.no_grad():
@@ -180,30 +237,30 @@ def train_hermes(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
                         pod_params, w_global, L_global, opened = commit(
                             pod_params, w_global, L_global, pending)
                         pending = None  # frees the payload
-                        merges += opened
-                        committed += opened
+                        merges = merges + opened
+                        committed = committed + opened
                     out = hermes_dispatch(pod_params, gup, pod_losses,
                                           w_global, L_global, hcfg,
                                           error=error, round_step=i,
                                           noise=noise)
                     pending = out["pending"]
-                    dispatched += int(bool(out["any_push"]))
+                    dispatched = dispatched + out["any_push"].to(torch.int32)
                 else:
                     out = hermes_round(pod_params, gup, pod_losses, w_global,
                                        L_global, hcfg, error=error,
                                        round_step=i, noise=noise)
                     pod_params, w_global = out["pod_params"], out["w_global"]
-                    if bool(out["any_push"]):  # re-evaluate after a merge
-                        merges += 1
+                    if out["merged"]:  # re-evaluate after a merge
                         L_global = eval_global(w_global)
+                    merges = merges + out["any_push"].to(torch.int32)
                 gup, error = out["gup"], out["error"]
-                history.append((i + 1, float(torch.mean(pod_losses)),
-                                int(out["gates"].sum())))
-                _sync(dev)
-            round_s += time.perf_counter() - t0
+                history.append((i + 1, torch.mean(pod_losses),
+                                out["gates"].sum()))
+            round_clock.stop(t0)
         if (i + 1) % log_every == 0:
-            print(f"step {i + 1:5d} pod-loss {float(losses.mean()):.4f} "
-                  f"global-L {float(L_global):.4f} merges={merges}/{rounds}",
+            pod_l, gl_l, m = _host_fetch((losses.mean(), L_global, merges))
+            print(f"step {i + 1:5d} pod-loss {float(pod_l):.4f} "
+                  f"global-L {float(gl_l):.4f} merges={int(m)}/{rounds}",
                   flush=True)
     # drain: the last dispatched payload has no following boundary, so it
     # is committed here; every open round merges exactly once
@@ -212,17 +269,28 @@ def train_hermes(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
             pod_params, w_global, L_global, opened = commit(
                 pod_params, w_global, L_global, pending)
         pending = None
-        merges += opened
-        committed += opened
-    gl = float(eval_global(w_global))
-    pl = [float(x) for x in pod_eval(pod_params)]
-    return {"global_loss": gl, "merges": merges, "rounds": rounds,
-            "pod_losses": pl, "best_pod_loss": min(pl), "history": history,
+        merges = merges + opened
+        committed = committed + opened
+    # one fetch: the per-round scalars are stacked on the device first
+    hist_loss = torch.stack([l for _, l, _ in history]) if history \
+        else torch.zeros((0,), device=dev)
+    hist_gates = torch.stack([g for _, _, g in history]) if history \
+        else torch.zeros((0,), dtype=torch.int64, device=dev)
+    gl, pl, merges, dispatched, committed, hist_loss, hist_gates = \
+        _host_fetch((eval_global(w_global), pod_eval(pod_params), merges,
+                     dispatched, committed, hist_loss, hist_gates))
+    pl = pl.tolist()
+    merges = int(merges)
+    return {"global_loss": float(gl), "merges": merges, "rounds": rounds,
+            "pod_losses": pl, "best_pod_loss": min(pl),
+            "history": [(s, l, g) for (s, _, _), l, g in zip(
+                history, hist_loss.tolist(), hist_gates.tolist())],
             "steps": steps, "comm_fraction": merges / max(rounds, 1),
-            "async_rounds": hcfg.async_rounds, "dispatched": dispatched,
-            "committed": committed, "drained": pending is None,
-            "ms_per_step": 1e3 * step_s / max(steps, 1),
-            "ms_per_round": 1e3 * round_s / max(rounds, 1),
+            "async_rounds": hcfg.async_rounds,
+            "dispatched": int(dispatched), "committed": int(committed),
+            "drained": pending is None,
+            "ms_per_step": 1e3 * step_clock.seconds() / max(steps, 1),
+            "ms_per_round": 1e3 * round_clock.seconds() / max(rounds, 1),
             "device": str(dev)}
 
 

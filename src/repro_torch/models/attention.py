@@ -26,6 +26,7 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.flash_attention import NEG_INF, visible
@@ -174,9 +175,11 @@ def apply_attention(p, x: torch.Tensor, cfg: ModelConfig, *,
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                   window: int = 0, dtype=torch.bfloat16,
-                  device="cpu") -> Dict[str, torch.Tensor]:
+                  device="cuda") -> Dict[str, torch.Tensor]:
     """Linear cache, or ring buffer of ``window`` slots for local
-    attention; ``pos`` is each slot's absolute position, -1 if unwritten."""
+    attention; ``pos`` is each slot's absolute position, -1 if unwritten.
+    On the card unless ``device`` names the CPU."""
+    device = resolve_device(device)
     hd = cfg.resolved_head_dim
     slots = min(max_len, window) if window > 0 else max_len
     shape = (batch, slots, cfg.num_kv_heads, hd)

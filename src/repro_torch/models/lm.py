@@ -27,6 +27,7 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.config import (
     FAMILY_DENSE, FAMILY_HYBRID, FAMILY_SSM, ModelConfig,
 )
@@ -194,12 +195,14 @@ def lm_loss(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
-               dtype=torch.bfloat16, device="cpu"):
-    """The per-layer decode cache.  Stacked on a leading layer axis: a KV
+               dtype=torch.bfloat16, device="cuda"):
+    """The per-layer decode cache, on the card unless ``device`` names the
+    CPU.  Stacked on a leading layer axis: a KV
     cache of ``max_len`` slots per dense layer, the WKV state and last
     tokens per RWKV6 layer.  For the hybrid, a list: ``h`` (fp32) and
     the conv tail per RG-LRU layer, a ring buffer of ``min(max_len,
     attn_window)`` slots per attention layer."""
+    device = resolve_device(device)
     kinds = [block_kind(cfg, i) for i in range(cfg.num_layers)]
     if cfg.is_hybrid:
         return [G.init_rglru_state(cfg, batch, dtype, device) if k == "rec"

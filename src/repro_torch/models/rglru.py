@@ -28,6 +28,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.rglru_scan import rglru_plain
@@ -118,7 +119,10 @@ def apply_rglru_block(p, x: torch.Tensor, cfg: ModelConfig, *,
 
 
 def init_rglru_state(cfg: ModelConfig, batch: int, dtype=torch.bfloat16,
-                     device="cpu") -> Dict[str, torch.Tensor]:
+                     device="cuda") -> Dict[str, torch.Tensor]:
+    """One RG-LRU layer's decode state: the fp32 ``h`` and the conv tail,
+    on the card unless ``device`` names the CPU."""
+    device = resolve_device(device)
     w, cw = _width(cfg), cfg.recurrent.conv1d_width
     return {"h": torch.zeros((batch, w), dtype=torch.float32, device=device),
             "conv": torch.zeros((batch, cw - 1, w), dtype=dtype,

@@ -22,6 +22,7 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.rwkv6_scan import wkv6_plain as wkv_scan
@@ -166,9 +167,10 @@ def apply_channel_mix(p, x: torch.Tensor, *,
 
 
 def init_rwkv_state(cfg: ModelConfig, batch: int, dtype=torch.float32,
-                    device="cpu") -> Dict[str, torch.Tensor]:
+                    device="cuda") -> Dict[str, torch.Tensor]:
     """One layer's decode state: the fp32 WKV state and the last token of
-    each mix."""
+    each mix, on the card unless ``device`` names the CPU."""
+    device = resolve_device(device)
     H, D = cfg.num_heads, cfg.resolved_head_dim
     return {
         "wkv": torch.zeros((batch, H, D, D), device=device),

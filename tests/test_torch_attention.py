@@ -168,7 +168,7 @@ def test_decode_attention_matches_reference(window, max_len, impl):
     jc = JA.init_kv_cache(jcfg, 2, max_len, window=window,
                           dtype=jnp.float32)
     tc = A.init_kv_cache(tcfg, 2, max_len, window=window,
-                         dtype=torch.float32)
+                         dtype=torch.float32, device="cpu")
     steps = [(0, 9)] + [(t, t + 1) for t in range(9, 13)]
     for a, b in steps:
         jo, jc = JA.decode_attention(p, jnp.asarray(xs[:, a:b]), jc, jcfg,
@@ -191,7 +191,7 @@ def test_cache_overrun_raises():
     tcfg = ModelConfig(**SMALL)
     p = bridge.from_numpy(jax.device_get(split_tree(JA.init_attention(
         JModelConfig(remat=False, **SMALL), jax.random.PRNGKey(1)))[0]), CPU)
-    cache = A.init_kv_cache(tcfg, 1, 4, dtype=torch.float32)
+    cache = A.init_kv_cache(tcfg, 1, 4, dtype=torch.float32, device="cpu")
     with pytest.raises(ValueError, match="overrun"):
         A.decode_attention(p, torch.zeros((1, 5, tcfg.d_model)), cache,
                            tcfg, pos=0)

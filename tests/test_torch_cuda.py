@@ -7,6 +7,8 @@ has no JAX:
 
     python -m pytest -q --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -27,6 +29,8 @@ from repro_torch.kernels.quantize import (
 )
 from repro_torch.kernels.rglru_scan import rglru_cuda, rglru_plain
 from repro_torch.kernels.rwkv6_scan import wkv6_cuda, wkv6_plain
+from repro_torch.kernels.tile_copy import launch_spec as tile_copy_launch_spec
+from repro_torch.kernels.tile_copy import tile_copy_cuda, tile_copy_plain
 
 pytestmark = pytest.mark.cuda
 
@@ -335,3 +339,107 @@ def test_serve_on_card_runs_the_kernels(card, preset):
         {k: n * (1 + 6) for k, n in want.items()}
     assert out["tokens"].shape == (2, 7)
     assert bool(torch.isfinite(out["prefill_logits"].float()).all())
+
+
+@pytest.mark.parametrize("shape,tile", [((64, 250), (8, 100)),
+                                        ((64, 256), (8, 128)),
+                                        ((7, 1000), (3, 96)),
+                                        ((1, 5), (8, 100))])
+def test_tile_copy_kernel_equals_plain_bitwise(card, shape, tile):
+    """The analyzer's mis-tiled copy: partial edge tiles in either
+    dimension copy exactly, and nothing past the array is written."""
+    build.reset_launches()
+    x = torch.randn(shape, device=card)
+    got = tile_copy_cuda(x, tile)
+    assert torch.equal(got, tile_copy_plain(x, tile))
+    assert torch.equal(got, x)
+    assert build.LAUNCHES["tile_copy"] == 1
+    with pytest.raises(ValueError, match="1024"):
+        tile_copy_cuda(x, (8, 2048))
+
+
+def _spec_inputs(spec, card):
+    """A thunk that calls ``spec``'s kernel at the spec's shapes (inputs
+    made outside it)."""
+    shapes = {o.name: o.array for o in spec.operands}
+    gen = torch.Generator(device=card).manual_seed(5)
+
+    def randn(*s):
+        return torch.randn(s, generator=gen, device=card)
+
+    name = spec.kernel
+    g = (4, 512)
+    w2 = torch.tensor([0.3, 0.5], device=card)
+    denom, push = torch.tensor(1.2, device=card), torch.tensor(True,
+                                                                device=card)
+    if name == "quantize_int8":
+        x = randn(*g)
+        return lambda: quantize_int8_cuda(x)
+    if name == "dequantize_int8":
+        q, s = quantize_int8_cuda(randn(*g))
+        return lambda: dequantize_int8_cuda(q, s, g)
+    if name in ("pack_int4", "unpack_int4"):
+        q = torch.randint(-8, 8, g, generator=gen, device=card,
+                          dtype=torch.int8)
+        if name == "pack_int4":
+            return lambda: pack_int4_cuda(q)
+        p = pack_int4_cuda(q)
+        return lambda: unpack_int4_cuda(p)
+    if name == "loss_weighted_update":
+        gl, pods = randn(*g), randn(2, *g)
+        return lambda: loss_weighted_update_cuda(gl, pods, denom - 0.8, w2,
+                                                 denom, push)
+    if name in ("dequant_merge", "dequant_merge_packed"):
+        gl = randn(*g)
+        if name == "dequant_merge":
+            pay = wire.get_format("int8").encode(randn(2, *g))
+            return lambda: dequant_merge_cuda(gl, pay["q"], pay["scales"], w2,
+                                              denom, push)
+        pay = wire.get_format("int4").encode(randn(2, *g), key=(0, 0))
+        return lambda: dequant_merge_packed_cuda(
+            gl, pay["q_packed"], pay["scales"], w2, denom, push)
+    if name == "flash_attention":
+        dt = getattr(torch, spec.operands[0].dtype)
+        q, k, v = (randn(*shapes[n]).to(dt) for n in ("q", "k", "v"))
+        qp = torch.arange(q.shape[1], dtype=torch.int32, device=card)
+        kp = torch.arange(k.shape[1], dtype=torch.int32, device=card)
+        return lambda: flash_attention_cuda(q, k, v, qp, kp)
+    if name == "wkv6":
+        dt = getattr(torch, spec.operands[0].dtype)
+        r, k, v = (randn(*shapes[n]).to(dt) for n in ("r", "k", "v"))
+        log_w = -torch.exp(randn(*shapes["log_w"]))
+        u, s0 = randn(*shapes["u"]), randn(*shapes["state"])
+        return lambda: wkv6_cuda(r, k, v, log_w, u, s0)
+    if name == "rglru":
+        a, b, h0 = (randn(*shapes[n]) for n in ("a", "b", "h0"))
+        return lambda: rglru_cuda(torch.sigmoid(a), b, h0)
+    if name == "tile_copy":
+        x = randn(*shapes["x"])
+        return lambda: tile_copy_cuda(x, spec.operands[0].tile)
+    raise KeyError(name)
+
+
+SPEC_CASES = ops.kernel_lint_cases() + [("tile_copy",
+                                         tile_copy_launch_spec())]
+
+
+@pytest.mark.parametrize("label", [label for label, _ in SPEC_CASES])
+def test_launch_matches_its_spec(card, label, tmp_path):
+    """The grid and block the profiler records for the kernel's launch are
+    the ones its launch spec (the lint's input) computes."""
+    spec = dict(SPEC_CASES)[label]
+    run = _spec_inputs(spec, card)
+    run()  # builds and loads the library
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    trace = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(trace))
+    events = [e for e in json.loads(trace.read_text())["traceEvents"]
+              if e.get("cat") == "kernel" and spec.function in e["name"]]
+    assert len(events) == 1, [e.get("name") for e in events]
+    args = events[0]["args"]
+    assert tuple(args["grid"]) == spec.grid
+    assert tuple(args["block"]) == (spec.threads, 1, 1)

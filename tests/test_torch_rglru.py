@@ -168,7 +168,7 @@ def test_rglru_block_token_by_token_equals_one_pass():
     x = torch.from_numpy((0.5 * rng.normal(size=(2, 12, tcfg.d_model))
                           ).astype(np.float32))
     full, _ = G.apply_rglru_block(tp, x, tcfg, impl="seq")
-    state = G.init_rglru_state(tcfg, 2, torch.float32)
+    state = G.init_rglru_state(tcfg, 2, torch.float32, "cpu")
     outs = []
     first, state = G.apply_rglru_block(tp, x[:, :5], tcfg, state=state,
                                        impl="kernel")

@@ -81,7 +81,7 @@ def _jax_serve(jcfg, params, prompt, gen, forced=None):
 def _torch_serve(tcfg, params, prompt, gen, forced=None, **kw):
     dt = torch.bfloat16 if tcfg.dtype == "bfloat16" else torch.float32
     B, T = prompt.shape
-    cache = lm.init_cache(tcfg, B, T + gen + 1, dtype=dt)
+    cache = lm.init_cache(tcfg, B, T + gen + 1, dtype=dt, device="cpu")
     with torch.no_grad():
         logits, cache = lm.prefill_step(
             params, cache, {"tokens": torch.from_numpy(prompt)}, tcfg, **kw)
@@ -225,9 +225,10 @@ def test_decode_token_by_token_equals_one_prefill(preset):
     kw = dict(impl="kernel", rec_impl="kernel")
     with torch.no_grad():
         full = lm.lm_forward(params, toks, tcfg)
-        one = lm.init_cache(tcfg, 2, 13, dtype=torch.float32)
+        one = lm.init_cache(tcfg, 2, 13, dtype=torch.float32, device="cpu")
         _, one = lm.prefill_step(params, one, {"tokens": toks}, tcfg, **kw)
-        stream = lm.init_cache(tcfg, 2, 13, dtype=torch.float32)
+        stream = lm.init_cache(tcfg, 2, 13, dtype=torch.float32,
+                               device="cpu")
         logits, stream = lm.prefill_step(params, stream,
                                          {"tokens": toks[:, :1]}, tcfg, **kw)
         steps = [logits]
@@ -255,7 +256,7 @@ def test_port_tree_and_count_match_reference_rwkv():
     n = sum(int(np.prod(x.shape)) for x in jax.tree.leaves(full))
     assert n == get_config("rwkv6-3b").param_count() == 3_099_857_920
     jc = jax.eval_shape(lambda: jinit_cache(jcfg, 2, 9))
-    tc = lm.init_cache(tcfg, 2, 9)
+    tc = lm.init_cache(tcfg, 2, 9, device="cpu")
     assert [x.shape for x in jax.tree.leaves(jc)] == \
         [tuple(x.shape) for x in tree_flatten(tc)[0]]
 
@@ -278,7 +279,7 @@ def test_port_tree_and_count_match_reference_hybrid():
         n = sum(int(np.prod(x.shape)) for x in jax.tree.leaves(full))
         assert n == get_config(arch).param_count() == count
     jc = jax.eval_shape(lambda: jinit_cache(jcfg, 2, 40))
-    tc = lm.init_cache(tcfg, 2, 40)
+    tc = lm.init_cache(tcfg, 2, 40, device="cpu")
     assert [(x.shape, str(x.dtype)) for x in jax.tree.leaves(jc)] == \
         [(tuple(x.shape), str(x.dtype).replace("torch.", ""))
          for x in tree_flatten(tc)[0]]
@@ -295,10 +296,10 @@ def test_unported_families_raise(family, recurrent):
                               recurrent=recurrent)
     cfg.validate()
     params = lm.init_lm(tpreset("lmtiny"), 0, CPU)
-    cache = lm.init_cache(tpreset("lmtiny"), 1, 4)
+    cache = lm.init_cache(tpreset("lmtiny"), 1, 4, device="cpu")
     tok = torch.zeros((1, 1), dtype=torch.int64)
     for call in (lambda: lm.init_lm(cfg, 0, CPU),
-                 lambda: lm.init_cache(cfg, 1, 4),
+                 lambda: lm.init_cache(cfg, 1, 4, device="cpu"),
                  lambda: lm.prefill_step(params, cache, {"tokens": tok}, cfg),
                  lambda: lm.decode_step(params, cache, tok, 0, cfg),
                  lambda: serve(cfg, batch=1, prompt_len=2, gen=1,
