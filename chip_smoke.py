@@ -28,8 +28,12 @@ Phases (any failure raises and the script exits nonzero):
    shapes (flash attention at lm100m prefill and decode, a windowed
    case, and recurrentgemma-2b's head dim 256 with one KV head: windowed
    prefill over 2560 tokens and decode on the wrapped 2048-slot ring, in
-   fp32 and bf16; WKV6 at rwkv6-3b prefill and decode; the RG-LRU at
-   recurrentgemma-2b prefill and decode, bitwise), timed beside the
+   fp32 and bf16, each on the design the wrapper picks: the SIMT kernel
+   for fp32 prefill, the wgmma kernel for bf16 prefill, the split-KV
+   kernel and its combine for decode, which are also held and timed one
+   at a time; each case's distance from an fp64 softmax printed beside
+   the plain version's; WKV6 at rwkv6-3b prefill and decode; the RG-LRU
+   at recurrentgemma-2b prefill and decode, bitwise), timed beside the
    plain version, the bound and, for attention, one
    ``scaled_dot_product_attention`` call;
 7. ``serve`` at lm100m (batch 8, prompt 512, 64 new tokens), at rwkv6-3b
@@ -76,6 +80,7 @@ PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12, "float16": 989e12,
 EPS32 = 2.0 ** -23            # fp32 machine epsilon
 WIRE_SOURCE = "src/repro_torch/kernels/csrc/wire_kernels.cu"
 MODEL_SOURCE = "src/repro_torch/kernels/csrc/model_kernels.cu"
+ATTENTION_SOURCE = "src/repro_torch/kernels/csrc/attention_kernels.cu"
 FIXTURE_SOURCE = "src/repro_torch/kernels/csrc/fixture_kernels.cu"
 REPLACES = {
     "pack_int4": "src/repro/kernels/pack.py:85",
@@ -86,6 +91,10 @@ REPLACES = {
     "quantize_int8": "src/repro/kernels/quantize.py:47",
     "dequantize_int8": "src/repro/kernels/quantize.py:67",
     "flash_attention": "src/repro/kernels/flash_attention.py:106",
+    "flash_simt": "src/repro/kernels/flash_attention.py:106",
+    "flash_decode": "src/repro/kernels/flash_attention.py:106",
+    "flash_decode_combine": "src/repro/kernels/flash_attention.py:106",
+    "flash_prefill": "src/repro/kernels/flash_attention.py:106",
     "wkv6": "src/repro/kernels/rwkv6_scan.py:99",
     "rglru": "src/repro/kernels/rglru_scan.py:71",
     "tile_copy": "src/repro/launch/analyze.py:499",
@@ -120,6 +129,23 @@ def time_ms(torch, fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(torch, fn, reps: int = 10) -> float:
+    """Mean device time of the kernels and copies ``fn()`` launches, per
+    call (``torch.profiler``): the card's share of a time that
+    :func:`time_ms` may find set by the host's issue rate."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(float(e.self_device_time_total) for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    return total / reps / 1e3
+
+
 def nbytes(ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
@@ -144,11 +170,89 @@ def kernel_entry(name, err, ms, plain_ms, flops, moved, dtypes, library_ms):
             "library_ms": library_ms}
 
 
+def attention_fp64(torch, q, k, v, qpos, kvpos, window):
+    """The contract's causal attention evaluated in fp64 (the yardstick
+    both the kernel's and the plain version's distance is printed from)."""
+    from repro_torch.kernels.flash_attention import visible
+    B, Sq, H, D = q.shape
+    K = k.shape[2]
+    sc = torch.einsum("bqkgd,bskd->bkgqs",
+                      q.double().reshape(B, Sq, K, H // K, D),
+                      k.double()) * D ** -0.5
+    sc = sc.masked_fill(~visible(qpos, kvpos, causal=True, window=window),
+                        -torch.inf)
+    return torch.einsum("bkgqs,bskd->bqkgd", torch.softmax(sc, -1),
+                        v.double()).reshape(B, Sq, H, D)
+
+
+def decode_kernels(torch, results, q, k, v, qpos, kvpos, window, want,
+                   flops) -> None:
+    """The two decode kernels one at a time at recurrentgemma-2b's decode
+    shape: the split kernel's partials, combined in plain PyTorch, held to
+    the plain attention; the combine kernel held to its plain version on
+    the same partials; each timed beside its plain version and its bound
+    (no single PyTorch call computes either half)."""
+    from repro_torch.kernels.flash_attention import (
+        decode_combine, decode_combine_plain, decode_split,
+        decode_split_plain)
+    D = q.shape[-1]
+    kw = dict(causal=True, window=window, scale=D ** -0.5)
+    part_ml, part_acc = decode_split(q, k, v, qpos, kvpos, **kw)
+    via_plain = decode_combine_plain(part_ml, part_acc, q.dtype)
+    got = decode_combine(part_ml, part_acc, q.dtype)
+    torch.cuda.synchronize()
+    # the split: its partials, combined in fp32 and rounded, against the
+    # plain attention (the check of phase 6 above); the combine: fp32 sums
+    # over the splits in another order, then both round to bf16
+    for label, have, ref in (("flash_decode", via_plain, want),
+                             ("flash_decode_combine", got, via_plain)):
+        gap = (have.float() - ref.float()).abs()
+        if bool((gap > 2e-5 + 2 ** -7 * ref.float().abs()).any()):
+            raise AssertionError(f"{label}: max abs err {float(gap.max())} "
+                                 f"against its plain version")
+    split_err = float((via_plain.float() - want.float()).abs().max())
+    comb_err = float((got.float() - via_plain.float()).abs().max())
+    scratch = (part_ml.numel() + part_acc.numel()) * 4
+    split_moved = (q.numel() + k.numel() + v.numel()) * q.element_size() \
+        + (qpos.numel() + kvpos.numel()) * 4 + scratch
+    split_ms = time_ms(torch, lambda: decode_split(q, k, v, qpos, kvpos,
+                                                   **kw), reps=20)
+    split_plain_ms = time_ms(torch, lambda: decode_split_plain(
+        q, k, v, qpos, kvpos, **kw), reps=5, warmup=1)
+    comb_moved = scratch + got.numel() * got.element_size()
+    comb_ms = time_ms(torch, lambda: decode_combine(part_ml, part_acc,
+                                                    q.dtype), reps=20)
+    comb_plain_ms = time_ms(torch, lambda: decode_combine_plain(
+        part_ml, part_acc, q.dtype), reps=5, warmup=1)
+    split_dev = device_ms(torch, lambda: decode_split(q, k, v, qpos, kvpos,
+                                                      **kw))
+    comb_dev = device_ms(torch, lambda: decode_combine(part_ml, part_acc,
+                                                       q.dtype))
+    splits = part_acc.shape[3]
+    results["flash_decode"] = kernel_entry(
+        "flash_decode", split_err, split_dev, split_plain_ms, flops,
+        split_moved, (q.dtype,), None)
+    results["flash_decode_combine"] = kernel_entry(
+        "flash_decode_combine", comb_err, comb_dev, comb_plain_ms,
+        3 * part_acc.numel(), comb_moved, (torch.float32,), None)
+    for name, err, ms, plain_ms, dev_ms in (
+            ("flash_decode", split_err, split_ms, split_plain_ms, split_dev),
+            ("flash_decode_combine", comb_err, comb_ms, comb_plain_ms,
+             comb_dev)):
+        entry = results[name]
+        entry["wall_ms"] = ms
+        log(f"      {name:22s} ({splits} splits) err {err:.2e}  kernel "
+            f"{dev_ms:8.4f} ms (wall {ms:.4f})  plain "
+            f"{plain_ms:8.4f} ms  bound "
+            f"{entry['bound_ms']:.4f} ms ({entry['bound_by']})  "
+            f"{entry['bound_ms'] / dev_ms:6.1%} of the bound")
+
+
 def serving_kernels(torch, dev, results) -> None:
     """Phase 6: flash attention, WKV6 and the RG-LRU at the serving path's
     shapes, against their plain versions, timed."""
     from repro_torch.kernels.flash_attention import (
-        flash_attention_cuda, flash_attention_plain, visible)
+        design, flash_attention_cuda, flash_attention_plain, visible)
     from repro_torch.kernels.rglru_scan import rglru_cuda, rglru_plain
     from repro_torch.kernels.rwkv6_scan import wkv6_cuda, wkv6_plain
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -176,7 +280,10 @@ def serving_kernels(torch, dev, results) -> None:
     # new tokens + 1, decode at positions 512 and 575, and a windowed case
     # at a small size; recurrentgemma-2b (MQA, 10 heads of 256, window
     # 2048) prefill over 2560 tokens and decode on the wrapped ring, in
-    # fp32 and in bf16, the path's dtype
+    # fp32 and in bf16, the path's dtype.  Each runs the design
+    # flash_attention_cuda picks (printed): the SIMT kernel for fp32
+    # prefill, the wgmma kernel for bf16 prefill, the split-KV kernel and
+    # its combine for decode.
     cases = [("lm100m prefill", 8, 512, 12, 4, 64, 0, linear(577, 512), 0,
               f32),
              ("lm100m decode@512", 8, 1, 12, 4, 64, 512, linear(577, 513), 0,
@@ -197,6 +304,7 @@ def serving_kernels(torch, dev, results) -> None:
                    randn(B, Skv, K, D, dtype=dt))
         qpos = torch.arange(q0, q0 + Sq, **i32)
         kw = dict(causal=True, window=window)
+        kind = design(Sq, D, dt)
         got = flash_attention_cuda(q, k, v, qpos, kvpos, **kw)
         want = flash_attention_plain(q, k, v, qpos, kvpos, **kw)
         torch.cuda.synchronize()
@@ -213,6 +321,10 @@ def serving_kernels(torch, dev, results) -> None:
                                  f"{err} against its plain version")
         if dt == f32:
             worst = max(worst, err)
+        exact = attention_fp64(torch, q, k, v, qpos, kvpos, window)
+        err64 = float((got.double() - exact).abs().max())
+        plain64 = float((want.double() - exact).abs().max())
+        del exact
         pairs = int(visible(qpos, kvpos, causal=True, window=window).sum())
         flops = 4 * D * pairs * B * H
         moved = (q.numel() + k.numel() + v.numel() + got.numel()) \
@@ -231,29 +343,52 @@ def serving_kernels(torch, dev, results) -> None:
                         .abs().max())
         lib_ms = time_ms(torch, lambda: sdpa(qt, kt, vt, attn_mask=mask,
                                              enable_gqa=True), reps=20)
-        entry = kernel_entry("flash_attention", err, ms, plain_ms, flops,
-                             moved, (dt,), lib_ms)
+        # ms and library_ms are the card's own time (the profiler's kernel
+        # time per call); a decode call's wall time is set by the host's
+        # issue of it, and is kept beside them
+        dev_ms = device_ms(torch, lambda: flash_attention_cuda(
+            q, k, v, qpos, kvpos, **kw))
+        lib_dev_ms = device_ms(torch, lambda: sdpa(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True))
+        entry = kernel_entry("flash_attention", err, dev_ms, plain_ms, flops,
+                             moved, (dt,), lib_dev_ms)
+        entry.update(design=kind, wall_ms=ms, library_wall_ms=lib_ms)
         timed[label] = entry
-        log(f"    flash {label:20s} err {err:.2e}  kernel {ms:8.4f} ms  "
-            f"plain {plain_ms:8.4f} ms  bound {entry['bound_ms']:.4f} ms "
-            f"({entry['bound_by']}; {flops / 1e9:.3f} GFLOP, "
-            f"{moved / 1e6:.2f} MB, {pairs:,} visible pairs per head)  "
-            f"{entry['bound_ms'] / ms:6.1%} of the bound  SDPA {lib_ms:.4f}"
-            f" ms (err {lib_err:.1e})")
+        log(f"    flash {label:20s} [{kind}] err {err:.2e}  kernel "
+            f"{dev_ms:8.4f} ms (wall {ms:.4f})  plain {plain_ms:8.4f} ms  "
+            f"bound {entry['bound_ms']:.4f} ms ({entry['bound_by']}; "
+            f"{flops / 1e9:.3f} GFLOP, {moved / 1e6:.2f} MB, {pairs:,} "
+            f"visible pairs per head)  {entry['bound_ms'] / dev_ms:6.1%} of "
+            f"the bound  SDPA {lib_dev_ms:.4f} ms (wall {lib_ms:.4f}; err "
+            f"{lib_err:.1e})  from fp64: kernel {err64:.3g}, plain "
+            f"{plain64:.3g}")
+        if label == "rg decode@2560 bf16":
+            decode_kernels(torch, results, q, k, v, qpos, kvpos, window,
+                           want, flops)
         del q, k, v, got, want, gap, mask, qt, kt, vt, lib
     torch.cuda.empty_cache()
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
+    flash_keys = keys + ("wall_ms", "library_wall_ms")
+    # the wrapper's entry: lm100m prefill (the SIMT kernel) on top, and the
+    # designs at the serving shapes beneath it
     main_entry = dict(timed["lm100m prefill"])
     main_entry["max_abs_err"] = worst
     main_entry["decode"] = {key: timed["lm100m decode@512"][key]
-                            for key in keys}
-    # head dim 256 at recurrentgemma-2b, in bf16 (the serve's dtype); the
-    # fp32 errors are in the log and in the top-level max_abs_err
-    main_entry["d256"] = {
-        "prefill": {key: timed["rg prefill bf16"][key] for key in keys},
-        "decode": {key: timed["rg decode@2560 bf16"][key] for key in keys}}
+                            for key in flash_keys}
+    d256 = {"prefill": "rg prefill bf16", "decode": "rg decode@2560 bf16",
+            "prefill_fp32": "rg prefill fp32",
+            "decode_fp32": "rg decode@2560 fp32"}
+    main_entry["d256"] = {sub: {key: timed[label][key] for key in flash_keys}
+                          for sub, label in d256.items()}
     results["flash_attention"] = main_entry
+    simt = dict(timed["lm100m prefill"], name="flash_simt")
+    simt["d256_fp32"] = {key: timed["rg prefill fp32"][key]
+                         for key in flash_keys}
+    results["flash_simt"] = simt
+    results["flash_prefill"] = dict(timed["rg prefill bf16"],
+                                    name="flash_prefill",
+                                    source=ATTENTION_SOURCE)
 
     # WKV6 at rwkv6-3b: B 4, 40 heads of 64, bf16 r/k/v, fp32 log_w in the
     # model's regime (log_w = -exp(decay), decay ~ 0)
@@ -348,17 +483,25 @@ def serving_kernels(torch, dev, results) -> None:
     torch.cuda.empty_cache()
 
 
-def path_launches(cfg, gen: int):
-    """The kernel launches a serve of ``gen`` new tokens must make: each
-    layer's kernel once in prefill and once per decode step."""
-    if cfg.is_hybrid:
-        n_rec = sum(cfg.layer_is_recurrent(i) for i in range(cfg.num_layers))
-        per_call = {"rglru": n_rec, "flash_attention": cfg.num_layers - n_rec}
-    elif cfg.is_attention_free:
-        per_call = {"wkv6": cfg.num_layers}
-    else:
-        per_call = {"flash_attention": cfg.num_layers}
-    return {k: n * (1 + gen) for k, n in per_call.items()}
+def path_launches(cfg, prompt_len: int, gen: int):
+    """The launches a serve of ``gen`` new tokens must make: each layer's
+    kernel once in prefill and once per decode step.  An attention layer
+    counts one ``flash_attention`` wrapper call a step, its prefill on the
+    design its dtype and head dim take (the SIMT kernel, or the wgmma
+    kernel in bf16 at D >= 64), each decode step on the split-KV kernel
+    and its combine."""
+    from repro_torch.kernels.flash_attention import design
+    n_rec = sum(cfg.layer_is_recurrent(i) for i in range(cfg.num_layers)) \
+        if cfg.is_hybrid else 0
+    n_attn = 0 if cfg.is_attention_free else cfg.num_layers - n_rec
+    want = {"rglru": n_rec * (1 + gen),
+            "wkv6": cfg.num_layers * (1 + gen) if cfg.is_attention_free
+            else 0,
+            "flash_attention": n_attn * (1 + gen),
+            design(prompt_len, cfg.resolved_head_dim, cfg.dtype): n_attn,
+            "flash_decode": n_attn * gen,
+            "flash_decode_combine": n_attn * gen}
+    return {k: n for k, n in want.items() if n}
 
 
 def serving_paths(torch, dev, results) -> None:
@@ -436,7 +579,7 @@ def serving_paths(torch, dev, results) -> None:
                 f"{out['decode_s']:.4f} s  {out['decode_tok_per_s']:.1f} "
                 f"tok/s  launches {launches}")
             if label == "kernel":
-                want = path_launches(cfg, gen)
+                want = path_launches(cfg, prompt_len, gen)
                 if launches != want:
                     raise AssertionError(f"{cfg.name} serve launched "
                                          f"{launches}, want {want}")
@@ -567,12 +710,10 @@ def layerwise_check(torch, dev, cfg, params, prompt, token) -> None:
     # RG-LRU kernel is bitwise its plain version, so 1e-5 of a block's
     # largest output (~100 fp32 ulps).  Decode is held to 1e-3: its 40
     # attention rows include near ties between two keys at scores of
-    # thousands (printed), where one fp32 ulp of a score is ~2.4e-4, and
-    # the kernel's q.k, one sequential FMA chain over D 256, rounds worse
-    # than the plain path's matmul.  On an H100 a layer's kernel output
-    # has read up to ~7e-4 from the fp64 softmax and the plain path's up
-    # to ~8e-5, so it is the kernel that takes the room; its distance from
-    # fp64 is held to the same 1e-3.
+    # thousands (printed), where one fp32 ulp of a score is ~2.4e-4, so
+    # kernel and plain path may each sit up to ~1e-4 from the fp64 softmax
+    # on their own rounding; the kernel's distance from fp64 is held to
+    # the same 1e-3.
     tolerance = {"prefill": 1e-5, "decode": 1e-3}
     failures = []
     with torch.no_grad():
@@ -652,7 +793,7 @@ def analyzer(torch, dev, results) -> None:
     from repro_torch.config import HermesConfig, OptimizerConfig
     from repro_torch.core.gup import gup_gate
     from repro_torch.dist import hermes_sync
-    from repro_torch.kernels import build
+    from repro_torch.kernels import build, ops
     from repro_torch.kernels.tile_copy import (
         SHAPE, tile_copy_cuda, tile_copy_plain)
     from repro_torch.launch import analyze
@@ -673,7 +814,8 @@ def analyzer(torch, dev, results) -> None:
         f"{sorted(fixtures)} raised their classes; the copy equal to its "
         f"plain version: {fixtures['bad-tiles']['copy_equal']}; launches "
         f"{launches}")
-    if (not record["ok"] or launches != {"tile_copy": 1} or len(specs) != 11
+    if (not record["ok"] or launches != {"tile_copy": 1}
+            or len(specs) != len(ops.kernel_lint_cases())
             or fixtures["bad-tiles"]["copy_equal"] is not True
             or "train_hermes[source]" not in labels):
         raise AssertionError(f"the analyzer's self-test on the card: "

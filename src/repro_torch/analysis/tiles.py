@@ -25,7 +25,9 @@ Named violation classes, with their Hopper meanings:
   quantization scales), which is a gather, not a tile.
 * ``low-precision-accumulate``: the kernel sums in fp16 or bf16.  The
   rule finds every accumulation in the kernel's source (``+=``, ``-=``,
-  or a variable assigned from an add or FMA of itself), reads each
+  a variable assigned from an add or FMA of itself, or an array handed to
+  a ``__device__`` helper of the same source that updates it through a
+  read-write ``asm`` operand, as a ``wgmma`` accumulator is), reads each
   accumulated variable's declared type there, resolves template
   parameters through the spec, and fires on a 16-bit float.  The spec's
   ``accumulator`` must name one of them: its type is read from the
@@ -201,6 +203,71 @@ def accumulations(body: str) -> List[str]:
     return sorted(out)
 
 
+def _split_top(text: str) -> List[str]:
+    """``text`` split at its top-level commas."""
+    out, depth, start = [], 0, 0
+    for i, ch in enumerate(text + ","):
+        if ch in "([{<":
+            depth += 1
+        elif ch in ")]}>":
+            depth -= 1
+        elif ch == "," and depth == 0:
+            out.append(text[start:i])
+            start = i + 1
+    return out
+
+
+def _param_name(param: str) -> Optional[str]:
+    """The name a C parameter declares (``float (&d)[32]`` declares d)."""
+    ref = re.search(r"\(\s*[&*]\s*([A-Za-z_]\w*)\s*\)", param)
+    if ref:
+        return ref.group(1)
+    name = re.search(r"([A-Za-z_]\w*)\s*(?:\[[^\]]*\]\s*)*$", param.strip())
+    return name.group(1) if name else None
+
+
+def asm_updaters(src: str) -> Dict[str, List[int]]:
+    """``__device__`` helpers of ``src`` that update a parameter through a
+    read-write ``asm`` operand (``"+f"(d[0])``): name -> the indices of
+    those parameters."""
+    src = _strip_comments(src)
+    out: Dict[str, List[int]] = {}
+    for m in re.finditer(r"__device__", src):
+        brace, semi = src.find("{", m.end()), src.find(";", m.end())
+        if brace < 0 or 0 <= semi < brace:
+            continue
+        head = src[m.end():brace]
+        name = re.search(r"([A-Za-z_]\w*)\s*\(", head)
+        if name is None:
+            continue
+        p0 = m.end() + name.end() - 1
+        params = [_param_name(x) for x in
+                  _split_top(src[p0 + 1:_matching(src, p0, "(", ")") - 1])]
+        body = src[brace:_matching(src, brace, "{", "}")]
+        updated = set(re.findall(r'"\+[a-z]"\s*\(\s*([A-Za-z_]\w*)', body))
+        idx = [i for i, p in enumerate(params) if p in updated]
+        if idx:
+            out[name.group(1)] = idx
+    return out
+
+
+def call_accumulations(body: str, updaters: Mapping[str, List[int]]
+                       ) -> List[str]:
+    """The variables a kernel body hands to an :func:`asm_updaters`
+    helper in an updated position (``wgmma_rs(o[cb], a, desc)``: o)."""
+    out = set()
+    for name, idx in updaters.items():
+        for m in re.finditer(rf"\b{re.escape(name)}\s*\(", body):
+            p0 = m.end() - 1
+            args = _split_top(body[p0 + 1:_matching(body, p0, "(", ")") - 1])
+            for i in idx:
+                root = (re.match(r"\s*&?\s*([A-Za-z_]\w*)", args[i])
+                        if i < len(args) else None)
+                if root:
+                    out.add(root.group(1))
+    return sorted(out)
+
+
 def _dtype(ctype: Optional[str], template: Mapping[str, str]) -> str:
     """A declared C type as a dtype name, template parameters resolved."""
     ctype = template.get(ctype, ctype) or "?"
@@ -258,8 +325,10 @@ class KernelTileLint(Rule):
                 f"__global__ {spec.function}", function=spec.function)]
         params, body = found
         types = declarations(params, body)
+        summed = set(accumulations(body)) | set(
+            call_accumulations(body, asm_updaters(src)))
         accs = {name: _dtype(types.get(name), spec.template)
-                for name in accumulations(body)}
+                for name in sorted(summed)}
         for name, dtype in accs.items():
             if dtype in LOW_PRECISION:
                 out.append(self.violation(

@@ -17,8 +17,10 @@ threads, shared memory, each operand's tile): the static tile lint
 nothing.
 
 Sources: ``wire_kernels.cu`` (the wire path), ``model_kernels.cu``
-(serving) and ``fixture_kernels.cu``, the analyzer's deliberately
-mis-tiled copy (``kernels/tile_copy.py``).
+(serving: the SIMT and split-KV decode flash kernels, WKV6, the RG-LRU),
+``attention_kernels.cu`` (the ``wgmma`` bf16 flash prefill) and
+``fixture_kernels.cu``, the analyzer's deliberately mis-tiled copy
+(``kernels/tile_copy.py``).
 """
 from __future__ import annotations
 
@@ -57,11 +59,19 @@ LIBRARIES = {
         "dequantize_int8": (_P, _P, _P, _I64, _P),
     },
     "model_kernels": {
-        "flash_attention": (_P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32,
-                            _I32, _I32, _I32, _I32, _I32, _F32, _P),
+        "flash_simt": (_P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32,
+                       _I32, _I32, _I32, _I32, _F32, _P),
+        "flash_decode": (_P, _P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32,
+                         _I32, _I32, _I32, _I32, _I32, _I32, _I32, _I32,
+                         _I32, _F32, _P),
+        "flash_decode_combine": (_P, _P, _P, _I32, _I32, _I32, _I32, _P),
         "wkv6": (_P, _P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32,
                  _I32, _P),
         "rglru": (_P, _P, _P, _P, _P, _I32, _I32, _I32, _P),
+    },
+    "attention_kernels": {
+        "flash_prefill": (_P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32,
+                          _I32, _I32, _I32, _I32, _F32, _P),
     },
     "fixture_kernels": {
         "tile_copy": (_P, _P, _I32, _I32, _I32, _I32, _P),
@@ -70,8 +80,13 @@ LIBRARIES = {
 _LIBRARY_OF = {kern: lib_name for lib_name, kerns in LIBRARIES.items()
                for kern in kerns}
 
-#: successful launches per kernel since the last :func:`reset_launches`
-LAUNCHES: Dict[str, int] = {name: 0 for name in _LIBRARY_OF}
+#: wrappers that count their own calls, one per call whichever of their
+#: kernels it launched (``kernels/flash_attention.py``)
+WRAPPERS = ("flash_attention",)
+
+#: successful launches per kernel, and calls per wrapper, since the last
+#: :func:`reset_launches`
+LAUNCHES: Dict[str, int] = {name: 0 for name in (*_LIBRARY_OF, *WRAPPERS)}
 
 #: ``kThreads`` of ``csrc/wire_kernels.cu``: every wire kernel's block
 WIRE_THREADS = 256
@@ -104,7 +119,9 @@ class LaunchSpec:
 
     ``kernel`` is the :data:`LAUNCHES` name, ``source`` its ``.cu`` file
     and ``function`` the ``__global__`` function there; ``grid``,
-    ``threads`` and ``smem`` (dynamic shared bytes) are the launch.
+    ``threads`` and ``smem`` (dynamic shared bytes) are the launch, and
+    ``static_smem`` the bytes of the function's own ``__shared__``
+    arrays.
     ``accumulator`` names the variable the kernel sums in (None: it sums
     nothing), ``template`` binds the function's type parameters to dtype
     names, ``threads_of`` is the C expression of ``constexpr`` names the
@@ -122,6 +139,7 @@ class LaunchSpec:
     template: Mapping[str, str] = field(default_factory=dict)
     threads_of: Optional[str] = None
     constants: Mapping[str, int] = field(default_factory=dict)
+    static_smem: int = 0
 
 
 _lock = threading.Lock()
@@ -209,13 +227,24 @@ def lib(name: str) -> ctypes.CDLL:
     return _libs[name]
 
 
+_fns: Dict[str, ctypes._CFuncPtr] = {}
+
+
 def launch(name: str, device: torch.device, *args) -> None:
     """Call ``launch_<name>`` on ``device``'s current stream; raise on a
-    CUDA error, count the launch otherwise."""
-    fn = getattr(lib(_LIBRARY_OF[name]), "launch_" + name)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*args, stream)
+    CUDA error, count the launch otherwise.  The host's cost counts in
+    decode, where a call launches microseconds of work: the function is
+    looked up once, and the device switched only when it is not current."""
+    fn = _fns.get(name)
+    if fn is None:
+        fn = _fns[name] = getattr(lib(_LIBRARY_OF[name]), "launch_" + name)
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    if index == current:
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
     LAUNCHES[name] += 1

@@ -107,13 +107,20 @@ def kernel_lint_cases():
     The static tile lint (``repro_torch.analysis.KernelTileLint``) reads
     each spec and its ``.cu`` source; nothing launches.  The wire kernels
     take the reference's shapes: a ``(4, 512)`` leaf (two 256-element
-    blocks a row) and two pods.  The model kernels take the smallest
-    shapes their real tiling divides: 128 queries and keys (two 64-row
-    tiles) for flash attention at head dims 64 (fp32) and 256 (bf16, on
-    one KV head), 32 steps (two staged chunks) of two heads of 64 for
-    WKV6, 16 steps of 128 channels (two blocks) for the RG-LRU.
+    blocks a row) and two pods.  The model kernels take shapes their real
+    tiling divides.  Flash attention has three designs: the SIMT kernel
+    (fp32 prefill, 128 queries and keys, two 64-row tiles, at head dims 64
+    and 256 on one KV head); the split-KV decode kernel and its combine
+    at recurrentgemma-2b decode (B 4, 10 heads of 256 on one KV head, the
+    2048-slot ring, bf16) and at lm100m decode (B 8, 12 heads of 64 on 4,
+    fp32, a 640-slot cache: the 577 slots of the serve leave a ragged
+    last split); the wgmma bf16 prefill at head dims 64 and 256.  WKV6
+    takes 32 steps (two staged chunks) of two heads of 64, the RG-LRU 16
+    steps of 128 channels (two blocks).
     """
     pods, g = 2, (4, 512)
+    rg = ((4, 1, 10, 256), (4, 2048, 1, 256), "bfloat16")
+    lm = ((8, 1, 12, 64), (8, 640, 4, 64), "float32")
     return [
         ("quantize_int8", _qz.launch_spec("quantize_int8", g)),
         ("dequantize_int8", _qz.launch_spec("dequantize_int8", g)),
@@ -126,6 +133,14 @@ def kernel_lint_cases():
         ("flash_attention[D64]",
          _fa.launch_spec((1, 128, 4, 64), (1, 128, 2, 64), "float32")),
         ("flash_attention[D256]",
+         _fa.launch_spec((1, 128, 2, 256), (1, 128, 1, 256), "float32")),
+        ("flash_decode[rg]", _fa.launch_spec(*rg)),
+        ("flash_decode[lm100m]", _fa.launch_spec(*lm)),
+        ("flash_decode_combine[rg]", _fa.combine_launch_spec(*rg)),
+        ("flash_decode_combine[lm100m]", _fa.combine_launch_spec(*lm)),
+        ("flash_prefill[D64]",
+         _fa.launch_spec((1, 128, 4, 64), (1, 128, 2, 64), "bfloat16")),
+        ("flash_prefill[D256]",
          _fa.launch_spec((1, 128, 2, 256), (1, 128, 1, 256), "bfloat16")),
         ("wkv6", _wkv.launch_spec((1, 32, 2, 64), "bfloat16")),
         ("rglru", _lru.launch_spec((1, 16, 128))),

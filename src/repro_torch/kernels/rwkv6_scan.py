@@ -91,7 +91,7 @@ def launch_spec(shape, dtype: str = "bfloat16") -> build.LaunchSpec:
     return build.LaunchSpec(
         kernel="wkv6", source=build.source("model_kernels"),
         function="wkv6_kernel", grid=(B * H, 1, 1), threads=SPLIT * D,
-        smem=0,
+        smem=0, static_smem=4 * 4 * STEPS * D,  # rs, ks, vs, ws: fp32
         operands=(*seq, build.Operand("log_w", (B, T, H, D), step, "float32"),
                   build.Operand("u", (H, D), (1, D), "float32"),
                   build.Operand("state", state, (1, 1, D, D), "float32"),

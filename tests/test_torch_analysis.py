@@ -232,6 +232,38 @@ def test_low_precision_accumulate_reads_the_source(tmp_path, acc_type, init,
     assert "pack-pairing-drift" not in got   # acc is summed in the source
 
 
+ASM_KERNEL = """
+#include <cuda_bf16.h>
+__device__ __forceinline__ void mma(ACC_TYPE (&d)[2], unsigned a) {
+  asm volatile("mma %0, %1, %2;" : "+f"(d[0]), "+f"(d[1]) : "r"(a));
+}
+__global__ void asm_kernel(const __nv_bfloat16* __restrict__ x,
+                           __nv_bfloat16* __restrict__ out, int n) {
+  ACC_TYPE o[2];
+  for (int i = 0; i < n; ++i) mma(o, i);
+  out[threadIdx.x] = o[0];
+}
+"""
+
+
+@pytest.mark.parametrize("acc_type,fires", [("float", False),
+                                            ("__nv_bfloat16", True)])
+def test_accumulator_updated_through_asm_operands(tmp_path, acc_type, fires):
+    """An array a ``__device__`` helper updates through read-write ``asm``
+    operands (a ``wgmma`` accumulator) is an accumulation: the spec may
+    name it, and a 16-bit one fires."""
+    path = tmp_path / "asm_kernel.cu"
+    path.write_text(ASM_KERNEL.replace("ACC_TYPE", acc_type))
+    ops_ = (build.Operand("x", (1024,), (256,), "bfloat16"),
+            build.Operand("out", (256,), (256,), "bfloat16"))
+    spec = build.LaunchSpec(kernel="asm", source=path, function="asm_kernel",
+                            grid=(1, 1, 1), threads=256, smem=0,
+                            operands=ops_, accumulator="o")
+    got = _classes(KernelTileLint().check(Target(launches=(spec,))))
+    assert ("low-precision-accumulate" in got) == fires
+    assert "pack-pairing-drift" not in got
+
+
 def test_spec_naming_an_unsummed_accumulator_drifts(tmp_path):
     spec = dataclasses.replace(
         _sum_spec(tmp_path, "float", "0.f", "acc + 1.f", "acc"),
@@ -247,6 +279,16 @@ def _case(label):
 @pytest.mark.parametrize("label,change", [
     ("flash_attention[D64]", {"threads": 128}),
     ("flash_attention[D64]", {"constants": {"kFaThreads": 256, "kBK": 32}}),
+    ("flash_decode[rg]", {"threads": 256}),
+    ("flash_decode[rg]", {"constants": {"kFdThreads": 128, "kFdRows": 16,
+                                        "kFdTile": 64}}),
+    ("flash_decode[lm100m]", {"accumulator": "acc_f32"}),
+    ("flash_decode_combine[rg]", {"threads": 128}),
+    ("flash_decode_combine[lm100m]", {"function": "flash_combine_kernel"}),
+    ("flash_prefill[D64]", {"threads": 256}),
+    ("flash_prefill[D256]", {"constants": {"kFpThreads": 128,
+                                           "kFpRows": 128, "kFpKeys": 64}}),
+    ("flash_prefill[D256]", {"accumulator": "acc"}),
     ("wkv6", {"threads": 128}),
     ("rglru", {"threads": 128, "constants": {"kLruThreads": 128,
                                              "kLruSteps": 8}}),
@@ -278,11 +320,40 @@ def test_every_ported_kernel_lints_clean(label):
 
 def test_lint_cases_cover_every_kernel_and_repeat_their_launchers():
     kernels = {spec.kernel for _, spec in ops.kernel_lint_cases()}
-    assert kernels | {"tile_copy"} == set(build.LAUNCHES)
-    # fa_smem_bytes<64, 256>() (csrc/model_kernels.cu) and grid_for
+    assert kernels | {"tile_copy"} | set(build.WRAPPERS) == \
+        set(build.LAUNCHES)
+    # fa_smem_bytes<64, 256>() (csrc/model_kernels.cu): the SIMT kernel
+    # keeps fp32 prefill, its 64-row tiles at every Sq
     assert _case("flash_attention[D256]").smem == 214016
-    assert fa.launch_spec((2, 1, 10, 256), (2, 2048, 1, 256)).grid == \
+    assert fa.launch_spec((2, 20, 10, 256), (2, 20, 1, 256)).grid == \
         (1, 10, 2)
+    # decode: one block per (split, KV head x row group, batch); 64 splits
+    # of one 32-key tile at recurrentgemma-2b (4 x 64 = 256 blocks), 10
+    # of two at lm100m's 577 slots (8 x 4 x 10 = 320); fd_smem_bytes<T, D>
+    assert fa.decode_plan(4, 1, 10, 1, 2048) == (1, 1, 64)
+    assert fa.decode_plan(8, 1, 12, 4, 577) == (1, 2, 10)
+    assert fa.decode_plan(1, 16, 10, 1, 200) == (10, 1, 7)
+    rg = _case("flash_decode[rg]")
+    assert rg.grid == (64, 1, 4) and rg.threads == 128
+    assert rg.smem == 2 * 32 * 256 * 2 + 32 * 16 + 4 * (16 * 32 + 64 + 34)
+    assert fa.launch_spec((2, 1, 10, 256), (2, 2048, 1, 256)).grid == \
+        (64, 1, 2)
+    # the combine: a block per output row (b, sq, h); the splits' weights,
+    # the split groups' sums and the warps' partials in shared memory
+    assert _case("flash_decode_combine[rg]").grid == (40, 1, 1)
+    assert _case("flash_decode_combine[lm100m]").grid == (96, 1, 1)
+    assert _case("flash_decode_combine[rg]").smem == 4 * (64 + 1024 + 16)
+    # the wgmma prefill: Q, K, V bf16 tiles of 64 x D, 1024 bytes to align
+    # the swizzle atoms, an int per key tile; 96 KB at D 256 (two blocks
+    # an SM)
+    assert _case("flash_prefill[D256]").smem == 3 * 64 * 256 * 2 + 1024 + 8
+    assert fa.prefill_smem(256, 2560) == 99328 + 4 * 40
+    assert fa.launch_spec((4, 2560, 10, 256), (4, 2560, 1, 256),
+                          "bfloat16").grid == (40, 10, 4)
+    assert fa.design(150, 256, torch.bfloat16) == "flash_prefill"
+    assert fa.design(150, 32, "bfloat16") == "flash_simt"
+    assert fa.design(150, 256, torch.float32) == "flash_simt"
+    assert fa.design(16, 256, torch.bfloat16) == "flash_decode"
     assert build.grid_for(10 ** 9) == 132 * 16
     assert _case("quantize_int8").grid == (1, 1, 1)   # 8 blocks, 8 warps
 

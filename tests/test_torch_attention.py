@@ -119,6 +119,61 @@ def test_attention_with_positions_matches_reference_naive(case):
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=2e-6)
 
 
+# (B, Sq, Skv, H, K, D, q_start, written, window, ring): the split-KV
+# decode kernel's algorithm at G 10 (recurrentgemma-2b's MQA), 3 and 1, Sq
+# 1 and 16; a ring whose slots are out of position order; a cache whose
+# later splits are wholly unwritten; Skv not a multiple of the split size
+DECODE_CASES = [
+    (2, 1, 300, 10, 1, 16, 299, 300, 0, False),
+    (2, 1, 64, 10, 1, 16, 100, 64, 64, True),
+    (1, 1, 1024, 6, 2, 32, 40, 41, 0, False),
+    (8, 1, 577, 12, 4, 16, 512, 513, 0, False),
+    (2, 16, 90, 6, 2, 16, 55, 71, 0, False),
+    (2, 16, 70, 4, 4, 16, 50, 66, 8, False),
+    (1, 16, 200, 10, 1, 16, 100, 116, 24, False),
+]
+
+
+@pytest.mark.parametrize("case", DECODE_CASES)
+def test_split_decode_matches_plain_and_reference(case):
+    B, Sq, Skv, H, K, D, q_start, written, window, ring = case
+    q, k, v = _qkv(B, Sq, Skv, H, K, D, seed=5)
+    qpos = np.arange(q_start, q_start + Sq, dtype=np.int32)
+    kvpos = _cache_positions(Skv, written,
+                             ring_start=q_start - written + 1 if ring
+                             else None)
+    want = np.asarray(JA.naive_attention(
+        *(jnp.asarray(a) for a in (q, k, v)), causal=True, window=window,
+        q_positions=jnp.asarray(qpos), kv_positions=jnp.asarray(kvpos)))
+    tq, tk, tv, tqp, tkp = _t(q, k, v, qpos, kvpos)
+    kw = dict(causal=True, window=window)
+    got = fa.flash_decode_plain(tq, tk, tv, tqp, tkp, **kw).numpy()
+    plain = fa.flash_attention_plain(tq, tk, tv, tqp, tkp, **kw).numpy()
+    # fp32 on both sides: per-split softmaxes over <= 1024 keys and their
+    # log-sum-exp combine sum in other orders than one softmax
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=2e-6)
+    np.testing.assert_allclose(got, plain, rtol=1e-5, atol=2e-6)
+
+
+def test_decode_plan_splits_and_skips():
+    """The split heuristic at the serving shapes, and the cases above
+    reach a ragged last split, several tiles a split and wholly skipped
+    splits."""
+    assert fa.decode_plan(4, 1, 10, 1, 2048) == (1, 1, 64)
+    assert fa.decode_plan(8, 1, 12, 4, 577) == (1, 2, 10)
+    assert 577 % (2 * fa.DECODE_TILE)
+    groups, per_split, splits = fa.decode_plan(1, 1, 6, 2, 1024)
+    runs = fa._tile_runs(torch.tensor([40]), torch.from_numpy(
+        _cache_positions(1024, 41)), causal=True, window=0,
+        tile=fa.DECODE_TILE)
+    assert per_split == 1 and splits == 32
+    assert runs.tolist() == [True, True] + [False] * 30
+    assert fa.decode_plan(1, 16, 10, 1, 200)[0] == 10   # 160 rows
+    assert fa.design(1, 16, torch.float32) == "flash_decode"
+    assert fa.design(17, 64, torch.bfloat16) == "flash_prefill"
+    assert fa.design(17, 64, torch.float32) == "flash_simt"
+
+
 def test_reference_pallas_wrapper_drops_decode_positions():
     """The reference's Pallas wrapper takes query i at position i, so a
     decode query (Sq 1) at position 29 sees only cache slot 0; the port's

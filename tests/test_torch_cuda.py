@@ -20,7 +20,7 @@ from repro_torch.kernels.dequant_merge import (
     dequant_merge_cuda, dequant_merge_packed_cuda,
 )
 from repro_torch.kernels.flash_attention import (
-    flash_attention_cuda, flash_attention_plain,
+    decode_combine, design, flash_attention_cuda, flash_attention_plain,
 )
 from repro_torch.kernels.loss_weighted_update import loss_weighted_update_cuda
 from repro_torch.kernels.pack import pack_int4_cuda, unpack_int4_cuda
@@ -205,6 +205,21 @@ ATTENTION_CASES = [
     # recurrentgemma-2b's attention: MQA (K 1, G 10), head dim 256
     (2, 150, 150, 10, 1, 256, True, 64, 0, None),  # windowed prefill
     (2, 1, 96, 10, 1, 256, True, 96, 200, "ring"),  # decode on the ring
+    # split-KV decode: Sq 1 and 16 across split boundaries (Skv 577 leaves
+    # a ragged last split), splits with every slot unwritten, G 10 at D 256
+    # on the 2048-slot ring
+    (8, 1, 577, 12, 4, 64, True, 0, 512, 513),
+    (2, 16, 300, 6, 2, 64, True, 0, 200, 216),    # 16 rows a head
+    (1, 16, 200, 10, 1, 32, True, 24, 100, 116),  # 160 rows: 10 groups
+    (2, 1, 1024, 6, 2, 128, True, 0, 40, 41),     # most splits unwritten
+    (4, 1, 2048, 10, 1, 256, True, 2048, 2560, "ring"),
+    (2, 1, 2048, 6, 6, 16, True, 0, 2047, None),  # G 1
+    # wgmma bf16 prefill (fp32 takes the SIMT kernel): ragged Sq, windows
+    (2, 37, 37, 4, 2, 64, True, 0, 0, None),
+    (1, 150, 150, 6, 2, 128, True, 0, 0, None),
+    (2, 150, 150, 10, 1, 256, True, 48, 0, None),
+    (1, 150, 200, 4, 1, 64, True, 100, 0, 150),   # into a longer cache
+    (2, 37, 37, 4, 2, 128, False, 0, 0, None),
 ]
 
 
@@ -221,15 +236,17 @@ def test_flash_attention_kernel_matches_plain(card, case, dtype):
     elif written is not None:
         kvpos[written:] = -1
     kw = dict(causal=causal, window=window)
+    build.reset_launches()
     got = flash_attention_cuda(q, k, v, qpos, kvpos, **kw)
     want = flash_attention_plain(q, k, v, qpos, kvpos, **kw)
     assert got.dtype == dtype and got.shape == (B, Sq, H, D)
-    # fp32: sums over <= 100 keys in another order, a few rescalings per
+    # fp32: sums over <= 2048 keys in another order, a few rescalings per
     # tile; bf16: both round one fp32 result, so one bf16 ulp (at most 2^-7
     # of the value) apart
     tol = 2e-5 if dtype == torch.float32 else 2 ** -7
     torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                atol=tol)
+    assert build.LAUNCHES[design(Sq, D, dtype)] >= 1
 
 
 @pytest.mark.parametrize("B,T,H,D", [(2, 1, 3, 64), (1, 37, 2, 64),
@@ -297,15 +314,35 @@ def test_model_kernel_wrappers_check_inputs_and_count_launches(card):
     build.reset_launches()
     q, k, v = _attention_inputs(card, 1, 4, 4, 2, 1, 64, torch.float32, 0)
     pos = torch.arange(4, dtype=torch.int32, device=card)
-    ops.flash_attention(q, k, v, pos, pos)
+    ops.flash_attention(q, k, v, pos, pos)     # Sq 4: decode
     assert build.LAUNCHES["flash_attention"] == 1
-    with pytest.raises(ValueError, match="head dims"):
-        flash_attention_cuda(q[..., :48], k[..., :48], v[..., :48], pos, pos)
-    with pytest.raises(TypeError):
-        flash_attention_cuda(q.half(), k.half(), v.half(), pos, pos)
-    with pytest.raises(ValueError, match="CUDA"):
-        flash_attention_cuda(q, k, v, pos.cpu(), pos)
-    assert build.LAUNCHES["flash_attention"] == 1
+    assert build.LAUNCHES["flash_decode"] == 1
+    assert build.LAUNCHES["flash_decode_combine"] == 1
+    q2, k2, v2 = _attention_inputs(card, 1, 40, 40, 2, 1, 64, torch.float32,
+                                   0)
+    pos2 = torch.arange(40, dtype=torch.int32, device=card)
+    ops.flash_attention(q2, k2, v2, pos2, pos2)        # fp32 prefill
+    ops.flash_attention(*(t.bfloat16() for t in (q2, k2, v2)), pos2, pos2)
+    assert build.LAUNCHES["flash_simt"] == 1
+    assert build.LAUNCHES["flash_prefill"] == 1
+    assert build.LAUNCHES["flash_attention"] == 3
+    for qq, kk, vv, pp in ((q, k, v, pos), (q2, k2, v2, pos2)):
+        for dt in (torch.float32, torch.bfloat16):
+            a, b_, c = (t.to(dt) for t in (qq, kk, vv))
+            with pytest.raises(ValueError, match="head dims"):
+                flash_attention_cuda(a[..., :48], b_[..., :48], c[..., :48],
+                                     pp, pp)
+            with pytest.raises(TypeError):
+                flash_attention_cuda(a.half(), b_.half(), c.half(), pp, pp)
+            with pytest.raises(TypeError):
+                flash_attention_cuda(a, b_.to(torch.float64), c, pp, pp)
+            with pytest.raises(ValueError, match="CUDA"):
+                flash_attention_cuda(a, b_, c, pp.cpu(), pp)
+            with pytest.raises(ValueError, match="positions"):
+                flash_attention_cuda(a, b_, c, pp[1:], pp)
+    assert build.LAUNCHES["flash_attention"] == 3
+    assert build.LAUNCHES["flash_decode"] == 1
+    assert build.LAUNCHES["flash_prefill"] == 1
     r = torch.zeros((1, 3, 2, 64), device=card)
     s0 = torch.zeros((1, 2, 64, 64), device=card)
     u = torch.zeros((2, 64), device=card)
@@ -326,17 +363,21 @@ def test_serve_on_card_runs_the_kernels(card, preset):
     from repro_torch.launch.serve import serve
     from repro_torch.launch.train import _preset
     cfg = _preset(preset)
-    if cfg.is_hybrid:
-        n_rec = sum(cfg.layer_is_recurrent(i) for i in range(cfg.num_layers))
-        want = {"rglru": n_rec, "flash_attention": cfg.num_layers - n_rec}
-    elif cfg.is_attention_free:
-        want = {"wkv6": cfg.num_layers}
-    else:
-        want = {"flash_attention": cfg.num_layers}
+    n_rec = sum(cfg.layer_is_recurrent(i) for i in range(cfg.num_layers)) \
+        if cfg.is_hybrid else 0
+    n_attn = 0 if cfg.is_attention_free else cfg.num_layers - n_rec
+    want = {"rglru": n_rec * 7,
+            "wkv6": cfg.num_layers * 7 if cfg.is_attention_free else 0,
+            # every attention layer's wrapper once per call; prefill (40
+            # queries) on the design its dtype and head dim take, each of
+            # the 6 decode steps on the split kernel and its combine
+            "flash_attention": n_attn * 7,
+            design(40, cfg.resolved_head_dim, cfg.dtype): n_attn,
+            "flash_decode": n_attn * 6, "flash_decode_combine": n_attn * 6}
     build.reset_launches()
     out = serve(cfg, batch=2, prompt_len=40, gen=6, keep_logits=True)
     assert {k: v for k, v in build.LAUNCHES.items() if v} == \
-        {k: n * (1 + 6) for k, n in want.items()}
+        {k: n for k, n in want.items() if n}
     assert out["tokens"].shape == (2, 7)
     assert bool(torch.isfinite(out["prefill_logits"].float()).all())
 
@@ -398,12 +439,19 @@ def _spec_inputs(spec, card):
         pay = wire.get_format("int4").encode(randn(2, *g), key=(0, 0))
         return lambda: dequant_merge_packed_cuda(
             gl, pay["q_packed"], pay["scales"], w2, denom, push)
-    if name == "flash_attention":
+    if name in ("flash_simt", "flash_decode", "flash_prefill"):
         dt = getattr(torch, spec.operands[0].dtype)
         q, k, v = (randn(*shapes[n]).to(dt) for n in ("q", "k", "v"))
-        qp = torch.arange(q.shape[1], dtype=torch.int32, device=card)
-        kp = torch.arange(k.shape[1], dtype=torch.int32, device=card)
+        Sq, Skv = q.shape[1], k.shape[1]
+        qp = torch.arange(Skv - Sq, Skv, dtype=torch.int32, device=card)
+        kp = torch.arange(Skv, dtype=torch.int32, device=card)
         return lambda: flash_attention_cuda(q, k, v, qp, kp)
+    if name == "flash_decode_combine":
+        rows, splits, D = shapes["part_acc"]
+        ml = randn(rows, 1, 1, splits, 2).abs()
+        acc = randn(rows, 1, 1, splits, D)
+        dt = getattr(torch, spec.operands[-1].dtype)
+        return lambda: decode_combine(ml, acc, dt)
     if name == "wkv6":
         dt = getattr(torch, spec.operands[0].dtype)
         r, k, v = (randn(*shapes[n]).to(dt) for n in ("r", "k", "v"))
@@ -425,21 +473,26 @@ SPEC_CASES = ops.kernel_lint_cases() + [("tile_copy",
 
 @pytest.mark.parametrize("label", [label for label, _ in SPEC_CASES])
 def test_launch_matches_its_spec(card, label, tmp_path):
-    """The grid and block the profiler records for the kernel's launch are
-    the ones its launch spec (the lint's input) computes."""
+    """The grid, block and shared memory the profiler records for the
+    kernel's launch are the ones its launch spec (the lint's input)
+    computes: the profiler's shared memory is the function's static
+    ``__shared__`` bytes plus the launch's dynamic bytes."""
     spec = dict(SPEC_CASES)[label]
     run = _spec_inputs(spec, card)
     run()  # builds and loads the library
     torch.cuda.synchronize()
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
         run()
         torch.cuda.synchronize()
     trace = tmp_path / "trace.json"
     prof.export_chrome_trace(str(trace))
-    events = [e for e in json.loads(trace.read_text())["traceEvents"]
-              if e.get("cat") == "kernel" and spec.function in e["name"]]
-    assert len(events) == 1, [e.get("name") for e in events]
+    kernels = [e for e in json.loads(trace.read_text())["traceEvents"]
+               if e.get("cat") == "kernel"]
+    events = [e for e in kernels if spec.function in e["name"]]
+    assert len(events) == 1, [e.get("name") for e in kernels]
     args = events[0]["args"]
     assert tuple(args["grid"]) == spec.grid
     assert tuple(args["block"]) == (spec.threads, 1, 1)
+    assert args["shared memory"] == spec.smem + spec.static_smem, args
