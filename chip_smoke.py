@@ -11,9 +11,12 @@ Phases (any failure raises and the script exits nonzero):
    ``nvcc`` per source, started together);
 3. each kernel at the lm100m x 4-pod leaf shapes (every leaf of the tree):
    held against its plain PyTorch version (pack/unpack, q and scales
-   exactly equal, the merges and the dequantize bitwise), then timed with
-   CUDA events beside the plain version, its HBM-bytes bound and, where
-   one exists, a single PyTorch call computing the same function;
+   exactly equal, the merges (one grouped launch over the tree each) and
+   the dequantize bitwise), then timed beside the plain version, its
+   HBM-bytes bound and, where one exists, a single PyTorch call computing
+   the same function: the card's time of a pass (CUDA events around a
+   pass queued behind a spin of the card), the wall time of back-to-back
+   passes (CUDA events) and the launches a pass;
 4. one forced all-open ``hermes_merge`` at lm100m (int4, int8, then none)
    against the plain merge association, and at lm100m int8
    ``hermes_dispatch`` + ``hermes_commit`` against ``hermes_round`` on the
@@ -130,20 +133,36 @@ def time_ms(torch, fn, reps: int, warmup: int = 2) -> float:
 
 
 def device_ms(torch, fn, reps: int = 10) -> float:
-    """Mean device time of the kernels and copies ``fn()`` launches, per
-    call (``torch.profiler``): the card's share of a time that
-    :func:`time_ms` may find set by the host's issue rate."""
+    """Mean card time per call of ``fn()``: each call is queued behind a
+    spin of the card (``torch.cuda._sleep``) at least three times as long
+    as the host takes to issue it, so every launch of the call is waiting
+    on the card before the card reaches it, and the CUDA events around the
+    call time the card alone, not the host's issue rate (what
+    :func:`time_ms` may find).  The profiler misses some launches of the
+    port's libraries (ROADMAP, queue 3), so it is not used here."""
     fn()
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(reps):
-            fn()
+    t0 = time.perf_counter()
+    fn()
+    issue_ms = 1e3 * (time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    # the spin's cycles per ms, measured: clocks vary with the power limit
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    torch.cuda._sleep(1_000_000)
+    end.record()
+    torch.cuda.synchronize()
+    cycles_per_ms = 1_000_000 / start.elapsed_time(end)
+    spin = int(cycles_per_ms * max(2.0, 3 * issue_ms))
+    total = 0.0
+    for _ in range(reps):
+        torch.cuda._sleep(spin)
+        start.record()
+        fn()
+        end.record()
         torch.cuda.synchronize()
-    total = sum(float(e.self_device_time_total) for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA)
-    return total / reps / 1e3
+        total += start.elapsed_time(end)
+    return total / reps
 
 
 def nbytes(ts) -> int:
@@ -343,9 +362,9 @@ def serving_kernels(torch, dev, results) -> None:
                         .abs().max())
         lib_ms = time_ms(torch, lambda: sdpa(qt, kt, vt, attn_mask=mask,
                                              enable_gqa=True), reps=20)
-        # ms and library_ms are the card's own time (the profiler's kernel
-        # time per call); a decode call's wall time is set by the host's
-        # issue of it, and is kept beside them
+        # ms and library_ms are the card's own time per call (device_ms);
+        # a decode call's wall time is set by the host's issue of it, and
+        # is kept beside them
         dev_ms = device_ms(torch, lambda: flash_attention_cuda(
             q, k, v, qpos, kvpos, **kw))
         lib_dev_ms = device_ms(torch, lambda: sdpa(
@@ -911,7 +930,7 @@ def main() -> int:
     from repro_torch.dist.compression import dequantize_int8, quantize_int8
     from repro_torch.kernels import build, ref
     from repro_torch.kernels.dequant_merge import (
-        dequant_merge_cuda, dequant_merge_packed_cuda)
+        dequant_merge_group_cuda, dequant_merge_packed_group_cuda)
     from repro_torch.kernels.loss_weighted_update import (
         loss_weighted_update_cuda)
     from repro_torch.kernels.pack import pack_int4_cuda, unpack_int4_cuda
@@ -990,10 +1009,12 @@ def main() -> int:
             lambda: [ref.unpack_nibbles_ref(payloads[i]["q_packed"],
                                             axis=axes[i]) for i in blocked],
             0, None),
+        # the merges: one grouped launch over every leaf, as the round
         "dequant_merge_packed": (
-            lambda: [dequant_merge_packed_cuda(
-                g, p["q_packed"], p["scales"], w2, denom, push, axis=ax)
-                for g, p, ax in zip(g_leaves, payloads, axes)],
+            lambda: dequant_merge_packed_group_cuda(
+                [(g, p["q_packed"], p["scales"], ax)
+                 for g, p, ax in zip(g_leaves, payloads, axes)],
+                w2, denom, push),
             lambda: [ref.dequant_merge_packed_ref(
                 g, p["q_packed"], p["scales"], w2, denom, push, axis=ax)
                 for g, p, ax in zip(g_leaves, payloads, axes)],
@@ -1005,9 +1026,10 @@ def main() -> int:
                      for g, p in zip(g_leaves, pods_f32)],
             2 + 2 * PODS, None),
         "dequant_merge": (
-            lambda: [dequant_merge_cuda(
-                g, p["q"], p["scales"], w2, denom, push, axis=ax)
-                for g, p, ax in zip(g_leaves, payloads8, axes)],
+            lambda: dequant_merge_group_cuda(
+                [(g, p["q"], p["scales"], ax)
+                 for g, p, ax in zip(g_leaves, payloads8, axes)],
+                w2, denom, push),
             lambda: [ref.dequant_merge_ref(
                 g, p["q"], p["scales"], w2, denom, push, axis=ax)
                 for g, p, ax in zip(g_leaves, payloads8, axes)],
@@ -1051,7 +1073,14 @@ def main() -> int:
         bound_ms, bound_by = bound(n_out * flops_per_out, moved,
                                    {t.dtype for t in inputs[name]})
         del got, want
-        ms = time_ms(torch, kern, reps=20)
+        build.reset_launches()
+        kern()
+        per_pass = build.LAUNCHES[name]
+        # ms is the card's own time of a pass; the wall time of
+        # back-to-back passes (CUDA events) also holds the host's issue of
+        # every launch
+        wall_ms = time_ms(torch, kern, reps=20)
+        ms = device_ms(torch, kern)
         plain_ms = time_ms(torch, plain, reps=3, warmup=1)
         library_ms = None if library is None else time_ms(torch, library,
                                                           reps=20)
@@ -1060,10 +1089,12 @@ def main() -> int:
             "replaces": REPLACES[name], "launches": None,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms,
+            "library_ms": library_ms, "wall_ms": wall_ms,
+            "launches_per_pass": per_pass,
         }
         lib_txt = "" if library_ms is None else f"  library {library_ms:.3f} ms"
-        log(f"    {name:22s} equal=True  kernel {ms:8.3f} ms  plain "
+        log(f"    {name:22s} equal=True  kernel {ms:8.3f} ms [wall "
+            f"{wall_ms:.3f}; {per_pass} launches a pass]  plain "
             f"{plain_ms:8.3f} ms  bound {bound_ms:.3f} ms ({bound_by}; "
             f"{moved / 1e9:.3f} GB)  {bound_ms / ms:5.1%} of the bound"
             + lib_txt)

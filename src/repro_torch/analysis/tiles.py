@@ -24,11 +24,12 @@ Named violation classes, with their Hopper meanings:
   read or written one value per block (``Operand.gather``: the
   quantization scales), which is a gather, not a tile.
 * ``low-precision-accumulate``: the kernel sums in fp16 or bf16.  The
-  rule finds every accumulation in the kernel's source (``+=``, ``-=``,
-  a variable assigned from an add or FMA of itself, or an array handed to
-  a ``__device__`` helper of the same source that updates it through a
-  read-write ``asm`` operand, as a ``wgmma`` accumulator is), reads each
-  accumulated variable's declared type there, resolves template
+  rule finds every accumulation in the kernel's source and in the
+  ``__device__`` helpers of the same source that it calls (``+=``,
+  ``-=``, a variable assigned from an add or FMA of itself, or an array
+  handed to a helper that updates it through a read-write ``asm``
+  operand, as a ``wgmma`` accumulator is), reads each accumulated
+  variable's declared type where it is declared, resolves template
   parameters through the spec, and fires on a 16-bit float.  The spec's
   ``accumulator`` must name one of them: its type is read from the
   source, never from the spec.
@@ -268,6 +269,44 @@ def call_accumulations(body: str, updaters: Mapping[str, List[int]]
     return sorted(out)
 
 
+def device_functions(src: str) -> Dict[str, Tuple[str, str]]:
+    """Every ``__device__`` function of ``src`` that has a body: name ->
+    ``(parameters, body)``."""
+    src = _strip_comments(src)
+    out: Dict[str, Tuple[str, str]] = {}
+    for m in re.finditer(r"__device__", src):
+        brace, semi = src.find("{", m.end()), src.find(";", m.end())
+        if brace < 0 or 0 <= semi < brace:
+            continue
+        name = re.search(r"([A-Za-z_]\w*)\s*\(", src[m.end():brace])
+        if name is None:
+            continue
+        p0 = m.end() + name.end() - 1
+        p1 = _matching(src, p0, "(", ")")
+        out.setdefault(name.group(1), (
+            src[p0 + 1:p1 - 1],
+            src[brace + 1:_matching(src, brace, "{", "}") - 1]))
+    return out
+
+
+def called_helpers(body: str, helpers: Mapping[str, Tuple[str, str]]
+                   ) -> List[str]:
+    """The :func:`device_functions` a kernel body calls, directly or
+    through one another (``merge_tiles<true, I>(...)`` calls
+    merge_tiles)."""
+    seen: List[str] = []
+    todo = [body]
+    while todo:
+        text = todo.pop()
+        for name in helpers:
+            if name not in seen and re.search(
+                    rf"\b{re.escape(name)}\s*(?:<[^;{{}}()]*>)?\s*\(",
+                    text):
+                seen.append(name)
+                todo.append(helpers[name][1])
+    return seen
+
+
 def _dtype(ctype: Optional[str], template: Mapping[str, str]) -> str:
     """A declared C type as a dtype name, template parameters resolved."""
     ctype = template.get(ctype, ctype) or "?"
@@ -324,12 +363,21 @@ class KernelTileLint(Rule):
                 "pack-pairing-drift", f"{label}: {spec.source} defines no "
                 f"__global__ {spec.function}", function=spec.function)]
         params, body = found
-        types = declarations(params, body)
-        summed = set(accumulations(body)) | set(
-            call_accumulations(body, asm_updaters(src)))
-        accs = {name: _dtype(types.get(name), spec.template)
-                for name in sorted(summed)}
-        for name, dtype in accs.items():
+        helpers = device_functions(src)
+        updaters = asm_updaters(src)
+        kernel_types = declarations(params, body)
+        accs: Dict[str, str] = {}
+        # the kernel's body and every __device__ helper it calls, each
+        # accumulation typed where it is declared
+        for p, b in [(params, body)] + [helpers[n] for n in
+                                        called_helpers(body, helpers)]:
+            types = {**kernel_types, **declarations(p, b)}
+            for name in set(accumulations(b)) | set(
+                    call_accumulations(b, updaters)):
+                dtype = _dtype(types.get(name), spec.template)
+                if accs.get(name) not in LOW_PRECISION:
+                    accs[name] = dtype
+        for name, dtype in sorted(accs.items()):
             if dtype in LOW_PRECISION:
                 out.append(self.violation(
                     "low-precision-accumulate",

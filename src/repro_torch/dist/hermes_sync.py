@@ -191,18 +191,26 @@ def _merge_payloads(w_global, payloads, w1, w2, denom, any_push, compression,
         return _merge_sliced(w_global, payloads, fmt, w1, w2, denom,
                              any_push, n_pods)
     g_leaves, treedef = tree_flatten(w_global)
-    merged = []
-    for g, p in zip(g_leaves, flatten_up_to(treedef, payloads)):
-        stacked = (n_pods,) + tuple(g.shape)
-        if fmt.fused_merge is not None and block_axis(stacked) >= 1:
-            merged.append(fmt.fused_merge(g, p, w2, denom, any_push))
+    pays = flatten_up_to(treedef, payloads)
+    merged = [None] * len(g_leaves)
+    if fmt.fused_merge_group is not None:
+        # every leaf blocked off the pod axis, in one grouped merge
+        fused = [i for i, g in enumerate(g_leaves)
+                 if block_axis((n_pods,) + tuple(g.shape)) >= 1]
+        outs = fmt.fused_merge_group([g_leaves[i] for i in fused],
+                                     [pays[i] for i in fused], w2, denom,
+                                     any_push)
+        for i, out in zip(fused, outs):
+            merged[i] = out
+    for i, (g, p) in enumerate(zip(g_leaves, pays)):
+        if merged[i] is not None:
             continue
-        recv = g[None] + fmt.decode(p, stacked, g.dtype)
-        if fmt.fused_merge is not None:  # blocked on the pod axis
-            merged.append(_merge_leaf(g, recv, w1, w2, denom, any_push))
+        recv = g[None] + fmt.decode(p, (n_pods,) + tuple(g.shape), g.dtype)
+        if fmt.fused_merge_group is not None:  # blocked on the pod axis
+            merged[i] = _merge_leaf(g, recv, w1, w2, denom, any_push)
         else:
-            merged.append(ops.loss_weighted_update(g, recv, w1, w2, denom,
-                                                   any_push))
+            merged[i] = ops.loss_weighted_update(g, recv, w1, w2, denom,
+                                                 any_push)
     return tree_unflatten(treedef, merged)
 
 

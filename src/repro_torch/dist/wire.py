@@ -10,12 +10,13 @@ other axis is untouched.  The port keeps the reference's parameter shapes
 precisely because this choice depends on them.
 
 ``int8`` ships ``q`` trimmed to the real elements, rounded half to even
-(deterministic: it takes no noise); its ``fused_merge`` is the CUDA
-``dequant_merge`` kernel.  ``int4`` ships ``q_packed``: whole 256-blocks
-nibble-packed by the CUDA ``pack_int4`` kernel (plain PyTorch on a CPU
-tensor), a short tail of ``rem`` elements paired ``(k, k + ceil(rem/2))``;
-its ``fused_merge`` reads the packed payload straight into the global
-leaf.  Registered: ``none``, ``fp16``, ``int8``, ``int4``.
+(deterministic: it takes no noise); its ``fused_merge_group`` is the
+CUDA ``dequant_merge`` kernel, one launch for a tree.  ``int4`` ships
+``q_packed``: whole 256-blocks nibble-packed by the CUDA ``pack_int4``
+kernel (plain PyTorch on a CPU tensor), a short tail of ``rem`` elements
+paired ``(k, k + ceil(rem/2))``; its ``fused_merge_group`` reads the
+packed payloads straight into the global leaves.  Registered: ``none``,
+``fp16``, ``int8``, ``int4``.
 """
 from __future__ import annotations
 
@@ -80,11 +81,21 @@ class GeneratorNoise:
                           dtype=torch.float32)
 
 
+def _stacked_axis(g: torch.Tensor, q: torch.Tensor) -> int:
+    """The blocked axis of the pod-stacked delta leaf, ``(n_pods,) +
+    g.shape``."""
+    return block_axis((q.shape[0],) + tuple(g.shape))
+
+
 class WireFormat:
-    """One wire format.  Subclass, set ``name``, implement the contract."""
+    """One wire format.  Subclass, set ``name``, implement the contract.
+
+    ``fused_merge_group(gs, payloads, w2, denom, any_push)``, optional,
+    merges the payloads of leaves blocked off the pod axis straight into
+    the global leaves ``gs`` (one launch on a card)."""
 
     name: str = "?"
-    fused_merge = None  # optional fused payload->global merge
+    fused_merge_group = None
 
     def encode(self, x: torch.Tensor, *, key=None, noise=None) -> Payload:
         raise NotImplementedError
@@ -170,12 +181,10 @@ class Int8Format(BlockedIntFormat):
         q, scale, s, ax, d, nb = self._quantize(x, key, noise)
         return {"q": q.narrow(ax, 0, d).contiguous(), "scales": scale}
 
-    def fused_merge(self, g, payload, w2, denom, any_push):
-        # the blocked axis of the stacked delta leaf, (n_pods,) + g.shape
-        n_pods = payload["q"].shape[0]
-        ax = block_axis((n_pods,) + tuple(g.shape))
-        return ops.dequant_merge(g, payload["q"], payload["scales"], w2,
-                                 denom, any_push, axis=ax)
+    def fused_merge_group(self, gs, payloads, w2, denom, any_push):
+        return ops.dequant_merge_group(
+            [(g, p["q"], p["scales"], _stacked_axis(g, p["q"]))
+             for g, p in zip(gs, payloads)], w2, denom, any_push)
 
 
 class Int4Format(BlockedIntFormat):
@@ -234,13 +243,10 @@ class Int4Format(BlockedIntFormat):
         return super().decode({"q": q, "scales": payload["scales"]},
                               shape, dtype)
 
-    def fused_merge(self, g, payload, w2, denom, any_push):
-        # the blocked axis of the stacked delta leaf, (n_pods,) + g.shape
-        n_pods = payload["q_packed"].shape[0]
-        ax = block_axis((n_pods,) + tuple(g.shape))
-        return ops.dequant_merge_packed(g, payload["q_packed"],
-                                        payload["scales"], w2, denom,
-                                        any_push, axis=ax)
+    def fused_merge_group(self, gs, payloads, w2, denom, any_push):
+        return ops.dequant_merge_packed_group(
+            [(g, p["q_packed"], p["scales"], _stacked_axis(g, p["q_packed"]))
+             for g, p in zip(gs, payloads)], w2, denom, any_push)
 
 
 def gather_payloads(payloads):

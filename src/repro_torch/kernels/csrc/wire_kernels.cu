@@ -12,9 +12,11 @@
 // None of these kernels does a matrix product: each streams its operands
 // once, so each is bound by HBM bytes.  The design is a grid-stride
 // elementwise pass (a warp per 256-block for the quantize, whose scale is
-// a block reduction) with neighbouring threads on neighbouring addresses,
-// and 32-bit index arithmetic whenever every index of the launch fits,
-// since 64-bit division costs tens of instructions per element.  Byte
+// a block reduction; the int4 and int8 merges walk tiles of every leaf of
+// a tree in one launch, see below) with neighbouring threads on
+// neighbouring addresses, and 32-bit index arithmetic whenever every
+// index of the launch fits, since 64-bit division costs tens of
+// instructions per element.  Byte
 // counts are for one pass over the lm100m tree (124,670,208 fp32
 // parameters) with 4 pods stacked, at 3.35 TB/s (H100 SXM data sheet).
 //
@@ -88,45 +90,322 @@ __global__ void unpack_int4_kernel(const int8_t* __restrict__ p,
   }
 }
 
-// out (o, e, i) = any_push ? (denom*g + sum_k w2_k*(nib_k*s_k)) / denom : g
-// over the canonical packed payload (n_pods, outer, nb*128, inner) and its
-// scales (n_pods, outer, nb, inner).  One thread per output element; the
-// zero padding of the last block (e >= d) is never visited, instead of
-// padding g.  scal = [denom, any_push, w2_0 .. w2_{P-1}] lives on the
-// device, so the launch needs no host sync.
+// ---- the int4 and int8 merges -------------------------------------------
+//
+// out (o, e, i) = any_push ? (denom*g + sum_k w2_k*(q_k*s_k)) / denom : g
+// for every leaf of a tree in one launch.  A leaf is g viewed as (outer,
+// d, inner) around its blocked axis.  Its payload q, per pod, is the
+// trimmed int8 wire (g's layout) or the int4 wire (outer, prow, inner):
+// byte (o, b*128 + j, i) of a whole block holds element (o, b*256 + j, i)
+// in its low nibble and (o, b*256 + 128 + j, i) in its high one, and the
+// last block pairs (j, j + htail) (128 when canonical, ceil(rem/2) on the
+// trimmed wire).  Scales are (outer, nb, inner) per pod.  Only the real d
+// elements are written: g is never padded.
+//
+// The leaves travel by value in the kernel's parameters (no host-to-device
+// copy), kMergeLeaves a launch.  Each leaf is cut into tiles, numbered
+// across the launch, and a persistent grid of 132 SMs x kMergeBlocksPerSm
+// blocks walks them.  A row tile (inner == 1: the blocked axis is the
+// contiguous one) is a run of kRowUnits whole 256-blocks, a warp per block
+// per step.  A column tile (inner > 1) is (o, b, a group of kColPairs row
+// pairs, 4*tc columns), tc threads across the columns, with the tile's
+// row of scales staged in shared memory once.  Either way a thread's slot
+// is four outputs along the contiguous axis and the four 128 rows
+// further, the two halves an int4 byte pairs: each packed byte is loaded
+// once, g and out move as float4 and the payload as 4-byte words, and a
+// tile's offsets are decomposed once.  A block that is not whole, or a
+// leaf whose rows break that alignment, takes the scalar path.  The
+// payload words of kPodChunk pods are loaded before any of them is used.
+//
+// scal = [denom, any_push, w2_0 .. w2_{P-1}] lives on the device, so the
+// launch needs no host sync.  Pods accumulate in order, one rounding per
+// operation (w2*s is never hoisted, the division never a reciprocal), so
+// each output equals the plain version's bit for bit.
+
+constexpr int kMergeLeaves = 32;       // leaf descriptors a launch carries
+constexpr int kMergeBlocksPerSm = 4;   // persistent grid: 132 SMs x 4
+constexpr int kRowUnits = 32;          // 256-blocks a row tile, 4 a warp
+constexpr int kColPairs = 32;          // row pairs (j, j + 128) a column tile
+constexpr int kColWidth = 256;         // most columns a column tile holds
+constexpr int kPodChunk = 4;           // pods whose payload loads together
+constexpr int kLeafFields = 13;        // int64 fields of a leaf descriptor
+
+struct MergeLeaf {
+  const float* g;
+  float* out;
+  const int8_t* q;
+  const float* scales;
+  long long outer, d, inner, nb;
+  long long prow;    // payload rows per pod and outer index (int8: d)
+  long long tile0;   // the leaf's first tile in the launch
+  int htail;         // int4: the pairing distance in the last block
+  int tc;            // column tiles: threads across the columns; 0: row tiles
+  int vec;           // g/out 16-byte and payload 4-byte accesses align
+};
+
+struct MergeGroup {
+  MergeLeaf leaf[kMergeLeaves];
+  long long n_tiles;
+  int n_leaves;
+  int has_cols;      // a leaf has column tiles: scales staged in shared memory
+};
+
+// A leaf's sizes in the launch's index type.
 template <typename I>
-__global__ void dequant_merge_packed_kernel(
-    const float* __restrict__ g, const int8_t* __restrict__ qp,
-    const float* __restrict__ scales, const float* __restrict__ scal,
-    float* __restrict__ out, int n_pods, I d, I inner, I nb, I n_out,
-    I pod_bytes, I pod_scales) {
-  const float denom = scal[0];
-  const bool any_push = scal[1] > 0.5f;
-  for (I n = blockIdx.x * (I)blockDim.x + threadIdx.x; n < n_out;
-       n += (I)gridDim.x * blockDim.x) {
-    const float gv = g[n];
-    if (!any_push) {
-      out[n] = gv;
+struct LeafView {
+  const float* g;
+  float* out;
+  const int8_t* q;
+  const float* scales;
+  I outer, d, inner, nb, prow, pod_q, pod_s;
+  int htail;
+  bool vec;
+  __device__ explicit LeafView(const MergeLeaf& L)
+      : g(L.g), out(L.out), q(L.q), scales(L.scales), outer((I)L.outer),
+        d((I)L.d), inner((I)L.inner), nb((I)L.nb), prow((I)L.prow),
+        pod_q((I)(L.outer * L.prow * L.inner)),
+        pod_s((I)(L.outer * L.nb * L.inner)), htail(L.htail),
+        vec(L.vec != 0) {}
+};
+
+// Byte m of a little-endian word, sign-extended, and its two nibbles.
+__device__ __forceinline__ int word_byte(unsigned w, int m) {
+  return static_cast<int>(w << (24 - 8 * m)) >> 24;
+}
+__device__ __forceinline__ int word_lo(unsigned w, int m) {
+  return static_cast<int>(w << (28 - 8 * m)) >> 28;
+}
+__device__ __forceinline__ int word_hi(unsigned w, int m) {
+  return static_cast<int>(w << (24 - 8 * m)) >> 28;
+}
+
+// One thread's slot: the four outputs from (o, b*256 + k, i) on along the
+// contiguous axis (e for row tiles, i for column tiles) and the four 128
+// rows further.  col_sc: the slot's columns of the staged scales (column
+// tiles), pod p's at col_sc[p * kColWidth].
+template <bool kPacked, bool kCol, typename I>
+__device__ __forceinline__ void merge_slot(const LeafView<I>& L, I o, I b,
+                                           int k, I i, const float* col_sc,
+                                           const float* w2, int n_pods,
+                                           float denom, bool push) {
+  if (L.vec && (b + 1) * kBlock <= L.d) {
+    const I ga = (o * L.d + b * kBlock + k) * L.inner + i;
+    const I gb = ga + kHalf * L.inner;
+    const float4 a4 = __ldg(reinterpret_cast<const float4*>(L.g + ga));
+    const float4 b4 = __ldg(reinterpret_cast<const float4*>(L.g + gb));
+    if (!push) {
+      __stcs(reinterpret_cast<float4*>(L.out + ga), a4);
+      __stcs(reinterpret_cast<float4*>(L.out + gb), b4);
+      return;
+    }
+    float acc[8] = {a4.x, a4.y, a4.z, a4.w, b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+    for (int m = 0; m < 8; ++m) acc[m] = __fmul_rn(denom, acc[m]);
+    const I qa = kPacked ? (o * L.prow + b * kHalf + k) * L.inner + i : ga;
+    const I sa = (o * L.nb + b) * L.inner + i;
+    for (int p0 = 0; p0 < n_pods; p0 += kPodChunk) {
+      unsigned wa[kPodChunk], wb[kPodChunk];
+      float s1[kPodChunk];
+#pragma unroll
+      for (int c = 0; c < kPodChunk; ++c) {
+        if (p0 + c < n_pods) {
+          const int8_t* q = L.q + (p0 + c) * L.pod_q;
+          wa[c] = __ldg(reinterpret_cast<const unsigned*>(q + qa));
+          if (!kPacked)
+            wb[c] = __ldg(reinterpret_cast<const unsigned*>(q + gb));
+          if (!kCol) s1[c] = __ldg(L.scales + (p0 + c) * L.pod_s + sa);
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < kPodChunk; ++c) {
+        if (p0 + c < n_pods) {
+          const int pod = p0 + c;
+          float s[4] = {s1[c], s1[c], s1[c], s1[c]};
+          if (kCol) {
+            const float4 s4 =
+                *reinterpret_cast<const float4*>(col_sc + pod * kColWidth);
+            s[0] = s4.x; s[1] = s4.y; s[2] = s4.z; s[3] = s4.w;
+          }
+          const float w = w2[pod];
+#pragma unroll
+          for (int m = 0; m < 8; ++m) {
+            const int v = kPacked
+                ? (m < 4 ? word_lo(wa[c], m) : word_hi(wa[c], m - 4))
+                : word_byte(m < 4 ? wa[c] : wb[c], m & 3);
+            acc[m] = __fadd_rn(acc[m], __fmul_rn(w, __fmul_rn(
+                static_cast<float>(v), s[m & 3])));
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < 8; ++m) acc[m] = __fdiv_rn(acc[m], denom);
+    __stcs(reinterpret_cast<float4*>(L.out + ga),
+           make_float4(acc[0], acc[1], acc[2], acc[3]));
+    __stcs(reinterpret_cast<float4*>(L.out + gb),
+           make_float4(acc[4], acc[5], acc[6], acc[7]));
+    return;
+  }
+  // the scalar path: element by element, masked to the leaf
+  for (int m = 0; m < 8; ++m) {
+    const int kk = k + (m >> 2) * kHalf + (kCol ? 0 : (m & 3));
+    const I ii = i + (kCol ? (m & 3) : 0);
+    const I e = b * kBlock + kk;
+    if (e >= L.d || ii >= L.inner) continue;
+    const I gi = (o * L.d + e) * L.inner + ii;
+    const float gv = L.g[gi];
+    if (!push) {
+      L.out[gi] = gv;
       continue;
     }
-    const I i = n % inner;
-    const I t = n / inner;
-    const I e = t % d;
-    const I o = t / d;
-    const I blk = o * nb + e / kBlock;
-    const I k = e % kBlock;
-    const bool high = k >= kHalf;
-    const I byte_idx = (blk * kHalf + k % kHalf) * inner + i;
-    const I scale_idx = blk * inner + i;
+    I qi = gi;
+    bool high = false;
+    if (kPacked) {
+      const int hb = b + 1 == L.nb ? L.htail : kHalf;
+      high = kk >= hb;
+      qi = (o * L.prow + b * kHalf + (high ? kk - hb : kk)) * L.inner + ii;
+    }
+    const I si = (o * L.nb + b) * L.inner + ii;
     float acc = __fmul_rn(denom, gv);
     for (int pod = 0; pod < n_pods; ++pod) {
-      const int v = qp[pod * pod_bytes + byte_idx];
-      const float nib = static_cast<float>(high ? nibble_hi(v) : nibble_lo(v));
-      const float s = scales[pod * pod_scales + scale_idx];
-      acc = __fadd_rn(acc, __fmul_rn(scal[2 + pod], __fmul_rn(nib, s)));
+      const int v = L.q[pod * L.pod_q + qi];
+      const float qv = static_cast<float>(
+          kPacked ? (high ? nibble_hi(v) : nibble_lo(v)) : v);
+      acc = __fadd_rn(acc, __fmul_rn(w2[pod], __fmul_rn(
+          qv, L.scales[pod * L.pod_s + si])));
     }
-    out[n] = __fdiv_rn(acc, denom);
+    L.out[gi] = __fdiv_rn(acc, denom);
   }
+}
+
+// The tile walk both merge kernels share.
+template <bool kPacked, typename I>
+__device__ __forceinline__ void merge_tiles(const MergeGroup& grp,
+                                            const float* __restrict__ scal,
+                                            int n_pods) {
+  extern __shared__ float4 merge_smem[];
+  float* col_sc = reinterpret_cast<float*>(merge_smem);  // (P, kColWidth)
+  float* w2 = col_sc + (grp.has_cols ? n_pods * kColWidth : 0);
+  for (int p = threadIdx.x; p < n_pods; p += kThreads) w2[p] = scal[2 + p];
+  const float denom = scal[0];
+  const bool push = scal[1] > 0.5f;
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  constexpr int kWarps = kThreads / 32;
+  constexpr int kGroups = kHalf / kColPairs;
+  int li = 0;
+  for (long long t = blockIdx.x; t < grp.n_tiles; t += gridDim.x) {
+    while (li + 1 < grp.n_leaves && t >= grp.leaf[li + 1].tile0) ++li;
+    const LeafView<I> L(grp.leaf[li]);
+    const int tc = grp.leaf[li].tc;
+    const I tile = static_cast<I>(t - grp.leaf[li].tile0);
+    if (tc == 0) {
+      const I units = L.outer * L.nb;
+      for (int s = 0; s < kRowUnits / kWarps; ++s) {
+        const I u = tile * kRowUnits + s * kWarps + warp;
+        if (u >= units) break;
+        const I o = u / L.nb;
+        merge_slot<kPacked, false, I>(L, o, u - o * L.nb, 4 * lane, 0,
+                                      nullptr, w2, n_pods, denom, push);
+      }
+      continue;
+    }
+    const I width = 4 * tc;
+    const I chunks = (L.inner + width - 1) / width;
+    const I cc = tile % chunks;
+    const I rest = tile / chunks;
+    const int rg = static_cast<int>(rest % kGroups);
+    const I ob = rest / kGroups;  // o * nb + b
+    const I o = ob / L.nb;
+    const I i0 = cc * width;
+    const int cols = static_cast<int>(L.inner - i0 < width ? L.inner - i0
+                                                           : width);
+    __syncthreads();  // the previous column tile's readers are done
+    if (push) {
+      for (int x = threadIdx.x; x < n_pods * cols; x += kThreads) {
+        const int pod = x / cols;
+        const int c = x - pod * cols;
+        col_sc[pod * kColWidth + c] =
+            L.scales[pod * L.pod_s + ob * L.inner + i0 + c];
+      }
+    }
+    __syncthreads();
+    const int r = threadIdx.x / tc;
+    const int c = threadIdx.x - r * tc;
+    const I i = i0 + 4 * c;
+    if (i >= L.inner) continue;
+    for (int j = rg * kColPairs + r; j < (rg + 1) * kColPairs;
+         j += kThreads / tc) {
+      merge_slot<kPacked, true, I>(L, o, ob - o * L.nb, j, i, col_sc + 4 * c,
+                                   w2, n_pods, denom, push);
+    }
+  }
+}
+
+// Replaces src/repro/kernels/dequant_merge.py:dequant_merge_packed
+// (_packed_kernel), every leaf of a tree in one launch.
+template <typename I>
+__global__ void __launch_bounds__(kThreads, kMergeBlocksPerSm)
+dequant_merge_packed_kernel(const __grid_constant__ MergeGroup grp,
+                            const float* __restrict__ scal, int n_pods) {
+  merge_tiles<true, I>(grp, scal, n_pods);
+}
+
+// Replaces src/repro/kernels/dequant_merge.py:dequant_merge (_kernel, the
+// int8 merge).  The trimmed wire q has g's layout per pod, so the kernel
+// reads it where it lies: no moveaxis copy, no re-padding of q or g and no
+// per-128-lane scale expansion, which the TPU wrapper needs for its (32,
+// 128) tiles.
+template <typename I>
+__global__ void __launch_bounds__(kThreads, kMergeBlocksPerSm)
+dequant_merge_kernel(const __grid_constant__ MergeGroup grp,
+                     const float* __restrict__ scal, int n_pods) {
+  merge_tiles<false, I>(grp, scal, n_pods);
+}
+
+// Unpacks the leaf descriptors (kLeafFields int64 each: g, out, q,
+// scales, outer, d, inner, nb, prow, htail, tc, vec, tiles) and launches
+// the persistent grid; ``wide`` takes 64-bit offsets.
+template <bool kPacked>
+int launch_merge(const long long* desc, int n_leaves, const void* scal,
+                 int n_pods, int wide, void* stream) {
+  if (n_leaves < 1 || n_leaves > kMergeLeaves || n_pods < 1)
+    return (int)cudaErrorInvalidValue;
+  MergeGroup grp = {};
+  long long tiles = 0;
+  for (int l = 0; l < n_leaves; ++l) {
+    const long long* f = desc + l * kLeafFields;
+    MergeLeaf& L = grp.leaf[l];
+    L.g = reinterpret_cast<const float*>(f[0]);
+    L.out = reinterpret_cast<float*>(f[1]);
+    L.q = reinterpret_cast<const int8_t*>(f[2]);
+    L.scales = reinterpret_cast<const float*>(f[3]);
+    L.outer = f[4]; L.d = f[5]; L.inner = f[6]; L.nb = f[7]; L.prow = f[8];
+    L.htail = (int)f[9]; L.tc = (int)f[10]; L.vec = (int)f[11];
+    L.tile0 = tiles;
+    tiles += f[12];
+    grp.has_cols |= L.tc != 0;
+  }
+  grp.n_tiles = tiles;
+  grp.n_leaves = n_leaves;
+  const long long cap = 132LL * kMergeBlocksPerSm;
+  const unsigned grid = (unsigned)(tiles < cap ? tiles : cap);
+  const size_t smem =
+      sizeof(float) * n_pods * (1 + (grp.has_cols ? kColWidth : 0));
+  const cudaStream_t s = (cudaStream_t)stream;
+  void (*kernel)(const MergeGroup, const float*, int) =
+      kPacked ? (wide ? dequant_merge_packed_kernel<long long>
+                      : dequant_merge_packed_kernel<unsigned>)
+              : (wide ? dequant_merge_kernel<long long>
+                      : dequant_merge_kernel<unsigned>);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<grid, kThreads, smem, s>>>(grp, (const float*)scal, n_pods);
+  return (int)cudaGetLastError();
 }
 
 // out = any_push ? (w1*g + sum_k w2_k*pods_k) / denom : g, flat.
@@ -151,40 +430,6 @@ __global__ void loss_weighted_update_kernel(
       acc = __fadd_rn(acc, __fmul_rn(scal[3 + pod], pods[pod * n + idx]));
     }
     out[idx] = __fdiv_rn(acc, denom);
-  }
-}
-
-// out (o, e, i) = any_push ? (denom*g + sum_k w2_k*(q_k*s_k)) / denom : g
-// over the trimmed int8 payload q (n_pods, outer, d, inner), which has g's
-// layout per pod, and its scales (n_pods, outer, nb, inner).  One thread
-// per output element, as dequant_merge_packed_kernel without the nibbles.
-template <typename I>
-__global__ void dequant_merge_kernel(
-    const float* __restrict__ g, const int8_t* __restrict__ q,
-    const float* __restrict__ scales, const float* __restrict__ scal,
-    float* __restrict__ out, int n_pods, I d, I inner, I nb, I n_out,
-    I pod_scales) {
-  const float denom = scal[0];
-  const bool any_push = scal[1] > 0.5f;
-  for (I n = blockIdx.x * (I)blockDim.x + threadIdx.x; n < n_out;
-       n += (I)gridDim.x * blockDim.x) {
-    const float gv = g[n];
-    if (!any_push) {
-      out[n] = gv;
-      continue;
-    }
-    const I i = n % inner;
-    const I t = n / inner;
-    const I e = t % d;
-    const I o = t / d;
-    const I scale_idx = (o * nb + e / kBlock) * inner + i;
-    float acc = __fmul_rn(denom, gv);
-    for (int pod = 0; pod < n_pods; ++pod) {
-      const float qv = static_cast<float>(q[pod * n_out + n]);
-      const float s = scales[pod * pod_scales + scale_idx];
-      acc = __fadd_rn(acc, __fmul_rn(scal[2 + pod], __fmul_rn(qv, s)));
-    }
-    out[n] = __fdiv_rn(acc, denom);
   }
 }
 
@@ -311,30 +556,13 @@ int launch_unpack_int4(const void* p, void* q, long long outer, long long dh,
 // Replaces src/repro/kernels/dequant_merge.py:dequant_merge_packed
 // (_packed_kernel).  Bound by HBM bytes: g 498.7 MB + packed 249.3 MB +
 // scales 7.8 MB read, 498.7 MB written at lm100m x 4 pods = 1.254 GB,
-// 0.374 ms at 3.35 TB/s.  g/out: (outer, d, inner) fp32; qp: (n_pods,
-// outer, nb*128, inner) int8; scales: (n_pods, outer, nb, inner) fp32.
-int launch_dequant_merge_packed(const void* g, const void* qp,
-                                const void* scales, const void* scal,
-                                void* out, int n_pods, long long outer,
-                                long long d, long long inner, long long nb,
+// 0.374 ms at 3.35 TB/s.  desc: n_leaves (at most kMergeLeaves) leaf
+// descriptors, merged in one launch.
+int launch_dequant_merge_packed(const void* desc, int n_leaves,
+                                const void* scal, int n_pods, int wide,
                                 void* stream) {
-  const long long n = outer * d * inner;
-  const long long pod_bytes = outer * nb * kHalf * inner;
-  const long long pod_scales = outer * nb * inner;
-  const cudaStream_t s = (cudaStream_t)stream;
-  if (fits32(n) && fits32(n_pods * pod_bytes)) {
-    dequant_merge_packed_kernel<unsigned><<<grid_for(n), kThreads, 0, s>>>(
-        (const float*)g, (const int8_t*)qp, (const float*)scales,
-        (const float*)scal, (float*)out, n_pods, (unsigned)d,
-        (unsigned)inner, (unsigned)nb, (unsigned)n, (unsigned)pod_bytes,
-        (unsigned)pod_scales);
-  } else {
-    dequant_merge_packed_kernel<long long><<<grid_for(n), kThreads, 0, s>>>(
-        (const float*)g, (const int8_t*)qp, (const float*)scales,
-        (const float*)scal, (float*)out, n_pods, d, inner, nb, n, pod_bytes,
-        pod_scales);
-  }
-  return (int)cudaGetLastError();
+  return launch_merge<true>((const long long*)desc, n_leaves, scal, n_pods,
+                            wide, stream);
 }
 
 // Replaces src/repro/kernels/loss_weighted_update.py:loss_weighted_update
@@ -360,30 +588,11 @@ int launch_loss_weighted_update(const void* g, const void* pods,
 // Replaces src/repro/kernels/dequant_merge.py:dequant_merge (_kernel, the
 // int8 merge).  Bound by HBM bytes: g 498.7 MB + q 498.7 MB + scales 7.8
 // MB read, 498.7 MB written at lm100m x 4 pods = 1.504 GB, 0.449 ms at
-// 3.35 TB/s.  The trimmed wire q has g's (outer, d, inner) layout per pod,
-// so the kernel reads it where it lies: no moveaxis copy, no re-padding of
-// q or g and no per-128-lane scale expansion, which the TPU wrapper needs
-// for its (32, 128) tiles.  g/out: (outer, d, inner) fp32; q: (n_pods,
-// outer, d, inner) int8; scales: (n_pods, outer, nb, inner) fp32.
-int launch_dequant_merge(const void* g, const void* q, const void* scales,
-                         const void* scal, void* out, int n_pods,
-                         long long outer, long long d, long long inner,
-                         long long nb, void* stream) {
-  const long long n = outer * d * inner;
-  const long long pod_scales = outer * nb * inner;
-  const cudaStream_t s = (cudaStream_t)stream;
-  if (fits32(n_pods * n)) {
-    dequant_merge_kernel<unsigned><<<grid_for(n), kThreads, 0, s>>>(
-        (const float*)g, (const int8_t*)q, (const float*)scales,
-        (const float*)scal, (float*)out, n_pods, (unsigned)d,
-        (unsigned)inner, (unsigned)nb, (unsigned)n, (unsigned)pod_scales);
-  } else {
-    dequant_merge_kernel<long long><<<grid_for(n), kThreads, 0, s>>>(
-        (const float*)g, (const int8_t*)q, (const float*)scales,
-        (const float*)scal, (float*)out, n_pods, d, inner, nb, n,
-        pod_scales);
-  }
-  return (int)cudaGetLastError();
+// 3.35 TB/s.  desc as for launch_dequant_merge_packed.
+int launch_dequant_merge(const void* desc, int n_leaves, const void* scal,
+                         int n_pods, int wide, void* stream) {
+  return launch_merge<false>((const long long*)desc, n_leaves, scal, n_pods,
+                             wide, stream);
 }
 
 // Replaces src/repro/kernels/quantize.py:quantize_int8 (_q_kernel).  Bound

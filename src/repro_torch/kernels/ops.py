@@ -63,6 +63,23 @@ def dequant_merge_packed(g, q_packed, scales, w2, denom, any_push, *,
                                            any_push, axis=axis)
 
 
+def dequant_merge_group(leaves, w2, denom, any_push):
+    """Merge int8 payloads into their global leaves, ``leaves`` a list of
+    ``(g, q, scales, axis)``: one launch on a card."""
+    if leaves and leaves[0][0].is_cuda:
+        return _dqm.dequant_merge_group_cuda(leaves, w2, denom, any_push)
+    return _dqm.dequant_merge_group_plain(leaves, w2, denom, any_push)
+
+
+def dequant_merge_packed_group(leaves, w2, denom, any_push):
+    """Merge int4 payloads into their global leaves, ``leaves`` a list of
+    ``(g, q_packed, scales, axis)``: one launch on a card."""
+    if leaves and leaves[0][0].is_cuda:
+        return _dqm.dequant_merge_packed_group_cuda(leaves, w2, denom,
+                                                    any_push)
+    return _dqm.dequant_merge_packed_group_plain(leaves, w2, denom, any_push)
+
+
 def loss_weighted_update(g, pods, w1, w2, denom, any_push) -> torch.Tensor:
     """``any_push ? (w1*g + sum_i w2_i*pods_i) / denom : g``."""
     if g.is_cuda:
@@ -107,7 +124,9 @@ def kernel_lint_cases():
     The static tile lint (``repro_torch.analysis.KernelTileLint``) reads
     each spec and its ``.cu`` source; nothing launches.  The wire kernels
     take the reference's shapes: a ``(4, 512)`` leaf (two 256-element
-    blocks a row) and two pods.  The model kernels take shapes their real
+    blocks a row) and two pods; the merges also take lm100m's ``wq``
+    layout (blocked on a middle axis: column tiles) at 2 layers and 4
+    pods.  The model kernels take shapes their real
     tiling divides.  Flash attention has three designs: the SIMT kernel
     (fp32 prefill, 128 queries and keys, two 64-row tiles, at head dims 64
     and 256 on one KV head); the split-KV decode kernel and its combine
@@ -118,7 +137,7 @@ def kernel_lint_cases():
     takes 32 steps (two staged chunks) of two heads of 64, the RG-LRU 16
     steps of 128 channels (two blocks).
     """
-    pods, g = 2, (4, 512)
+    pods, g, wq = 2, (4, 512), (2, 768, 12, 64)
     rg = ((4, 1, 10, 256), (4, 2048, 1, 256), "bfloat16")
     lm = ((8, 1, 12, 64), (8, 640, 4, 64), "float32")
     return [
@@ -130,6 +149,9 @@ def kernel_lint_cases():
         ("dequant_merge", _dqm.launch_spec("dequant_merge", g, pods)),
         ("dequant_merge_packed",
          _dqm.launch_spec("dequant_merge_packed", g, pods)),
+        ("dequant_merge[wq]", _dqm.launch_spec("dequant_merge", wq, 4, 2)),
+        ("dequant_merge_packed[wq]",
+         _dqm.launch_spec("dequant_merge_packed", wq, 4, 2)),
         ("flash_attention[D64]",
          _fa.launch_spec((1, 128, 4, 64), (1, 128, 2, 64), "float32")),
         ("flash_attention[D256]",

@@ -264,6 +264,47 @@ def test_accumulator_updated_through_asm_operands(tmp_path, acc_type, fires):
     assert "pack-pairing-drift" not in got
 
 
+HELPER_KERNEL = """
+#include <cuda_bf16.h>
+template <typename T>
+__device__ __forceinline__ void sum_into(const __nv_bfloat16* x, int n,
+                                         __nv_bfloat16* out) {
+  ACC_TYPE acc = 0.f;
+  for (int i = threadIdx.x; i < n; i += blockDim.x)
+    acc = __fadd_rn(acc, __bfloat162float(x[i]));
+  out[threadIdx.x] = acc;
+}
+template <typename T>
+__device__ __forceinline__ void walk(const __nv_bfloat16* x, int n,
+                                     __nv_bfloat16* out) {
+  sum_into<T>(x, n, out);
+}
+__global__ void helper_kernel(const __nv_bfloat16* __restrict__ x,
+                              __nv_bfloat16* __restrict__ out, int n) {
+  walk<float>(x, n, out);
+}
+"""
+
+
+@pytest.mark.parametrize("acc_type,fires", [("float", False),
+                                            ("__nv_bfloat16", True)])
+def test_accumulator_in_a_called_helper(tmp_path, acc_type, fires):
+    """A kernel that sums in a ``__device__`` helper it calls (here two
+    calls deep, through templates) sums there: the spec may name the
+    helper's accumulator, and a 16-bit one fires."""
+    path = tmp_path / "helper_kernel.cu"
+    path.write_text(HELPER_KERNEL.replace("ACC_TYPE", acc_type))
+    ops_ = (build.Operand("x", (1024,), (256,), "bfloat16"),
+            build.Operand("out", (256,), (256,), "bfloat16"))
+    spec = build.LaunchSpec(kernel="helper", source=path,
+                            function="helper_kernel", grid=(1, 1, 1),
+                            threads=256, smem=0, operands=ops_,
+                            accumulator="acc")
+    got = _classes(KernelTileLint().check(Target(launches=(spec,))))
+    assert ("low-precision-accumulate" in got) == fires
+    assert "pack-pairing-drift" not in got
+
+
 def test_spec_naming_an_unsummed_accumulator_drifts(tmp_path):
     spec = dataclasses.replace(
         _sum_spec(tmp_path, "float", "0.f", "acc + 1.f", "acc"),
@@ -295,6 +336,11 @@ def _case(label):
     ("pack_int4", {"constants": {"kBlock": 256, "kHalf": 64,
                                  "kThreads": 256}}),
     ("dequant_merge", {"function": "no_such_kernel"}),
+    ("dequant_merge", {"threads": 128}),
+    ("dequant_merge_packed[wq]", {"constants": {"kColPairs": 16,
+                                                "kColWidth": 256}}),
+    ("dequant_merge_packed", {"constants": {"kRowUnits": 64}}),
+    ("dequant_merge[wq]", {"constants": {"kMergeBlocksPerSm": 8}}),
 ])
 def test_spec_out_of_step_with_its_source_drifts(label, change):
     spec = dataclasses.replace(_case(label), **change)
@@ -355,6 +401,13 @@ def test_lint_cases_cover_every_kernel_and_repeat_their_launchers():
     assert fa.design(150, 256, torch.float32) == "flash_simt"
     assert fa.design(16, 256, torch.bfloat16) == "flash_decode"
     assert build.grid_for(10 ** 9) == 132 * 16
+    # the merges: a persistent grid over the tiles (column tiles of wq: 2
+    # layers x 3 blocks x 4 row groups x 3 column chunks), w2 and the
+    # column tiles' scales in shared memory
+    assert _case("dequant_merge_packed[wq]").grid == (72, 1, 1)
+    assert _case("dequant_merge[wq]").smem == 4 * 4 * (1 + 256)
+    assert _case("dequant_merge").grid == (1, 1, 1)
+    assert _case("dequant_merge").smem == 4 * 2
     assert _case("quantize_int8").grid == (1, 1, 1)   # 8 blocks, 8 warps
 
 

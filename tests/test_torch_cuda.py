@@ -8,6 +8,7 @@ has no JAX:
     python -m pytest -q --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 import json
+import math
 
 import numpy as np
 import pytest
@@ -17,7 +18,8 @@ from repro_torch.config import HermesConfig, OptimizerConfig
 from repro_torch.dist import wire
 from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels.dequant_merge import (
-    dequant_merge_cuda, dequant_merge_packed_cuda,
+    dequant_merge_cuda, dequant_merge_group_cuda, dequant_merge_packed_cuda,
+    dequant_merge_packed_group_cuda,
 )
 from repro_torch.kernels.flash_attention import (
     decode_combine, design, flash_attention_cuda, flash_attention_plain,
@@ -63,9 +65,17 @@ def _scalars(card, n_pods, any_push, seed):
     return w1, w2, w1 + w2.sum(), torch.tensor(any_push, device=card)
 
 
-@pytest.mark.parametrize("g_shape,n_pods", [
+# the merges' layouts: row tiles (blocked on the last axis) whole and with
+# a tail, column tiles (a middle blocked axis) at lm100m's wq (inner 768)
+# and with an inner extent that is not a multiple of 4, int8 pod strides
+# that are not multiples of 4 or 16 ((3, 301): 903 bytes), 8 pods
+MERGE_CASES = [
     ((4, 512), 2), ((3, 300), 3), ((2, 768, 5), 4), ((700,), 1), ((5, 64), 3),
-])
+    ((2, 768, 12, 64), 4), ((2, 512, 3), 3), ((3, 301), 2), ((6, 1024), 8),
+]
+
+
+@pytest.mark.parametrize("g_shape,n_pods", MERGE_CASES)
 @pytest.mark.parametrize("any_push", [True, False])
 def test_dequant_merge_packed_kernel_bitwise(card, g_shape, n_pods, any_push):
     gen = torch.Generator(device=card).manual_seed(1)
@@ -79,12 +89,14 @@ def test_dequant_merge_packed_kernel_bitwise(card, g_shape, n_pods, any_push):
     want = ref.dequant_merge_packed_ref(g, pay["q_packed"], pay["scales"], w2,
                                         denom, push, axis=ax)
     assert torch.equal(got, want)
+    # the canonical payload (the tail re-paired into a whole block) too
+    canon = ref.canonicalize_packed_ref(pay["q_packed"], g.shape[ax - 1],
+                                        axis=ax).contiguous()
+    assert torch.equal(dequant_merge_packed_cuda(
+        g, canon, pay["scales"], w2, denom, push, axis=ax), want)
 
 
-@pytest.mark.parametrize("g_shape,n_pods", [
-    ((4, 512), 2), ((3, 300), 3), ((2, 768, 5), 4), ((700,), 1), ((5, 64), 3),
-    ((512, 300), 3),
-])
+@pytest.mark.parametrize("g_shape,n_pods", MERGE_CASES + [((512, 300), 3)])
 @pytest.mark.parametrize("any_push", [True, False])
 def test_dequant_merge_kernel_bitwise(card, g_shape, n_pods, any_push):
     gen = torch.Generator(device=card).manual_seed(5)
@@ -98,6 +110,95 @@ def test_dequant_merge_kernel_bitwise(card, g_shape, n_pods, any_push):
     want = ref.dequant_merge_ref(g, pay["q"], pay["scales"], w2, denom, push,
                                  axis=ax)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("g_shape,n_pods", [((4, 512), 2), ((2, 768, 5), 3),
+                                            ((2, 256, 8), 4)])
+def test_merge_kernels_take_unaligned_views(card, g_shape, n_pods):
+    """``g`` and the payloads start one element off their vector
+    alignment, so the kernels take their scalar path."""
+    gen = torch.Generator(device=card).manual_seed(9)
+    n = math.prod(g_shape)
+    g = torch.randn(n + 1, generator=gen, device=card)[1:].view(g_shape)
+    delta = torch.randn((n_pods,) + g_shape, generator=gen, device=card)
+    ax = wire.block_axis((n_pods,) + g_shape)
+    _, w2, denom, push = _scalars(card, n_pods, True, 10)
+    for name, kern, plain in (
+            ("int8", dequant_merge_cuda, ref.dequant_merge_ref),
+            ("int4", dequant_merge_packed_cuda,
+             ref.dequant_merge_packed_ref)):
+        pay = wire.get_format(name).encode(delta, key=(0, 0))
+        q = pay["q" if name == "int8" else "q_packed"]
+        buf = torch.empty(q.numel() + 1, dtype=torch.int8, device=card)
+        qv = buf[1:].view(q.shape)
+        qv.copy_(q)
+        got = kern(g, qv, pay["scales"], w2, denom, push, axis=ax)
+        assert torch.equal(got, plain(g, q, pay["scales"], w2, denom, push,
+                                      axis=ax)), name
+
+
+@pytest.mark.parametrize("any_push", [True, False])
+def test_grouped_merge_equals_plain_per_leaf(card, any_push):
+    """One grouped call over a mixed tree (row tiles whole and with tails,
+    column tiles, an unaligned inner extent) is one launch per format and
+    equals the per-leaf plain versions bitwise."""
+    shapes = [(4, 512), (2, 512, 3), (3, 300), (12, 64), (2, 768, 4, 64),
+              (700,), (3, 301), (768,)]
+    n_pods = 4
+    gen = torch.Generator(device=card).manual_seed(11)
+    gs = [torch.randn(s, generator=gen, device=card) for s in shapes]
+    _, w2, denom, push = _scalars(card, n_pods, any_push, 12)
+    for name, group, plain in (
+            ("int8", dequant_merge_group_cuda, ref.dequant_merge_ref),
+            ("int4", dequant_merge_packed_group_cuda,
+             ref.dequant_merge_packed_ref)):
+        fmt = wire.get_format(name)
+        leaves = []
+        for i, g in enumerate(gs):
+            pay = fmt.encode(torch.randn((n_pods,) + g.shape, generator=gen,
+                                         device=card), key=(0, i))
+            leaves.append((g, pay["q" if name == "int8" else "q_packed"],
+                           pay["scales"],
+                           wire.block_axis((n_pods,) + g.shape)))
+        build.reset_launches()
+        got = group(leaves, w2, denom, push)
+        launches = dict(build.LAUNCHES)
+        kernel = "dequant_merge" if name == "int8" else "dequant_merge_packed"
+        assert launches[kernel] == 1, launches
+        for (g, q, sc, ax), out in zip(leaves, got):
+            assert torch.equal(out, plain(g, q, sc, w2, denom, push,
+                                          axis=ax)), (name, tuple(g.shape))
+
+
+def test_grouped_merge_splits_long_trees_and_checks_inputs(card):
+    """A tree of more leaves than a launch's parameters carry takes one
+    launch per ``GROUP_LEAVES``; mixed devices and pod counts raise."""
+    from repro_torch.kernels.dequant_merge import GROUP_LEAVES
+    n_pods, n = 2, GROUP_LEAVES + 5
+    gen = torch.Generator(device=card).manual_seed(13)
+    fmt = wire.get_format("int8")
+    leaves = []
+    for i in range(n):
+        g = torch.randn((3, 256 + i), generator=gen, device=card)
+        pay = fmt.encode(torch.randn((n_pods,) + g.shape, generator=gen,
+                                     device=card))
+        leaves.append((g, pay["q"], pay["scales"], 2))
+    _, w2, denom, push = _scalars(card, n_pods, True, 14)
+    build.reset_launches()
+    got = dequant_merge_group_cuda(leaves, w2, denom, push)
+    assert build.LAUNCHES["dequant_merge"] == 2
+    for (g, q, sc, ax), out in zip(leaves, got):
+        assert torch.equal(out, ref.dequant_merge_ref(g, q, sc, w2, denom,
+                                                      push, axis=ax))
+    g, q, sc, ax = leaves[0]
+    with pytest.raises(ValueError, match="one card"):
+        dequant_merge_group_cuda([(g, q.cpu(), sc, ax)], w2, denom, push)
+    with pytest.raises(ValueError, match="pods"):
+        dequant_merge_group_cuda([leaves[0], (g, q[:1], sc[:1], ax)], w2,
+                                 denom, push)
+    with pytest.raises(ValueError, match="pod axis"):
+        dequant_merge_group_cuda([(g, q, sc, 0)], w2, denom, push)
+    assert build.LAUNCHES["dequant_merge"] == 2
 
 
 @pytest.mark.parametrize("n", [1, 256, 1000, 25617, 70000])
@@ -431,14 +532,25 @@ def _spec_inputs(spec, card):
         return lambda: loss_weighted_update_cuda(gl, pods, denom - 0.8, w2,
                                                  denom, push)
     if name in ("dequant_merge", "dequant_merge_packed"):
-        gl = randn(*g)
+        # a leaf the kernel walks as the spec's does: (units, 256) blocked
+        # on its last axis (row tiles), or (outer*nb, 256, inner) blocked
+        # on the middle one (column tiles)
+        P = shapes["scal"][0] - 2
+        if len(shapes["g"]) == 2:
+            gshape, ax = shapes["g"], 2
+        else:
+            gshape, ax = (shapes["g"][0] // 2, 256, shapes["g"][2]), 2
+        gl = randn(*gshape)
+        q = torch.randint(-7, 8, (P,) + gshape, generator=gen, device=card,
+                          dtype=torch.int8)
+        sc = randn(P, gshape[0], 1, *gshape[2:]).abs()
+        w2 = torch.rand(P, generator=gen, device=card)
         if name == "dequant_merge":
-            pay = wire.get_format("int8").encode(randn(2, *g))
-            return lambda: dequant_merge_cuda(gl, pay["q"], pay["scales"], w2,
-                                              denom, push)
-        pay = wire.get_format("int4").encode(randn(2, *g), key=(0, 0))
-        return lambda: dequant_merge_packed_cuda(
-            gl, pay["q_packed"], pay["scales"], w2, denom, push)
+            return lambda: dequant_merge_cuda(gl, q, sc, w2, denom, push,
+                                              axis=ax)
+        qp = ref.pack_nibbles_ref(q, axis=ax)
+        return lambda: dequant_merge_packed_cuda(gl, qp, sc, w2, denom, push,
+                                                 axis=ax)
     if name in ("flash_simt", "flash_decode", "flash_prefill"):
         dt = getattr(torch, spec.operands[0].dtype)
         q, k, v = (randn(*shapes[n]).to(dt) for n in ("q", "k", "v"))
