@@ -38,7 +38,8 @@ Phases (any failure raises and the script exits nonzero):
    the plain version's; WKV6 at rwkv6-3b prefill and decode; the RG-LRU
    at recurrentgemma-2b prefill and decode, bitwise), timed beside the
    plain version, the bound and, for attention, one
-   ``scaled_dot_product_attention`` call;
+   ``scaled_dot_product_attention`` call: the card's own time per call
+   (``device_ms``), with the wall time of back-to-back calls beside it;
 7. ``serve`` at lm100m (batch 8, prompt 512, 64 new tokens), at rwkv6-3b
    (all 32 layers, bf16, batch 4, prompt 256, 32 new tokens) and at
    recurrentgemma-2b (all 26 layers, bf16, batch 4, prompt 2560, 32 new
@@ -272,7 +273,11 @@ def serving_kernels(torch, dev, results) -> None:
     shapes, against their plain versions, timed."""
     from repro_torch.kernels.flash_attention import (
         design, flash_attention_cuda, flash_attention_plain, visible)
+    from repro_torch.kernels.rglru_scan import grid as rglru_grid
     from repro_torch.kernels.rglru_scan import rglru_cuda, rglru_plain
+    from repro_torch.kernels.rglru_scan import (
+        vector_path as rglru_vector_path)
+    from repro_torch.kernels.rwkv6_scan import plan as wkv6_plan
     from repro_torch.kernels.rwkv6_scan import wkv6_cuda, wkv6_plain
     sdpa = torch.nn.functional.scaled_dot_product_attention
     gen = torch.Generator(device=dev).manual_seed(13)
@@ -443,23 +448,29 @@ def serving_kernels(torch, dev, results) -> None:
         flops = 7 * D * D * B * H * T
         moved = 3 * r.numel() * 2 + log_w.numel() * 4 + u.numel() * 4 \
             + y.numel() * 2 + 2 * s0.numel() * 4
-        ms = time_ms(torch, lambda: wkv6_cuda(r, k, v, log_w, u, s0),
-                     reps=20)
+        # ms: the card's own time per call (device_ms); the wall time of
+        # back-to-back calls beside it (at T 1 the host's issue of each)
+        ms = device_ms(torch, lambda: wkv6_cuda(r, k, v, log_w, u, s0))
+        wall_ms = time_ms(torch, lambda: wkv6_cuda(r, k, v, log_w, u, s0),
+                          reps=20)
         plain_ms = time_ms(torch, lambda: wkv6_plain(r, k, v, log_w, u, s0),
                            reps=3, warmup=1)
         entry = kernel_entry("wkv6", max(err_y, err_s), ms, plain_ms, flops,
                              moved, (r.dtype, log_w.dtype), None)
+        entry["wall_ms"] = wall_ms
         timed[label] = entry
-        log(f"    wkv6 {label:18s} y err {err_y:.2e} (max |y| "
-            f"{scale_y:.3g})  state err {err_s:.2e}  kernel {ms:8.4f} ms  "
-            f"plain {plain_ms:8.3f} ms  bound {entry['bound_ms']:.4f} ms "
-            f"({entry['bound_by']}; {flops / 1e9:.3f} GFLOP, "
-            f"{moved / 1e6:.2f} MB)  {entry['bound_ms'] / ms:6.1%} of the "
-            f"bound")
+        pl = wkv6_plan(D, T)
+        log(f"    wkv6 {label:18s} [{B * H * pl.blocks} blocks of "
+            f"{pl.threads}, {pl.keys} keys a block] y err {err_y:.2e} (max "
+            f"|y| {scale_y:.3g})  state err {err_s:.2e}  kernel {ms:8.4f} ms "
+            f"(wall {wall_ms:.4f})  plain {plain_ms:8.3f} ms  bound "
+            f"{entry['bound_ms']:.4f} ms ({entry['bound_by']}; "
+            f"{flops / 1e9:.3f} GFLOP, {moved / 1e6:.2f} MB)  "
+            f"{entry['bound_ms'] / ms:6.1%} of the bound")
     main_entry = dict(timed["rwkv6-3b prefill"])
     main_entry["max_abs_err"] = worst
     main_entry["decode"] = {key: timed["rwkv6-3b decode"][key]
-                            for key in keys}
+                            for key in keys + ("wall_ms",)}
     results["wkv6"] = main_entry
     torch.cuda.empty_cache()
 
@@ -485,19 +496,24 @@ def serving_kernels(torch, dev, results) -> None:
         flops = 2 * B * T * W
         moved = (a.numel() + b.numel() + y.numel() + h0.numel()
                  + hT.numel()) * 4
-        ms = time_ms(torch, lambda: rglru_cuda(a, b, h0), reps=20)
+        ms = device_ms(torch, lambda: rglru_cuda(a, b, h0))
+        wall_ms = time_ms(torch, lambda: rglru_cuda(a, b, h0), reps=20)
         plain_ms = time_ms(torch, lambda: rglru_plain(a, b, h0), reps=3,
                            warmup=1)
         entry = kernel_entry("rglru", 0.0, ms, plain_ms, flops, moved,
                              (a.dtype,), None)
+        entry["wall_ms"] = wall_ms
         timed[label] = entry
-        log(f"    rglru {label:12s} equal=True  kernel {ms:8.4f} ms  plain "
-            f"{plain_ms:8.3f} ms  bound {entry['bound_ms']:.4f} ms "
-            f"({entry['bound_by']}; {moved / 1e6:.2f} MB)  "
-            f"{entry['bound_ms'] / ms:6.1%} of the bound")
+        log(f"    rglru {label:12s} [{rglru_grid(B, W)} blocks, 16-byte "
+            f"copies {rglru_vector_path(W, a, b)}] equal=True  kernel "
+            f"{ms:8.4f} ms (wall {wall_ms:.4f})  plain {plain_ms:8.3f} ms  "
+            f"bound {entry['bound_ms']:.4f} ms ({entry['bound_by']}; "
+            f"{moved / 1e6:.2f} MB)  {entry['bound_ms'] / ms:6.1%} of the "
+            f"bound")
         del a, b, h0, y, hT, y_ref, hT_ref
     main_entry = dict(timed["rg prefill"])
-    main_entry["decode"] = {key: timed["rg decode"][key] for key in keys}
+    main_entry["decode"] = {key: timed["rg decode"][key]
+                            for key in keys + ("wall_ms",)}
     results["rglru"] = main_entry
     torch.cuda.empty_cache()
 

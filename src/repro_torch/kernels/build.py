@@ -64,9 +64,11 @@ LIBRARIES = {
                          _I32, _I32, _I32, _I32, _I32, _I32, _I32, _I32,
                          _I32, _F32, _P),
         "flash_decode_combine": (_P, _P, _P, _I32, _I32, _I32, _I32, _P),
+        # ..., dtype, B, T, H, D, keys a block
         "wkv6": (_P, _P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32,
-                 _I32, _P),
-        "rglru": (_P, _P, _P, _P, _P, _I32, _I32, _I32, _P),
+                 _I32, _I32, _P),
+        # ..., B, T, W, vec
+        "rglru": (_P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _P),
     },
     "attention_kernels": {
         "flash_prefill": (_P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32,

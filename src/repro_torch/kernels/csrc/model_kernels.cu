@@ -14,9 +14,12 @@
 // arithmetic on the CUDA cores.
 
 #include <climits>
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -932,122 +935,507 @@ int combine_by_dim(const void* part_ml, const void* part_acc, void* out,
 // (B, H, T/64) with the chunk axis sequential and the state in VMEM).
 //
 // The exact recurrence of kernels/ref.py:wkv6_ref, step by step:
-//   y_t[j] = sum_i r_t[i] (S[i][j] + u[i] k_t[i] v_t[j])
+//   y_t[j] = sum_i r_t[i] S[i][j] + v_t[j] sum_i r_t[i] u[i] k_t[i]
 //   S[i][j] = exp(log_w_t[i]) S[i][j] + k_t[i] v_t[j]
-// The TPU kernel's chunked matmul form clamps each cumulative log-decay to
+// (the bonus term u k^T v summed once a step as a scalar times v[j]).  The
+// TPU kernel's chunked matmul form clamps each cumulative log-decay to
 // +-30 on its own, which is wrong once the decay is strong; a step loop has
-// no exponent to clamp.  One block per (b, h) with 4*D threads: thread
-// (j, part) keeps the state column S[i][j] for the D/4 keys i = part + 4n
-// in registers (16 floats at D 64), so the (D, D) state never leaves the
-// SM, and four lanes side by side sum y_t[j] with two shuffles.  The keys
-// interleave by 4 so the four parts of a warp read four banks of the
-// step's r, k and w rows.  16 steps of r, k, v and w = exp(log_w) are
-// staged in shared memory at a time (one barrier pair per 16 steps).
+// no exponent to clamp.
 //
-// Bound: at rwkv6-3b prefill (B 4, T 256, 40 heads of 64) a step costs
-// 7*D*D FLOPs per (b, h), 1.17 GFLOP a layer (1.2 us at the 989 TFLOP/s
-// bf16 peak of its bf16 inputs; 18 us at the fp32 rate this kernel
-// computes at), against 36.7 MB of r, k, v (bf16), log_w (fp32), y and
-// the two states (11 us at 3.35 TB/s): bytes bound it.  The steps of one
-// head are sequential, and only B*H = 160 blocks of 8 warps exist, so
-// latency, not either bound, is expected to set the time.  At T = 1 (decode) the states'
-// 5.2 MB dominate: bytes bound it.
+// Bound: at rwkv6-3b prefill (B 4, T 256, 40 heads of 64) r, k, v (bf16),
+// log_w (fp32), y and the two states are 36.7 MB, 11 us at 3.35 TB/s,
+// against 1.2 us of operations at the bf16 rate of its inputs: bytes bound
+// it.  The arithmetic runs in fp32 on the CUDA cores: 3 D*D FMAs a step
+// and head, 0.50 G instructions a layer, 15 us of the card's fp32 issue,
+// so issue, not bytes, is what a design can reach.  At T = 1 (decode) the
+// states' 5.2 MB dominate.
+//
+// Design, point by point: what holds the scan back, what the kernel does:
+// 1. More blocks.  In prefill a head's (D, D) state is split across a
+//    cluster of NS = D / kWkvKeys blocks by KEYS (rows i), kWkvKeys = 16
+//    a block: 640 blocks of 64 threads at rwkv6-3b, ~4.8 an SM, all
+//    resident at once.  Not by value columns: a block owning 16 of 64
+//    columns would read and write the row-major state in 64-byte pieces
+//    and y in 32-byte pieces, below the 128-byte rows the tile lint holds
+//    every kernel to; a block owning 16 keys owns whole state rows.  The
+//    sum over keys that y needs is taken across the cluster in
+//    distributed shared memory: each block writes its partial y rows to
+//    its shared memory, and after the cluster barrier block q sums rows
+//    q, q + NS, ... over the NS blocks in rank order and writes them whole.
+// 2. Register blocking.  Thread (g, p) holds kWkvCols = 4 adjacent columns
+//    4g.. of its run of NI = 4 keys (2 at D 16): one float4 read each of
+//    the step's r, k, w and r u k rows feeds 16 FMAs, and one float4 of v.
+//    The P = 4 threads of a column group are adjacent lanes; they sum y
+//    with a reduce-scatter (3 shuffles) that leaves each lane one column.
+//    A quarter-warp reads 64 consecutive bytes: no bank conflict.  Two
+//    lanes a column group (8 keys a thread, fewer shuffles) measured 23%
+//    slower on the H100: half the warps to hide latency.
+// 3. Staging overlaps compute.  Each block copies whole rows of r, k, v
+//    and log_w, kWkvSteps = 16 steps a slot, into a ring of kWkvSlots = 2
+//    slots with 16-byte cp.async, two chunks ahead.  A chunk is converted
+//    once to fp32 rows of the block's keys (w = exp(log_w), q = r u k) and
+//    of v, every shared load of the conversion before any store.  A whole
+//    chunk's steps are unrolled with their partial y in registers until
+//    the end, so no shared store orders one step's loads after the last.
+//    The cluster barrier is split: a block arrives after its partial y of
+//    chunk c and converts chunk c + 1 before it waits and sums chunk c.
+//    The arrive's release fence costs ~700 cycles a chunk (clock64, one
+//    block).  Stepping chunk c + 1 before the wait as well (three
+//    partial-y buffers, 41 KB a block) was faster at B 1 and 2 but took
+//    1.4x the time at rwkv6-3b's B 4, with or without the max-shared
+//    carveout: likely not all 160 clusters of four resident at once.
+// 4. Decode (T 1): no ring.  One block a head holds all D keys (64
+//    threads of 16 keys at D 64: each warp's state reads and writes are
+//    whole 128-byte rows; with 32- or 64-byte pieces decode took 1.7x or
+//    1.2x the card time); each key's r, k, w and q are computed once into
+//    shared rows, and the state is read and written as float4 along j.
 // ---------------------------------------------------------------------------
 
-constexpr int kWkvSplit = 4;
-constexpr int kWkvSteps = 16;
+constexpr int kWkvKeys = 16;   // keys a block holds in prefill
+constexpr int kWkvCols = 4;    // adjacent value columns a thread holds
+constexpr int kWkvSteps = 16;  // steps a ring slot holds
+constexpr int kWkvSlots = 2;   // ring slots
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kWkvSplit * D)
+// keys a thread holds (NI): at most 16, a quarter of the block's keys
+// (four lanes a column group), fewer where a block would fall below a warp;
+// and the threads of a block holding KB keys
+__host__ __device__ constexpr int wkv_min(int a, int b) {
+  return a < b ? a : b;
+}
+template <int D, int KB>
+__host__ __device__ constexpr int wkv_run() {
+  return wkv_min(16, wkv_min(KB / 4, KB * D / 128));
+}
+template <int D, int KB>
+__host__ __device__ constexpr int wkv_threads() {
+  return D / kWkvCols * (KB / wkv_run<D, KB>());
+}
+// dynamic shared bytes: in decode the r, k, w, q rows of a head; in
+// prefill u, two buffers of partial y rows, the fp32 rows of the block's
+// keys and of v, and the ring
+template <typename T, int D, int KB>
+constexpr int wkv_smem_bytes(bool decode) {
+  return decode ? 16 * D
+                : 4 * D + 2 * kWkvSteps * D * 4 +
+                      kWkvSteps * (4 * KB + D) * 4 +
+                      kWkvSlots * kWkvSteps * D *
+                          (3 * static_cast<int>(sizeof(T)) + 4);
+}
+
+__device__ __forceinline__ float4 wkv_load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 wkv_load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+__device__ __forceinline__ void wkv_store4(float* p, float4 x) {
+  *reinterpret_cast<float4*>(p) = x;
+}
+// round to nearest even, as torch's .to(torch.bfloat16)
+__device__ __forceinline__ void wkv_store4(__nv_bfloat16* p, float4 x) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(x.x, x.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(x.z, x.w);
+  uint2 u;
+  u.x = *reinterpret_cast<const unsigned*>(&lo);
+  u.y = *reinterpret_cast<const unsigned*>(&hi);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
+// the cluster barrier in two halves: arrive (release: this block's shared
+// writes are visible to the cluster), then wait (acquire)
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// the column (0-3 of its group) a lane holds after wkv_step's reduce
+__device__ __forceinline__ int wkv_col(int p) {
+  return 2 * (p & 1) + ((p >> 1) & 1);
+}
+
+// One step for the NI x 4 state entries of a thread: y's partial sums over
+// its keys, the state update, and the sum over the P lanes of its column
+// group, reduce-scattered so that lane p ends with column wkv_col(p).
+template <int NI, int P>
+__device__ __forceinline__ float wkv_step(float (&st)[NI][kWkvCols],
+                                          const float* rr, const float* kk,
+                                          const float* ww, const float* qq,
+                                          float4 v4, int p) {
+  const float vv[kWkvCols] = {v4.x, v4.y, v4.z, v4.w};
+  float bonus = 0.f;
+#pragma unroll
+  for (int n = 0; n < NI; ++n) bonus += qq[n];
+  float acc[kWkvCols];
+#pragma unroll
+  for (int c = 0; c < kWkvCols; ++c) acc[c] = vv[c] * bonus;
+#pragma unroll
+  for (int n = 0; n < NI; ++n) {
+#pragma unroll
+    for (int c = 0; c < kWkvCols; ++c) {
+      acc[c] = fmaf(rr[n], st[n][c], acc[c]);
+      st[n][c] = fmaf(ww[n], st[n][c], kk[n] * vv[c]);
+    }
+  }
+  const bool b0 = p & 1, b1 = (p >> 1) & 1;
+  float k0 = b0 ? acc[2] : acc[0], k1 = b0 ? acc[3] : acc[1];
+  const float s0 = b0 ? acc[0] : acc[2], s1 = b0 ? acc[1] : acc[3];
+  k0 += __shfl_xor_sync(0xffffffffu, s0, 1);
+  k1 += __shfl_xor_sync(0xffffffffu, s1, 1);
+  float col = b1 ? k1 : k0;
+  col += __shfl_xor_sync(0xffffffffu, b1 ? k0 : k1, 2);
+#pragma unroll
+  for (int m = 4; m < P; m *= 2) col += __shfl_xor_sync(0xffffffffu, col, m);
+  return col;
+}
+
+// NI consecutive values as floats (16-byte vectors where NI % 4 == 0)
+template <int NI, typename T>
+__device__ __forceinline__ void wkv_load_run(const T* p, float* x) {
+  if constexpr (NI % 4 == 0) {
+#pragma unroll
+    for (int m = 0; m < NI / 4; ++m) {
+      const float4 a = wkv_load4(p + 4 * m);
+      x[4 * m] = a.x;
+      x[4 * m + 1] = a.y;
+      x[4 * m + 2] = a.z;
+      x[4 * m + 3] = a.w;
+    }
+  } else {
+#pragma unroll
+    for (int m = 0; m < NI; ++m) x[m] = to_f32(p[m]);
+  }
+}
+
+// Grid: B * H * (D / KB) blocks in clusters of D / KB (one head each).
+template <typename T, int D, int KB>
+__global__ void __launch_bounds__((wkv_threads<D, KB>()))
 wkv6_kernel(const T* __restrict__ r, const T* __restrict__ k,
             const T* __restrict__ v, const float* __restrict__ log_w,
             const float* __restrict__ u, const float* __restrict__ s0,
             T* __restrict__ y, float* __restrict__ sT, int Tn, int H) {
-  constexpr int NI = D / kWkvSplit;  // keys per thread
-  constexpr int NT = kWkvSplit * D;
-  __shared__ float rs[kWkvSteps][D], ks[kWkvSteps][D], vs[kWkvSteps][D],
-      ws[kWkvSteps][D];
-  const int tid = threadIdx.x;
-  const int j = tid / kWkvSplit, part = tid % kWkvSplit;
-  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  constexpr int NI = wkv_run<D, KB>();
+  constexpr int P = KB / NI;           // lanes of a column group
+  constexpr int NT = wkv_threads<D, KB>();
+  constexpr int NS = D / KB;           // blocks of a head: the cluster
+  constexpr int STEPS = kWkvSteps;
+  constexpr int Q4 = D / 4;            // float4s of a row
+  extern __shared__ __align__(16) float wkv_smem[];
+  float* us = wkv_smem;                // u[h]: D
+  float* yt = us + D;                  // partial y: [2][STEPS][D]
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tid = threadIdx.x, p = tid % P, g = tid / P;
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int bh = blockIdx.x / NS, b = bh / H, h = bh % H;
+  const int kb0 = rank * KB;           // the block's first key
+  const int key0 = kb0 + p * NI;       // the thread's first key
+  const int col0 = g * kWkvCols;       // the thread's first column
+  float st[NI][kWkvCols];
   const size_t sbase = static_cast<size_t>(bh) * D * D;
-
-  float S[NI], uu[NI];
 #pragma unroll
   for (int n = 0; n < NI; ++n) {
-    const int i = part + kWkvSplit * n;
-    S[n] = s0[sbase + static_cast<size_t>(i) * D + j];
-    uu[n] = u[h * D + i];
+    const float4 x = *reinterpret_cast<const float4*>(
+        s0 + sbase + static_cast<size_t>(key0 + n) * D + col0);
+    st[n][0] = x.x;
+    st[n][1] = x.y;
+    st[n][2] = x.z;
+    st[n][3] = x.w;
   }
+  auto store_state = [&] {
+#pragma unroll
+    for (int n = 0; n < NI; ++n) {
+      *reinterpret_cast<float4*>(sT + sbase +
+                                 static_cast<size_t>(key0 + n) * D + col0) =
+          make_float4(st[n][0], st[n][1], st[n][2], st[n][3]);
+    }
+  };
 
-  for (int t0 = 0; t0 < Tn; t0 += kWkvSteps) {
-    const int nt = min(kWkvSteps, Tn - t0);
-    __syncthreads();  // the previous steps' readers are done
-    for (int idx = tid; idx < nt * D; idx += NT) {
-      const int tt = idx / D, c = idx % D;
-      const size_t off =
-          ((static_cast<size_t>(b) * Tn + t0 + tt) * H + h) * D + c;
-      rs[tt][c] = to_f32(r[off]);
-      ks[tt][c] = to_f32(k[off]);
-      vs[tt][c] = to_f32(v[off]);
-      ws[tt][c] = expf(log_w[off]);
+  if (Tn == 1) {
+    // decode: a head in one block (NS 1, the launcher's check), no ring:
+    // each key's r, k, w = exp(log_w) and q = r u k once into shared rows,
+    // then each thread's run of them
+    float* dk = wkv_smem;  // [4][D]
+    const size_t row = static_cast<size_t>(bh) * D;  // (b, 0, h)
+    for (int i = tid; i < D; i += NT) {
+      const float rv = to_f32(r[row + i]), kv = to_f32(k[row + i]);
+      dk[i] = rv;
+      dk[D + i] = kv;
+      dk[2 * D + i] = expf(log_w[row + i]);
+      dk[3 * D + i] = rv * u[h * D + i] * kv;
     }
     __syncthreads();
-    for (int tt = 0; tt < nt; ++tt) {
-      const float vj = vs[tt][j];
-      float acc = 0.f;
-#pragma unroll
-      for (int n = 0; n < NI; ++n) {
-        const int i = part + kWkvSplit * n;
-        const float kv = ks[tt][i] * vj;
-        acc = fmaf(rs[tt][i], fmaf(uu[n], kv, S[n]), acc);
-        S[n] = fmaf(ws[tt][i], S[n], kv);
-      }
-      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-      acc += __shfl_xor_sync(0xffffffffu, acc, 2);
-      if (part == 0) {
-        y[((static_cast<size_t>(b) * Tn + t0 + tt) * H + h) * D + j] =
-            from_f32<T>(acc);
-      }
-    }
+    float rr[NI], kk[NI], ww[NI], qq[NI];
+    wkv_load_run<NI>(dk + key0, rr);
+    wkv_load_run<NI>(dk + D + key0, kk);
+    wkv_load_run<NI>(dk + 2 * D + key0, ww);
+    wkv_load_run<NI>(dk + 3 * D + key0, qq);
+    const float4 v4 = wkv_load4(v + row + col0);
+    const float yv = wkv_step<NI, P>(st, rr, kk, ww, qq, v4, p);
+    if (p < 4) y[row + col0 + wkv_col(p)] = from_f32<T>(yv);
+    store_state();
+    return;
   }
 
+  if constexpr (KB == kWkvKeys) {  // prefill: the launcher's check
+    const float* yq[NS];                 // every block's partial y
 #pragma unroll
-  for (int n = 0; n < NI; ++n) {
-    const int i = part + kWkvSplit * n;
-    sT[sbase + static_cast<size_t>(i) * D + j] = S[n];
+    for (int q = 0; q < NS; ++q) yq[q] = cluster.map_shared_rank(yt, q);
+    for (int i = tid; i < D; i += NT) us[i] = u[h * D + i];
+
+    // sum rows q, q + NS, ... of the chunk's partial y over the cluster, in
+    // rank order, and write them (nt rows from step t0)
+    auto reduce_rows = [&](const int buf, const int t0, const int nt) {
+      const int off = buf * STEPS * D;
+      for (int e = tid; e < STEPS / NS * Q4; e += NT) {
+        const int tt = rank + NS * (e / Q4), j = 4 * (e % Q4);
+        if (tt < nt) {
+          float sum[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+          for (int q = 0; q < NS; ++q) {
+            const float4 x =
+                *reinterpret_cast<const float4*>(yq[q] + off + tt * D + j);
+            sum[0] += x.x;
+            sum[1] += x.y;
+            sum[2] += x.z;
+            sum[3] += x.w;
+          }
+          wkv_store4(
+              y + (static_cast<size_t>(b * Tn + t0 + tt) * H + h) * D + j,
+              make_float4(sum[0], sum[1], sum[2], sum[3]));
+        }
+      }
+    };
+
+    // shared memory past the partial y: fp32 rows of the block's keys
+    // (r, k, w, q: [STEPS][KB] each) and of v ([STEPS][D]), then the ring
+    float* rf = yt + 2 * STEPS * D;
+    float* kf = rf + STEPS * KB;
+    float* wf = kf + STEPS * KB;
+    float* qf = wf + STEPS * KB;
+    float* vf = qf + STEPS * KB;
+    // a slot: r, k, v rows in T, then log_w rows in fp32
+    constexpr int RT = STEPS * D * static_cast<int>(sizeof(T));
+    constexpr int SLOT = 3 * RT + STEPS * D * 4;
+    unsigned char* ring = reinterpret_cast<unsigned char*>(vf + STEPS * D);
+    constexpr int PT = D * static_cast<int>(sizeof(T)) / 16;  // 16-B pieces
+    constexpr int PF = D * 4 / 16;
+    const int nchunks = (Tn + STEPS - 1) / STEPS;
+    const size_t row0 = (static_cast<size_t>(b) * Tn * H + h) * D;  // t = 0
+    const size_t tstride = static_cast<size_t>(H) * D;
+
+    auto issue = [&](const int c) {
+      if (c < nchunks) {
+        const int t0 = c * STEPS, nt = min(STEPS, Tn - t0);
+        unsigned char* slot = ring + (c % kWkvSlots) * SLOT;
+#pragma unroll
+        for (int m = 0; m < (STEPS * PT + NT - 1) / NT; ++m) {
+          const int e = tid + m * NT, tt = e / PT, piece = 16 * (e % PT);
+          if (e < STEPS * PT && tt < nt) {
+            const size_t src = (row0 + (t0 + tt) * tstride) * sizeof(T);
+            const int dst = tt * D * static_cast<int>(sizeof(T)) + piece;
+            cp_async16(slot + dst,
+                       reinterpret_cast<const char*>(r) + src + piece, true);
+            cp_async16(slot + RT + dst,
+                       reinterpret_cast<const char*>(k) + src + piece, true);
+            cp_async16(slot + 2 * RT + dst,
+                       reinterpret_cast<const char*>(v) + src + piece, true);
+          }
+        }
+#pragma unroll
+        for (int m = 0; m < (STEPS * PF + NT - 1) / NT; ++m) {
+          const int e = tid + m * NT, tt = e / PF, piece = 16 * (e % PF);
+          if (e < STEPS * PF && tt < nt) {
+            cp_async16(slot + 3 * RT + tt * D * 4 + piece,
+                       reinterpret_cast<const char*>(
+                           log_w + row0 + (t0 + tt) * tstride) + piece,
+                       true);
+          }
+        }
+      }
+      cp_async_commit();
+    };
+
+    // the chunk in fp32, once: a thread takes one of the block's keys at
+    // E1 steps, and E2 float4s of v; every load before any store (the
+    // rows of a slot past the chunk's end hold stale values, converted and
+    // never read)
+    constexpr int E1 = STEPS * KB / NT, E2 = STEPS * Q4 / NT;
+    static_assert(NT % KB == 0 && STEPS * KB % NT == 0 &&
+                      STEPS * Q4 % NT == 0,
+                  "a thread converts whole rows' worth of one key and of v");
+    const int ckey = kb0 + tid % KB;
+    auto convert = [&](const int c) {
+      const unsigned char* slot = ring + (c % kWkvSlots) * SLOT;
+      const T* rs = reinterpret_cast<const T*>(slot);
+      const T* ks = reinterpret_cast<const T*>(slot + RT);
+      const T* vs = reinterpret_cast<const T*>(slot + 2 * RT);
+      const float* ls = reinterpret_cast<const float*>(slot + 3 * RT);
+      const float uk = us[ckey];
+      float rv[E1], kv[E1], lv[E1];
+      float4 vv[E2];
+#pragma unroll
+      for (int m = 0; m < E1; ++m) {
+        const int o = (tid / KB + m * (NT / KB)) * D + ckey;
+        rv[m] = to_f32(rs[o]);
+        kv[m] = to_f32(ks[o]);
+        lv[m] = ls[o];
+      }
+#pragma unroll
+      for (int m = 0; m < E2; ++m) {
+        const int e = tid + m * NT;
+        vv[m] = wkv_load4(vs + e / Q4 * D + 4 * (e % Q4));
+      }
+#pragma unroll
+      for (int m = 0; m < E1; ++m) {
+        const int e = tid + m * NT;
+        rf[e] = rv[m];
+        kf[e] = kv[m];
+        wf[e] = expf(lv[m]);
+        qf[e] = rv[m] * uk * kv[m];
+      }
+#pragma unroll
+      for (int m = 0; m < E2; ++m) {
+        const int e = tid + m * NT;
+        *reinterpret_cast<float4*>(vf + e / Q4 * D + 4 * (e % Q4)) = vv[m];
+      }
+    };
+    auto step = [&](const int tt) {
+      float rr[NI], kk[NI], ww[NI], qq[NI];
+      const int o = tt * KB + p * NI;
+      wkv_load_run<NI>(rf + o, rr);
+      wkv_load_run<NI>(kf + o, kk);
+      wkv_load_run<NI>(wf + o, ww);
+      wkv_load_run<NI>(qf + o, qq);
+      const float4 v4 = *reinterpret_cast<const float4*>(vf + tt * D + col0);
+      return wkv_step<NI, P>(st, rr, kk, ww, qq, v4, p);
+    };
+
+    issue(0);
+    issue(1);
+    cp_async_wait<kWkvSlots - 1>();  // chunk 0 has landed
+    __syncthreads();                 // and us is written
+    convert(0);
+    __syncthreads();
+    issue(kWkvSlots);
+    for (int c = 0; c < nchunks; ++c) {
+      const int t0 = c * STEPS, nt = min(STEPS, Tn - t0), buf = c & 1;
+      float* yb = yt + buf * STEPS * D + col0;
+      if (nt == STEPS) {
+        // a whole slot unrolled, its partial y kept in registers until
+        // the end: no shared store stands between one step's loads and
+        // the next, so steps overlap
+        float yv[STEPS];
+#pragma unroll
+        for (int tt = 0; tt < STEPS; ++tt) yv[tt] = step(tt);
+        if (p < 4) {
+#pragma unroll
+          for (int tt = 0; tt < STEPS; ++tt) yb[tt * D + wkv_col(p)] = yv[tt];
+        }
+      } else {
+        for (int tt = 0; tt < nt; ++tt) {
+          const float yv = step(tt);
+          if (p < 4) yb[tt * D + wkv_col(p)] = yv;
+        }
+      }
+      cluster_arrive();  // this block's partial y of chunk c is written
+      if (c + 1 < nchunks) {  // chunk c + 1 in fp32 while the cluster meets
+        cp_async_wait<kWkvSlots - 1>();  // chunk c + 1 has landed
+        __syncthreads();  // every warp is done with chunk c's fp32 rows
+        convert(c + 1);
+        __syncthreads();  // chunk c + 1's slot is free
+        issue(c + 1 + kWkvSlots);
+      }
+      cluster_wait();  // every block's partial y of chunk c is written
+      reduce_rows(buf, t0, nt);
+    }
+    store_state();
+    cluster.sync();  // no block leaves while another reads its partial y
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, int KB>
 int wkv6_launch(const void* r, const void* k, const void* v,
                 const void* log_w, const void* u, const void* s0, void* y,
                 void* sT, int B, int Tn, int H, cudaStream_t stream) {
-  wkv6_kernel<T, D><<<B * H, kWkvSplit * D, 0, stream>>>(
-      static_cast<const T*>(r), static_cast<const T*>(k),
+  constexpr int NS = D / KB;
+  if (Tn == 1 ? NS != 1 : KB != kWkvKeys)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int bytes = wkv_smem_bytes<T, D, KB>(Tn == 1);
+  auto kern = wkv6_kernel<T, D, KB>;
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid(static_cast<unsigned>(B * H * NS));
+  if (NS == 1) {  // a plain launch: a cluster of one costs launch time
+    kern<<<grid, wkv_threads<D, KB>(), bytes, stream>>>(
+        static_cast<const T*>(r), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const float*>(log_w),
+        static_cast<const float*>(u), static_cast<const float*>(s0),
+        static_cast<T*>(y), static_cast<float*>(sT), Tn, H);
+    return static_cast<int>(cudaGetLastError());
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(wkv_threads<D, KB>());
+  cfg.dynamicSmemBytes = static_cast<size_t>(bytes);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = NS;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, kern, static_cast<const T*>(r), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const float*>(log_w),
       static_cast<const float*>(u), static_cast<const float*>(s0),
       static_cast<T*>(y), static_cast<float*>(sT), Tn, H);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+// keys: the keys a block holds, kWkvKeys (prefill) or D (decode)
+template <typename T, int D>
+int wkv6_by_keys(const void* r, const void* k, const void* v,
+                 const void* log_w, const void* u, const void* s0, void* y,
+                 void* sT, int B, int Tn, int H, int keys,
+                 cudaStream_t stream) {
+  if (keys == kWkvKeys)
+    return wkv6_launch<T, D, kWkvKeys>(r, k, v, log_w, u, s0, y, sT, B, Tn,
+                                       H, stream);
+  if (keys == D)
+    return wkv6_launch<T, D, D>(r, k, v, log_w, u, s0, y, sT, B, Tn, H,
+                                stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <typename T>
 int wkv6_by_dim(const void* r, const void* k, const void* v,
                 const void* log_w, const void* u, const void* s0, void* y,
-                void* sT, int B, int Tn, int H, int D, cudaStream_t stream) {
+                void* sT, int B, int Tn, int H, int D, int keys,
+                cudaStream_t stream) {
   switch (D) {
     case 16:
-      return wkv6_launch<T, 16>(r, k, v, log_w, u, s0, y, sT, B, Tn, H,
-                                stream);
+      return wkv6_by_keys<T, 16>(r, k, v, log_w, u, s0, y, sT, B, Tn, H,
+                                 keys, stream);
     case 32:
-      return wkv6_launch<T, 32>(r, k, v, log_w, u, s0, y, sT, B, Tn, H,
-                                stream);
+      return wkv6_by_keys<T, 32>(r, k, v, log_w, u, s0, y, sT, B, Tn, H,
+                                 keys, stream);
     case 64:
-      return wkv6_launch<T, 64>(r, k, v, log_w, u, s0, y, sT, B, Tn, H,
-                                stream);
+      return wkv6_by_keys<T, 64>(r, k, v, log_w, u, s0, y, sT, B, Tn, H,
+                                 keys, stream);
     case 128:
-      return wkv6_launch<T, 128>(r, k, v, log_w, u, s0, y, sT, B, Tn, H,
-                                 stream);
+      return wkv6_by_keys<T, 128>(r, k, v, log_w, u, s0, y, sT, B, Tn, H,
+                                  keys, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1059,68 +1447,127 @@ int wkv6_by_dim(const void* r, const void* k, const void* v,
 //
 //   h_t[c] = a_t[c] * h_{t-1}[c] + b_t[c]    for every channel c = (b, w)
 //
-// The channels are independent, so one thread owns one channel and walks
-// T in order with h in a register; 64 threads a block, so B*W = 10,240
-// channels at recurrentgemma-2b make 160 blocks over the 132 SMs.  Loads
-// and stores are coalesced across w.  The loads of a and b do not depend
-// on h, so each thread keeps the next kLruSteps steps' a and b in flight
-// (loaded one chunk ahead) while it computes the current chunk.  The step
-// is __fmul_rn then __fadd_rn, never a contracted FMA, so the kernel equals
-// the plain version (a[:, t] * h + b[:, t], two torch ops) bit for bit.
-// The TPU kernel pads T with (a=1, b=0) and W to its tile; the guards here
-// need no padding.
-//
 // Bound: at recurrentgemma-2b prefill (B 4, T 2560, W 2560) a, b and y are
 // 3 x 104.9 MB fp32, 94 us at 3.35 TB/s, against 52 MFLOP: bytes bound
 // it.  Decode (T 1) moves 5 x 41 KB and is latency, not bandwidth.
+//
+// The channels are independent and each one's steps are in order, so the
+// kernel is a stream whose speed is the bytes it keeps in flight (Little's
+// law: 3.35 TB/s at ~1 us of latency wants ~25 KB an SM).  One warp a
+// block owns kLruChannels = 32 channels, one lane each, so every row it
+// reads or writes is one 128-byte line: 320 blocks at recurrentgemma-2b,
+// 2-3 an SM, all resident at once.  A ring of kLruStages = 4 slots of
+// kLruSteps = 32 steps x 32 channels of a and b in shared memory is filled
+// with 16-byte cp.async three slots ahead: 24 KB in flight a block, 48-72
+// KB an SM (a fifth slot measured slower).  16-channel blocks would spread
+// 640 blocks more evenly, but as 64-byte rows; with every block resident
+// and HBM shared, the SM with three blocks does not set the pace of a
+// stream.  A lane steps its channel through a slot and stores each h
+// straight to y, one 128-byte line a step for the warp (staging y in
+// shared memory for float4 stores measured 13% slower: one more barrier a
+// slot).  When W is not a multiple of 4 or a or b is not 16-byte aligned
+// (VEC false) the copies are 4-byte cp.async.  The step is __fmul_rn then
+// __fadd_rn, never a contracted FMA, so the kernel equals the plain
+// version (a[:, t] * h + b[:, t], two torch ops) bit for bit.  The TPU
+// kernel pads T with (a=1, b=0) and W to its tile; the guards here need no
+// padding.  Decode (T 1) reads a and b straight from global memory.
 // ---------------------------------------------------------------------------
 
-constexpr int kLruThreads = 64;
-constexpr int kLruSteps = 8;
+constexpr int kLruChannels = 32;
+constexpr int kLruSteps = 32;
+constexpr int kLruStages = 4;
 
-__global__ void __launch_bounds__(kLruThreads)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(kLruChannels)
 rglru_kernel(const float* __restrict__ a, const float* __restrict__ b,
              const float* __restrict__ h0, float* __restrict__ y,
              float* __restrict__ hT, int B, int Tn, int W) {
-  const long long c = static_cast<long long>(blockIdx.x) * kLruThreads +
-                      threadIdx.x;
-  if (c >= static_cast<long long>(B) * W) return;
-  const long long bi = c / W, w = c % W;
-  const size_t base = static_cast<size_t>(bi) * Tn * W + w;
-  float h = h0 != nullptr ? h0[c] : 0.f;
-
-  float av[kLruSteps], bv[kLruSteps];
-#pragma unroll
-  for (int u = 0; u < kLruSteps; ++u) {
-    const size_t off = base + static_cast<size_t>(u) * W;
-    av[u] = u < Tn ? a[off] : 1.f;
-    bv[u] = u < Tn ? b[off] : 0.f;
-  }
-  for (int t0 = 0; t0 < Tn; t0 += kLruSteps) {
-    // the next chunk's loads go out before this chunk's dependent steps
-    float an[kLruSteps], bn[kLruSteps];
-#pragma unroll
-    for (int u = 0; u < kLruSteps; ++u) {
-      const int t = t0 + kLruSteps + u;
-      const size_t off = base + static_cast<size_t>(t) * W;
-      an[u] = t < Tn ? a[off] : 1.f;
-      bn[u] = t < Tn ? b[off] : 0.f;
+  __shared__ __align__(16) float as[kLruStages][kLruSteps][kLruChannels];
+  __shared__ __align__(16) float bs[kLruStages][kLruSteps][kLruChannels];
+  constexpr int kPieces = kLruChannels / 4;  // float4s of a row
+  constexpr int kRowsAtOnce = kLruChannels / kPieces;
+  const int lane = threadIdx.x;
+  const long long nch = static_cast<long long>(B) * W;
+  const long long c0 = static_cast<long long>(blockIdx.x) * kLruChannels;
+  // this lane's channel, and its offset at step 0
+  const long long c = c0 + lane;
+  const bool live = c < nch;
+  const size_t base =
+      live ? static_cast<size_t>(c / W) * Tn * W + static_cast<size_t>(c % W)
+           : 0;
+  float h = (live && h0 != nullptr) ? h0[c] : 0.f;
+  if (Tn == 1) {
+    if (live) {
+      h = __fadd_rn(__fmul_rn(a[base], h), b[base]);
+      y[base] = h;
+      hT[c] = h;
     }
-#pragma unroll
-    for (int u = 0; u < kLruSteps; ++u) {
-      const int t = t0 + u;
-      if (t < Tn) {
-        h = __fadd_rn(__fmul_rn(av[u], h), bv[u]);
-        y[base + static_cast<size_t>(t) * W] = h;
+    return;
+  }
+  // the float4 piece this lane copies: channels cq .. cq + 3 (never across
+  // a batch row: W % 4 == 0 on this path), rows row0 + 4 j
+  const int q = lane % kPieces, row0 = lane / kPieces;
+  const long long cq = c0 + 4 * q;
+  const bool qlive = cq < nch;
+  const size_t qbase =
+      qlive ? static_cast<size_t>(cq / W) * Tn * W + static_cast<size_t>(cq % W)
+            : 0;
+  const int nchunks = (Tn + kLruSteps - 1) / kLruSteps;
+
+  auto issue = [&](const int ck) {
+    if (ck < nchunks) {
+      const int t0 = ck * kLruSteps, nt = min(kLruSteps, Tn - t0);
+      const int s = ck % kLruStages;
+      if constexpr (VEC) {
+        if (qlive) {
+          for (int tt = row0; tt < nt; tt += kRowsAtOnce) {
+            const size_t off = qbase + static_cast<size_t>(t0 + tt) * W;
+            cp_async16(&as[s][tt][4 * q], a + off, true);
+            cp_async16(&bs[s][tt][4 * q], b + off, true);
+          }
+        }
+      } else if (live) {
+        for (int tt = 0; tt < nt; ++tt) {
+          const size_t off = base + static_cast<size_t>(t0 + tt) * W;
+          cp_async4(&as[s][tt][lane], a + off);
+          cp_async4(&bs[s][tt][lane], b + off);
+        }
       }
     }
+    cp_async_commit();
+  };
+
+  for (int ck = 0; ck < kLruStages - 1; ++ck) issue(ck);
+  for (int ck = 0; ck < nchunks; ++ck) {
+    const int t0 = ck * kLruSteps, nt = min(kLruSteps, Tn - t0);
+    const int s = ck % kLruStages;
+    issue(ck + kLruStages - 1);  // into the slot chunk ck - 1 left
+    cp_async_wait<kLruStages - 1>();  // chunk ck has landed
+    __syncthreads();
+    // each step's h straight to y: the warp's 32 lanes store one 128-byte
+    // line a step
+    if (nt == kLruSteps) {
 #pragma unroll
-    for (int u = 0; u < kLruSteps; ++u) {
-      av[u] = an[u];
-      bv[u] = bn[u];
+      for (int tt = 0; tt < kLruSteps; ++tt) {
+        h = __fadd_rn(__fmul_rn(as[s][tt][lane], h), bs[s][tt][lane]);
+        if (live) y[base + static_cast<size_t>(t0 + tt) * W] = h;
+      }
+    } else {
+      for (int tt = 0; tt < nt; ++tt) {
+        h = __fadd_rn(__fmul_rn(as[s][tt][lane], h), bs[s][tt][lane]);
+        if (live) y[base + static_cast<size_t>(t0 + tt) * W] = h;
+      }
     }
+    __syncthreads();  // the slot is free for the copy ck + kLruStages
   }
-  hT[c] = h;
+  if (live) hT[c] = h;
 }
 
 }  // namespace
@@ -1186,30 +1633,41 @@ int launch_flash_decode_combine(const void* part_ml, const void* part_acc,
 }
 
 // dtype: 0 float32, 1 bfloat16 (r, k, v and y); log_w, u and the states
-// are float32
+// are float32; keys: the keys a block holds (rwkv6_scan.py:plan), 16 in
+// prefill (a cluster of D / 16 blocks a head) or D in decode
 int launch_wkv6(const void* r, const void* k, const void* v,
                 const void* log_w, const void* u, const void* s0, void* y,
-                void* sT, int dtype, int B, int Tn, int H, int D,
+                void* sT, int dtype, int B, int Tn, int H, int D, int keys,
                 cudaStream_t stream) {
   if (dtype == 0)
     return wkv6_by_dim<float>(r, k, v, log_w, u, s0, y, sT, B, Tn, H, D,
-                              stream);
+                              keys, stream);
   if (dtype == 1)
     return wkv6_by_dim<__nv_bfloat16>(r, k, v, log_w, u, s0, y, sT, B, Tn,
-                                      H, D, stream);
+                                      H, D, keys, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // a, b, y: (B, T, W) float32; h0 (may be null: zeros) and hT: (B, W)
-// float32
+// float32; vec: W % 4 == 0 and a, b 16-byte aligned (rglru_scan.py
+// decides), else 4-byte copies
 int launch_rglru(const void* a, const void* b, const void* h0, void* y,
-                 void* hT, int B, int Tn, int W, cudaStream_t stream) {
+                 void* hT, int B, int Tn, int W, int vec,
+                 cudaStream_t stream) {
   const long long channels = static_cast<long long>(B) * W;
-  const long long blocks = (channels + kLruThreads - 1) / kLruThreads;
-  rglru_kernel<<<static_cast<unsigned>(blocks), kLruThreads, 0, stream>>>(
-      static_cast<const float*>(a), static_cast<const float*>(b),
-      static_cast<const float*>(h0), static_cast<float*>(y),
-      static_cast<float*>(hT), B, Tn, W);
+  const unsigned blocks =
+      static_cast<unsigned>((channels + kLruChannels - 1) / kLruChannels);
+  const float* af = static_cast<const float*>(a);
+  const float* bf = static_cast<const float*>(b);
+  const float* hf = static_cast<const float*>(h0);
+  float* yf = static_cast<float*>(y);
+  float* tf = static_cast<float*>(hT);
+  if (vec)
+    rglru_kernel<true><<<blocks, kLruChannels, 0, stream>>>(af, bf, hf, yf,
+                                                            tf, B, Tn, W);
+  else
+    rglru_kernel<false><<<blocks, kLruChannels, 0, stream>>>(af, bf, hf, yf,
+                                                             tf, B, Tn, W);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -134,8 +134,9 @@ def kernel_lint_cases():
     2048-slot ring, bf16) and at lm100m decode (B 8, 12 heads of 64 on 4,
     fp32, a 640-slot cache: the 577 slots of the serve leave a ragged
     last split); the wgmma bf16 prefill at head dims 64 and 256.  WKV6
-    takes 32 steps (two staged chunks) of two heads of 64, the RG-LRU 16
-    steps of 128 channels (two blocks).
+    takes 32 steps (two ring slots) of two heads of 64 (a cluster of four
+    blocks each) and decode at batch 2; the RG-LRU 64 steps (two ring
+    slots) of 128 channels (four blocks) and decode.
     """
     pods, g, wq = 2, (4, 512), (2, 768, 12, 64)
     rg = ((4, 1, 10, 256), (4, 2048, 1, 256), "bfloat16")
@@ -165,5 +166,7 @@ def kernel_lint_cases():
         ("flash_prefill[D256]",
          _fa.launch_spec((1, 128, 2, 256), (1, 128, 1, 256), "bfloat16")),
         ("wkv6", _wkv.launch_spec((1, 32, 2, 64), "bfloat16")),
-        ("rglru", _lru.launch_spec((1, 16, 128))),
+        ("wkv6[decode]", _wkv.launch_spec((2, 1, 2, 64), "bfloat16")),
+        ("rglru", _lru.launch_spec((1, 64, 128))),
+        ("rglru[decode]", _lru.launch_spec((2, 1, 128))),
     ]

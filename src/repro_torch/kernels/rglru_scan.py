@@ -21,8 +21,10 @@ import torch
 
 from repro_torch.kernels import build
 
-THREADS = 64   # kLruThreads of csrc/model_kernels.cu: channels per block
-STEPS = 8      # kLruSteps: steps each thread loads ahead
+# constexprs of csrc/model_kernels.cu
+CHANNELS = 32  # kLruChannels: channels a block (one warp, one lane each)
+STEPS = 32     # kLruSteps: steps a ring slot holds
+STAGES = 4     # kLruStages: ring slots (three in flight)
 
 
 def rglru_plain(a: torch.Tensor, b: torch.Tensor,
@@ -39,8 +41,9 @@ def rglru_plain(a: torch.Tensor, b: torch.Tensor,
 
 def rglru_cuda(a: torch.Tensor, b: torch.Tensor,
                h0: Optional[torch.Tensor] = None):
-    """Launch the CUDA kernel: one thread per (batch, channel), walking T
-    in order with the state in a register."""
+    """Launch the CUDA kernel: one lane per (batch, channel), walking T
+    in order with the state in a register, a and b streamed through a
+    shared-memory ring."""
     B, T, W = a.shape
     ts = (("a", a), ("b", b)) + ((("h0", h0),) if h0 is not None else ())
     for name, t in ts:
@@ -61,24 +64,39 @@ def rglru_cuda(a: torch.Tensor, b: torch.Tensor,
     hT = torch.empty((B, W), dtype=torch.float32, device=a.device)
     build.launch("rglru", a.device, a.data_ptr(), b.data_ptr(),
                  0 if h0 is None else h0.data_ptr(), y.data_ptr(),
-                 hT.data_ptr(), B, T, W)
+                 hT.data_ptr(), B, T, W, int(vector_path(W, a, b)))
     return y, hT
+
+
+def grid(B: int, W: int) -> int:
+    """Blocks of ``launch_rglru``: ``CHANNELS`` of the B * W channels
+    each."""
+    return -(-B * W // CHANNELS)
+
+
+def vector_path(W: int, *tensors: torch.Tensor) -> bool:
+    """Whether the kernel copies a and b in 16-byte pieces: W a multiple
+    of 4 and both 16-byte aligned; else in 4-byte pieces."""
+    return W % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def launch_spec(shape) -> build.LaunchSpec:
     """The launch :func:`rglru_cuda` makes for fp32 a / b of ``shape``
-    ``(B, T, W)``: one thread per (batch, channel), ``THREADS`` channels a
-    block, each walking T ``STEPS`` steps at a time."""
+    ``(B, T, W)``: one lane per (batch, channel), ``CHANNELS`` channels a
+    block, a ring of ``STAGES`` slots of ``STEPS`` steps of a and b in
+    static shared memory."""
     B, T, W = shape
-    step, state = (1, STEPS, THREADS), (1, THREADS)
+    step, state = (1, min(T, STEPS), CHANNELS), (1, CHANNELS)
     return build.LaunchSpec(
         kernel="rglru", source=build.source("model_kernels"),
-        function="rglru_kernel", grid=(-(-B * W // THREADS), 1, 1),
-        threads=THREADS, smem=0,
+        function="rglru_kernel", grid=(grid(B, W), 1, 1),
+        threads=CHANNELS, smem=0,
+        static_smem=2 * STAGES * STEPS * CHANNELS * 4,
         operands=(build.Operand("a", (B, T, W), step, "float32"),
                   build.Operand("b", (B, T, W), step, "float32"),
                   build.Operand("h0", (B, W), state, "float32"),
                   build.Operand("y", (B, T, W), step, "float32"),
                   build.Operand("hT", (B, W), state, "float32")),
-        accumulator="h", threads_of="kLruThreads",
-        constants={"kLruThreads": THREADS, "kLruSteps": STEPS})
+        accumulator="h", threads_of="kLruChannels",
+        constants={"kLruChannels": CHANNELS, "kLruSteps": STEPS,
+                   "kLruStages": STAGES})

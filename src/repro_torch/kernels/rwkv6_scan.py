@@ -15,18 +15,56 @@ fp32; returns y in r's dtype and the new fp32 state.  This is the
 cumulative log-decay of each factor to +-30 separately, which breaks the
 cancellation ``e^{L_{t-1}} e^{-L_s}`` once the decay is strong (log_w
 below about -0.5 over a 64-step chunk); that clamp is not copied.  T = 1
-(decode) is the same call.  See ``csrc/model_kernels.cu`` for the design.
+(decode) is the same call.  :func:`plan` picks the launch; see
+``csrc/model_kernels.cu`` for the design.
 """
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import torch
 
 from repro_torch.kernels import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ITEMSIZE = {"float32": 4, "bfloat16": 2}
 HEAD_DIMS = (16, 32, 64, 128)
-SPLIT = 4    # kWkvSplit of csrc/model_kernels.cu: threads per value column
-STEPS = 16   # kWkvSteps: steps a block stages in shared memory at a time
+# constexprs of csrc/model_kernels.cu
+KEYS = 16    # kWkvKeys: keys a block holds in prefill
+COLS = 4     # kWkvCols: adjacent value columns a thread holds
+STEPS = 16   # kWkvSteps: steps a ring slot holds
+SLOTS = 2    # kWkvSlots: ring slots
+
+
+@dataclass(frozen=True)
+class Plan:
+    """A WKV6 launch: ``keys`` keys of a head a block (``blocks`` blocks a
+    head, launched as one cluster), ``run`` keys a thread, ``threads`` a
+    block, ``smem`` dynamic shared bytes."""
+    keys: int
+    blocks: int
+    run: int
+    threads: int
+    smem: int
+
+
+def plan(D: int, T: int, dtype: str = "bfloat16") -> Plan:
+    """The launch ``launch_wkv6`` makes for head dim ``D`` and ``T`` steps
+    (the arithmetic of ``wkv_run`` / ``wkv_threads`` / ``wkv_smem_bytes``
+    in the source).  Prefill splits a head's state by keys over a cluster
+    of ``D / KEYS`` blocks; decode (T 1) keeps a head in one block."""
+    if D not in HEAD_DIMS:
+        raise ValueError(f"wkv6: head dim {D}, want one of {HEAD_DIMS}")
+    keys = D if T == 1 else KEYS
+    run = min(16, keys // 4, keys * D // 128)
+    threads = D // COLS * (keys // run)
+    if T == 1:
+        smem = 16 * D
+    else:
+        smem = (4 * D + 2 * STEPS * D * 4 + STEPS * (4 * keys + D) * 4
+                + SLOTS * STEPS * D * (3 * _ITEMSIZE[dtype] + 4))
+    return Plan(keys=keys, blocks=D // keys, run=run, threads=threads,
+                smem=smem)
 
 
 def wkv6_plain(r, k, v, log_w, u, state):
@@ -44,7 +82,7 @@ def wkv6_plain(r, k, v, log_w, u, state):
 
 
 def wkv6_cuda(r, k, v, log_w, u, state):
-    """Launch the CUDA kernel: one block per (batch, head), the state in
+    """Launch the CUDA kernel as :func:`plan` says: the state in
     registers, every step in order."""
     B, T, H, D = r.shape
     for name, t in (("r", r), ("k", k), ("v", v), ("log_w", log_w),
@@ -68,36 +106,49 @@ def wkv6_cuda(r, k, v, log_w, u, state):
     if D not in HEAD_DIMS or min(B, T, H) == 0:
         raise ValueError(f"wkv6: head dim {D} (want one of {HEAD_DIMS}), "
                          f"B={B} T={T} H={H}")
-    r, k, v, log_w, state = (t.contiguous() for t in (r, k, v, log_w, state))
+    # the kernel copies and reads 16-byte vectors: a view that starts off
+    # a 16-byte boundary is copied
+    r, k, v, log_w, state = (_aligned(t) for t in (r, k, v, log_w, state))
     uf = u.to(torch.float32).contiguous()
     y = torch.empty_like(r)
     new_state = torch.empty_like(state)
     build.launch("wkv6", r.device, r.data_ptr(), k.data_ptr(), v.data_ptr(),
                  log_w.data_ptr(), uf.data_ptr(), state.data_ptr(),
                  y.data_ptr(), new_state.data_ptr(), _DTYPES[r.dtype], B, T,
-                 H, D)
+                 H, D, plan(D, T).keys)
     return y, new_state
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def launch_spec(shape, dtype: str = "bfloat16") -> build.LaunchSpec:
     """The launch :func:`wkv6_cuda` makes for r / k / v of ``shape`` ``(B,
-    T, H, D)`` in ``dtype``: one block of ``SPLIT * D`` threads per
-    (batch, head), staging ``STEPS`` steps at a time."""
+    T, H, D)`` in ``dtype`` (:func:`plan`).  In prefill a block copies
+    whole rows of r, k, v and log_w, ``STEPS`` steps at a time, owns
+    ``keys`` whole rows of the state, and writes every ``blocks``-th row
+    of y whole."""
     B, T, H, D = shape
-    step = (1, STEPS, 1, D)
+    pl = plan(D, T, dtype)
+    steps = min(T, STEPS)
+    step = (1, steps, 1, D)
     seq = [build.Operand(name, (B, T, H, D), step, dtype)
            for name in ("r", "k", "v")]
     state = (B, H, D, D)
+    rows = (1, 1, pl.keys, D)
     return build.LaunchSpec(
         kernel="wkv6", source=build.source("model_kernels"),
-        function="wkv6_kernel", grid=(B * H, 1, 1), threads=SPLIT * D,
-        smem=0, static_smem=4 * 4 * STEPS * D,  # rs, ks, vs, ws: fp32
+        function="wkv6_kernel", grid=(B * H * pl.blocks, 1, 1),
+        threads=pl.threads, smem=pl.smem,
         operands=(*seq, build.Operand("log_w", (B, T, H, D), step, "float32"),
                   build.Operand("u", (H, D), (1, D), "float32"),
-                  build.Operand("state", state, (1, 1, D, D), "float32"),
-                  build.Operand("y", (B, T, H, D), step, dtype),
-                  build.Operand("new_state", state, (1, 1, D, D),
-                                "float32")),
+                  build.Operand("state", state, rows, "float32"),
+                  build.Operand("y", (B, T, H, D),
+                                (1, max(1, steps // pl.blocks), 1, D), dtype),
+                  build.Operand("new_state", state, rows, "float32")),
         accumulator="acc", template={"T": dtype},
-        threads_of=f"kWkvSplit * {D}",
-        constants={"kWkvSplit": SPLIT, "kWkvSteps": STEPS})
+        threads_of=f"{D} / kWkvCols * ({pl.keys} / {pl.run})",
+        constants={"kWkvKeys": KEYS, "kWkvCols": COLS, "kWkvSteps": STEPS,
+                   "kWkvSlots": SLOTS})

@@ -331,8 +331,9 @@ def _case(label):
                                            "kFpRows": 128, "kFpKeys": 64}}),
     ("flash_prefill[D256]", {"accumulator": "acc"}),
     ("wkv6", {"threads": 128}),
-    ("rglru", {"threads": 128, "constants": {"kLruThreads": 128,
-                                             "kLruSteps": 8}}),
+    ("rglru", {"threads": 64, "constants": {"kLruChannels": 64,
+                                            "kLruSteps": 32,
+                                            "kLruStages": 4}}),
     ("pack_int4", {"constants": {"kBlock": 256, "kHalf": 64,
                                  "kThreads": 256}}),
     ("dequant_merge", {"function": "no_such_kernel"}),

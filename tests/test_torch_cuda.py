@@ -30,6 +30,7 @@ from repro_torch.kernels.quantize import (
     dequantize_int8_cuda, quantize_int8_cuda,
 )
 from repro_torch.kernels.rglru_scan import rglru_cuda, rglru_plain
+from repro_torch.kernels.rglru_scan import vector_path as rglru_vector_path
 from repro_torch.kernels.rwkv6_scan import wkv6_cuda, wkv6_plain
 from repro_torch.kernels.tile_copy import launch_spec as tile_copy_launch_spec
 from repro_torch.kernels.tile_copy import tile_copy_cuda, tile_copy_plain
@@ -350,9 +351,16 @@ def test_flash_attention_kernel_matches_plain(card, case, dtype):
     assert build.LAUNCHES[design(Sq, D, dtype)] >= 1
 
 
+# rwkv6-3b decode (4, 1, 40, 64) and a full prefill head count at short T
+# (1, 256, 40, 64); T that are not multiples of the 16-step ring slot (37,
+# 70, 33, 50); decode and prefill at D 16 (a cluster of one) and D 128 (a
+# cluster of eight)
 @pytest.mark.parametrize("B,T,H,D", [(2, 1, 3, 64), (1, 37, 2, 64),
                                      (2, 70, 2, 32), (1, 5, 1, 16),
-                                     (1, 9, 2, 128)])
+                                     (1, 9, 2, 128), (4, 1, 40, 64),
+                                     (1, 256, 40, 64), (1, 33, 2, 16),
+                                     (2, 1, 2, 16), (2, 50, 3, 128),
+                                     (1, 1, 2, 128)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_wkv6_kernel_matches_plain(card, B, T, H, D, dtype):
     gen = torch.Generator(device=card).manual_seed(6)
@@ -376,8 +384,12 @@ def test_wkv6_kernel_matches_plain(card, B, T, H, D, dtype):
                                atol=1e-5 * float(s_ref.abs().max()))
 
 
+# T not a multiple of the 32-step ring slot ((1, 33, 2560), (1, 2561,
+# 64)); W % 4 != 0 takes the scalar path ((2, 70, 30), (3, 40, 7))
 @pytest.mark.parametrize("B,T,W", [(2, 45, 24), (1, 128, 64), (3, 1, 100),
-                                   (2, 300, 2560), (4, 1, 2560)])
+                                   (2, 300, 2560), (4, 1, 2560),
+                                   (1, 33, 2560), (1, 2561, 64),
+                                   (2, 70, 30), (3, 40, 7)])
 @pytest.mark.parametrize("with_h0", [True, False])
 def test_rglru_kernel_equals_plain_bitwise(card, B, T, W, with_h0):
     """Ragged B, T and W (T 1 is decode): the kernel's fp32 multiply then
@@ -392,6 +404,33 @@ def test_rglru_kernel_equals_plain_bitwise(card, B, T, W, with_h0):
     y_ref, hT_ref = rglru_plain(a, b, h0)
     assert y.dtype == hT.dtype == torch.float32
     assert torch.equal(y, y_ref) and torch.equal(hT, hT_ref)
+
+
+@pytest.mark.parametrize("T", [1, 70])
+def test_scan_kernels_take_unaligned_views(card, T):
+    """Views that start 4 bytes past a 16-byte boundary: the RG-LRU takes
+    its scalar path, WKV6 copies them; both still match the plain
+    versions."""
+    gen = torch.Generator(device=card).manual_seed(T)
+    buf = torch.rand((2 * 2 * T * 64 + 1,), generator=gen, device=card)
+    a = buf[1:].reshape(2, 2, T, 64)
+    assert not rglru_vector_path(64, a[0], a[1])
+    h0 = torch.randn((2, 64), generator=gen, device=card)
+    y, hT = rglru_cuda(a[0], a[1], h0)
+    y_ref, hT_ref = rglru_plain(a[0], a[1], h0)
+    assert torch.equal(y, y_ref) and torch.equal(hT, hT_ref)
+    B, H, D = 1, 2, 32
+    big = torch.randn((4 * B * T * H * D + 1,), generator=gen, device=card)
+    r, k, v, w = big[1:].reshape(4, B, T, H, D)
+    log_w = -torch.exp(0.3 * w)
+    u = 0.5 * torch.randn((H, D), generator=gen, device=card)
+    s0 = torch.randn((B, H, D, D), generator=gen, device=card)
+    y, s = wkv6_cuda(r, k, v, log_w, u, s0)
+    y_ref, s_ref = wkv6_plain(r, k, v, log_w, u, s0)
+    torch.testing.assert_close(y, y_ref, rtol=1e-5,
+                               atol=1e-5 * float(y_ref.abs().max()))
+    torch.testing.assert_close(s, s_ref, rtol=1e-5,
+                               atol=1e-5 * float(s_ref.abs().max()))
 
 
 def test_rglru_wrapper_checks_inputs_and_counts_launches(card):
