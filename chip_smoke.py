@@ -10,9 +10,10 @@ Phases (any failure raises and the script exits nonzero):
 2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, started together);
 3. each kernel at the lm100m x 4-pod leaf shapes (every leaf of the tree):
-   held against its plain PyTorch version (pack/unpack, q and scales
-   exactly equal, the merges (one grouped launch over the tree each) and
-   the dequantize bitwise), then timed beside the plain version, its
+   held against its plain PyTorch version (pack and unpack, one grouped
+   launch over all 14 leaves each, tails included, q and scales exactly
+   equal, the merges (one grouped launch over the tree each) and the
+   dequantize bitwise), then timed beside the plain version, its
    HBM-bytes bound and, where one exists, a single PyTorch call computing
    the same function: the card's time of a pass (CUDA events around a
    pass queued behind a spin of the card), the wall time of back-to-back
@@ -55,8 +56,9 @@ Phases (any failure raises and the script exits nonzero):
    clean, ``train_hermes``'s loop passes the host-sync guard, and each
    fixture raises its named class; the mis-tiled copy (the last TPU
    kernel, ``selftest_bad_tiles``) launches there and equals its plain
-   version bit for bit.  Then the copy is timed beside its plain version
-   and ``x.clone()``, and the synchronising calls of one lm100m int4
+   version bit for bit.  Then the copy and ``x.clone()`` are timed on the
+   card's own clock (``device_ms``, wall time beside) with the plain
+   version, and the synchronising calls of one lm100m int4
    round, one int8 dispatch + commit and a short trainer run are counted
    under ``torch.cuda.set_sync_debug_mode("warn")``;
 9. a ``kernels`` JSON line, the ``nvidia-smi`` line, and the result line.
@@ -864,18 +866,24 @@ def analyzer(torch, dev, results) -> None:
         raise AssertionError("tile_copy differs from its plain version")
     moved = 2 * x.numel() * x.element_size()
     bound_ms, bound_by = bound(0, moved, (x.dtype,))
-    ms = time_ms(torch, lambda: tile_copy_cuda(x), reps=20)
+    # the card's own time per call (device_ms), the wall time of
+    # back-to-back calls (the host's issue) beside it
+    ms = device_ms(torch, lambda: tile_copy_cuda(x), reps=20)
+    wall_ms = time_ms(torch, lambda: tile_copy_cuda(x), reps=20)
     plain_ms = time_ms(torch, lambda: tile_copy_plain(x), reps=20)
-    clone_ms = time_ms(torch, lambda: x.clone(), reps=20)
+    clone_ms = device_ms(torch, lambda: x.clone(), reps=20)
+    clone_wall_ms = time_ms(torch, lambda: x.clone(), reps=20)
     results["tile_copy"] = {
         "name": "tile_copy", "route": "cuda", "source": FIXTURE_SOURCE,
         "replaces": REPLACES["tile_copy"], "launches": launches["tile_copy"],
         "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": clone_ms}
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": clone_ms,
+        "wall_ms": wall_ms, "library_wall_ms": clone_wall_ms}
     log(f"    tile_copy {tuple(SHAPE)} in (8, 100) tiles on an (8, 3) grid: "
-        f"equal=True  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
-        f"x.clone() {clone_ms:.4f} ms  bound {bound_ms:.6f} ms ({bound_by};"
-        f" {moved:,} B): the launch floor, not the bytes, sets all three")
+        f"equal=True  kernel {ms:.4f} ms [wall {wall_ms:.4f}]  plain "
+        f"{plain_ms:.4f} ms  x.clone() {clone_ms:.4f} ms [wall "
+        f"{clone_wall_ms:.4f}]  bound {bound_ms:.6f} ms ({bound_by}; "
+        f"{moved:,} B): the launch floor, not the bytes, sets all three")
 
     # the host syncs of one round at lm100m x 4 pods, gates open
     cfg = _preset("lm100m")
@@ -949,7 +957,9 @@ def main() -> int:
         dequant_merge_group_cuda, dequant_merge_packed_group_cuda)
     from repro_torch.kernels.loss_weighted_update import (
         loss_weighted_update_cuda)
-    from repro_torch.kernels.pack import pack_int4_cuda, unpack_int4_cuda
+    from repro_torch.kernels.pack import (
+        pack_int4_group_cuda, pack_int4_group_plain, unpack_int4_group_cuda,
+        unpack_int4_group_plain)
     from repro_torch.kernels.quantize import (
         dequantize_int8_cuda, quantize_int8_cuda)
     from repro_torch.launch.train import _preset, train_hermes
@@ -991,11 +1001,14 @@ def main() -> int:
     deltas = [1e-3 * torch.randn((PODS,) + tuple(g.shape), generator=gen,
                                  device=dev) for g in g_leaves]
     axes = [wire.block_axis(d.shape) for d in deltas]
-    blocked = [i for i, (d, ax) in enumerate(zip(deltas, axes))
-               if d.shape[ax] % wire.BLOCK == 0]
-    q_in = [fmt._quantize(deltas[i], (0, i), noise)[0] for i in blocked]
-    payloads = [fmt.encode(d, key=(0, i), noise=noise)
-                for i, d in enumerate(deltas)]
+    # pack's leaves: every leaf's padded nibbles with its real length,
+    # the two tail-only norm leaves included; unpack's: every wire leaf
+    pack_leaves = [(fmt._quantize(d, (0, i), noise)[0], d.shape[ax], ax)
+                   for i, (d, ax) in enumerate(zip(deltas, axes))]
+    payloads = fmt.encode_group(deltas, [(0, i) for i in range(len(deltas))],
+                                noise)
+    unpack_leaves = [(p["q_packed"], d.shape[ax], ax)
+                     for p, d, ax in zip(payloads, deltas, axes)]
     pods_f32 = [g[None] + d for g, d in zip(g_leaves, deltas)]
     payloads8 = [wire.get_format("int8").encode(d) for d in deltas]
     # the flat API's input: each stacked delta leaf, quantized by the plain
@@ -1013,18 +1026,13 @@ def main() -> int:
     # name: (kernel, plain version, fp32 operations per output element,
     #        one PyTorch call computing the same function or None)
     cases = {
-        "pack_int4": (
-            lambda: [pack_int4_cuda(q, axis=axes[i])
-                     for q, i in zip(q_in, blocked)],
-            lambda: [ref.pack_nibbles_ref(q, axis=axes[i])
-                     for q, i in zip(q_in, blocked)],
-            0, None),
-        "unpack_int4": (
-            lambda: [unpack_int4_cuda(payloads[i]["q_packed"], axis=axes[i])
-                     for i in blocked],
-            lambda: [ref.unpack_nibbles_ref(payloads[i]["q_packed"],
-                                            axis=axes[i]) for i in blocked],
-            0, None),
+        # pack and unpack: one grouped launch over every leaf, tails
+        # included, as the round's encode
+        "pack_int4": (lambda: pack_int4_group_cuda(pack_leaves),
+                      lambda: pack_int4_group_plain(pack_leaves), 0, None),
+        "unpack_int4": (lambda: unpack_int4_group_cuda(unpack_leaves),
+                        lambda: unpack_int4_group_plain(unpack_leaves), 0,
+                        None),
         # the merges: one grouped launch over every leaf, as the round
         "dequant_merge_packed": (
             lambda: dequant_merge_packed_group_cuda(
@@ -1063,8 +1071,9 @@ def main() -> int:
             1, lambda: [torch.mul(q, sc) for q, sc in flat8]),
     }
     inputs = {
-        "pack_int4": q_in,
-        "unpack_int4": [payloads[i]["q_packed"] for i in blocked],
+        # the real nibbles pack reads, not the quantizer's padding
+        "pack_int4": [q.narrow(ax, 0, d) for q, d, ax in pack_leaves],
+        "unpack_int4": [p for p, _, _ in unpack_leaves],
         "dequant_merge_packed": g_leaves
         + [t for p in payloads for t in p.values()],
         "loss_weighted_update": g_leaves + pods_f32,
@@ -1114,7 +1123,8 @@ def main() -> int:
             f"{plain_ms:8.3f} ms  bound {bound_ms:.3f} ms ({bound_by}; "
             f"{moved / 1e9:.3f} GB)  {bound_ms / ms:5.1%} of the bound"
             + lib_txt)
-    del q_in, payloads, payloads8, flat8, pods_f32, deltas
+    del pack_leaves, unpack_leaves, payloads, payloads8, flat8, pods_f32
+    del deltas
     torch.cuda.empty_cache()
 
     # ---- 4. a forced all-open merge at lm100m ----------------------------

@@ -9,7 +9,9 @@
 The caller keeps ``new_error`` and folds it into the next push, so the
 compression bias telescopes over rounds (Karimireddy et al., 2019).
 Stochastic formats (int4) draw leaf ``i``'s noise under the key
-``(round_step, i)``, ``i`` in the reference's leaf order.
+``(round_step, i)``, ``i`` in the reference's leaf order.  Each format
+encodes (and, for the residual, decodes) the whole tree at once, so the
+int4 pack and unpack are one launch each on a card.
 
 The flat ``quantize_int8`` / ``dequantize_int8`` pair keeps the
 whole-array layout of the reference's ``kernels/quantize.py`` for callers
@@ -54,16 +56,13 @@ def encode_tree(tree: Tree, mode: str, error: Optional[Tree] = None, *,
     fmt = get_format(mode)
     eff = tree if error is None else tree_map(lambda a, b: a + b, tree, error)
     leaves, treedef = tree_flatten(eff)
-    payloads, rec, err = [], [], []
-    for i, leaf in enumerate(leaves):
-        p = fmt.encode(leaf, key=(round_step, i), noise=noise)
-        payloads.append(p)
-        if with_residual:
-            r = fmt.decode(p, leaf.shape, leaf.dtype)
-            rec.append(r)
-            err.append(leaf - r)
+    payloads = fmt.encode_group(
+        leaves, [(round_step, i) for i in range(len(leaves))], noise)
     if not with_residual:
         return tree_unflatten(treedef, payloads), None, None
+    rec = fmt.decode_group(payloads, [x.shape for x in leaves],
+                           [x.dtype for x in leaves])
+    err = [x - r for x, r in zip(leaves, rec)]
     return (tree_unflatten(treedef, payloads), tree_unflatten(treedef, rec),
             tree_unflatten(treedef, err))
 
@@ -72,6 +71,6 @@ def decode_tree(payloads: Tree, template: Tree, mode: str) -> Tree:
     """Decode a payload tree into ``template``'s structure, shapes, dtypes."""
     fmt = get_format(mode)
     leaves, treedef = tree_flatten(template)
-    return tree_unflatten(treedef, [
-        fmt.decode(p, leaf.shape, leaf.dtype)
-        for p, leaf in zip(flatten_up_to(treedef, payloads), leaves)])
+    return tree_unflatten(treedef, fmt.decode_group(
+        flatten_up_to(treedef, payloads), [x.shape for x in leaves],
+        [x.dtype for x in leaves]))

@@ -12,15 +12,17 @@ precisely because this choice depends on them.
 ``int8`` ships ``q`` trimmed to the real elements, rounded half to even
 (deterministic: it takes no noise); its ``fused_merge_group`` is the
 CUDA ``dequant_merge`` kernel, one launch for a tree.  ``int4`` ships
-``q_packed``: whole 256-blocks nibble-packed by the CUDA ``pack_int4``
-kernel (plain PyTorch on a CPU tensor), a short tail of ``rem`` elements
-paired ``(k, k + ceil(rem/2))``; its ``fused_merge_group`` reads the
-packed payloads straight into the global leaves.  Registered: ``none``,
-``fp16``, ``int8``, ``int4``.
+``q_packed``: whole 256-blocks nibble-packed and a short tail of ``rem``
+elements paired ``(k, k + ceil(rem/2))``, every leaf of a tree packed by
+one launch of the CUDA ``pack_int4`` kernel (``encode_group``; plain
+PyTorch on a CPU tensor) and unpacked by one of ``unpack_int4``
+(``decode_group``); its ``fused_merge_group`` reads the packed payloads
+straight into the global leaves.  Registered: ``none``, ``fp16``,
+``int8``, ``int4``.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Sequence, Tuple
+from typing import Callable, Dict, List, Sequence, Tuple
 
 import torch
 
@@ -90,6 +92,8 @@ def _stacked_axis(g: torch.Tensor, q: torch.Tensor) -> int:
 class WireFormat:
     """One wire format.  Subclass, set ``name``, implement the contract.
 
+    ``encode_group`` / ``decode_group`` take every leaf of a tree at once
+    (leaf ``i`` under ``keys[i]``); by default they loop over the leaves.
     ``fused_merge_group(gs, payloads, w2, denom, any_push)``, optional,
     merges the payloads of leaves blocked off the pod axis straight into
     the global leaves ``gs`` (one launch on a card)."""
@@ -102,6 +106,15 @@ class WireFormat:
 
     def decode(self, payload: Payload, shape, dtype) -> torch.Tensor:
         raise NotImplementedError
+
+    def encode_group(self, xs: Sequence[torch.Tensor], keys, noise=None
+                     ) -> List[Payload]:
+        return [self.encode(x, key=k, noise=noise) for x, k in zip(xs, keys)]
+
+    def decode_group(self, payloads: Sequence[Payload], shapes, dtypes
+                     ) -> List[torch.Tensor]:
+        return [self.decode(p, s, dt)
+                for p, s, dt in zip(payloads, shapes, dtypes)]
 
 
 class NoneFormat(WireFormat):
@@ -208,40 +221,41 @@ class Int4Format(BlockedIntFormat):
                             dtype=torch.float32, device=y.device)
         return torch.floor(y + u)
 
+    def encode_group(self, xs, keys, noise=None):
+        """Quantize every leaf (leaf ``i``'s noise under ``keys[i]``, in
+        order), then pack them all in one grouped call, tails included."""
+        qs = [self._quantize(x, key, noise) for x, key in zip(xs, keys)]
+        packed = ops.pack_int4_group([(q, d, ax)
+                                      for q, _, _, ax, d, _ in qs])
+        return [{"q_packed": p, "scales": scale}
+                for p, (_, scale, *_) in zip(packed, qs)]
+
     def encode(self, x, *, key=None, noise=None):
-        q, scale, s, ax, d, nb = self._quantize(x, key, noise)
-        nf, rem = d // BLOCK, d % BLOCK
-        parts = []
-        if nf:
-            head = q.narrow(ax, 0, nf * BLOCK).contiguous()
-            parts.append(ops.pack_int4(head, axis=ax))
-        if rem:
-            parts.append(ref.pack_tail_ref(q.narrow(ax, nf * BLOCK, rem),
-                                           axis=ax))
-        packed = parts[0] if len(parts) == 1 else torch.cat(parts, dim=ax)
-        return {"q_packed": packed, "scales": scale}
+        return self.encode_group([x], [key], noise)[0]
+
+    def unpack_group(self, payloads: Sequence[Payload], shapes
+                     ) -> List[torch.Tensor]:
+        """Wire ``q_packed`` -> the trimmed int8 ``q`` (one per element) of
+        every leaf, in one grouped call."""
+        leaves = []
+        for p, shape in zip(payloads, shapes):
+            s = norm_shape(shape)
+            ax = block_axis(s)
+            leaves.append((p["q_packed"], s[ax], ax))
+        return ops.unpack_int4_group(leaves)
 
     def unpack_payload(self, payload: Payload, shape) -> torch.Tensor:
         """Wire ``q_packed`` -> the trimmed int8 ``q`` (one per element)."""
-        s = norm_shape(shape)
-        ax = block_axis(s)
-        d = s[ax]
-        nf, rem = d // BLOCK, d % BLOCK
-        packed = payload["q_packed"]
-        parts = []
-        if nf:
-            head = packed.narrow(ax, 0, nf * self.HALF).contiguous()
-            parts.append(ops.unpack_int4(head, axis=ax))
-        if rem:
-            tail = packed.narrow(ax, nf * self.HALF,
-                                 packed.shape[ax] - nf * self.HALF)
-            parts.append(ref.unpack_tail_ref(tail, rem, axis=ax))
-        return parts[0] if len(parts) == 1 else torch.cat(parts, dim=ax)
+        return self.unpack_group([payload], [shape])[0]
+
+    def decode_group(self, payloads, shapes, dtypes):
+        qs = self.unpack_group(payloads, shapes)
+        return [BlockedIntFormat.decode(
+            self, {"q": q, "scales": p["scales"]}, shape, dtype)
+            for q, p, shape, dtype in zip(qs, payloads, shapes, dtypes)]
 
     def decode(self, payload, shape, dtype):
-        q = self.unpack_payload(payload, shape)
-        return super().decode({"q": q, "scales": payload["scales"]},
-                              shape, dtype)
+        return self.decode_group([payload], [shape], [dtype])[0]
 
     def fused_merge_group(self, gs, payloads, w2, denom, any_push):
         return ops.dequant_merge_packed_group(

@@ -48,8 +48,9 @@ _P, _I64, _I32, _F32 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
 #: ``launch_<kernel>``, the trailing stream included
 LIBRARIES = {
     "wire_kernels": {
-        "pack_int4": (_P, _P, _I64, _I64, _I64, _P),
-        "unpack_int4": (_P, _P, _I64, _I64, _I64, _P),
+        # leaf descriptors, leaf count, 64-bit offsets
+        "pack_int4": (_P, _I32, _I32, _P),
+        "unpack_int4": (_P, _I32, _I32, _P),
         # leaf descriptors, leaf count, scal, pods, 64-bit offsets
         "dequant_merge_packed": (_P, _I32, _P, _I32, _I32, _P),
         "loss_weighted_update": (_P, _P, _P, _P, _I32, _I64, _P),

@@ -12,11 +12,11 @@
 // None of these kernels does a matrix product: each streams its operands
 // once, so each is bound by HBM bytes.  The design is a grid-stride
 // elementwise pass (a warp per 256-block for the quantize, whose scale is
-// a block reduction; the int4 and int8 merges walk tiles of every leaf of
-// a tree in one launch, see below) with neighbouring threads on
-// neighbouring addresses, and 32-bit index arithmetic whenever every
-// index of the launch fits, since 64-bit division costs tens of
-// instructions per element.  Byte
+// a block reduction; the int4 pack and unpack and the int4 and int8
+// merges walk tiles of every leaf of a tree in one launch, see below)
+// with neighbouring threads on neighbouring addresses, and 32-bit index
+// arithmetic whenever every index of the launch fits, since 64-bit
+// division costs tens of instructions per element.  Byte
 // counts are for one pass over the lm100m tree (124,670,208 fp32
 // parameters) with 4 pods stacked, at 3.35 TB/s (H100 SXM data sheet).
 //
@@ -51,43 +51,244 @@ __device__ __forceinline__ int8_t nibble_join(int lo, int hi) {
 __device__ __forceinline__ int nibble_lo(int p) { return ((p & 0xF) ^ 8) - 8; }
 __device__ __forceinline__ int nibble_hi(int p) { return p >> 4; }  // arithmetic
 
-// Packed byte (o, b*128 + j, i) of a (outer, dh, inner) output pairs
-// elements (o, b*256 + j, i) (low nibble) and (o, b*256 + 128 + j, i)
-// (high nibble) of the (outer, 2*dh, inner) input.  The blocked axis stays
-// in the middle, so a leaf blocked on a middle axis (the stacked attention
-// wq (4, 12, 768, 12, 64)) needs no moveaxis copy.
-template <typename I>
-__global__ void pack_int4_kernel(const int8_t* __restrict__ q,
-                                 int8_t* __restrict__ p, I dh, I inner,
-                                 I n_out) {
-  for (I n = blockIdx.x * (I)blockDim.x + threadIdx.x; n < n_out;
-       n += (I)gridDim.x * blockDim.x) {
-    const I i = n % inner;
-    const I t = n / inner;
-    const I jj = t % dh;
-    const I o = t / dh;
-    const I base = (o * 2 * dh + (jj / kHalf) * kBlock + jj % kHalf) * inner + i;
-    p[n] = nibble_join(q[base], q[base + kHalf * inner]);
+// ---- the int4 pack and unpack -------------------------------------------
+//
+// A leaf is viewed as (outer, d, inner) around its blocked axis: nf = d /
+// 256 whole blocks and rem = d % 256 tail elements.  The nibble side q has
+// qrow >= d rows along the axis (pack reads the quantizer's zero-padded q,
+// qrow = nb*256; unpack writes the trimmed q, qrow = d) and the wire p has
+// prow = nf*128 + htail, htail = ceil(rem/2).  The blocked axis stays in
+// the middle, so a leaf blocked on a middle axis (the stacked attention wq
+// (4, 12, 768, 12, 64)) needs no moveaxis copy.
+//
+// Around the blocked axis a whole block is regular.  With L = 128*inner,
+// unit (o, b) of p is L contiguous bytes, unit (o, b) of q is 2L, and
+//   p[c] = join(q[c], q[L + c])   for c < L,
+// so a unit is a whole number of 16-byte slots, and a slot's offsets need
+// only its unit: two multiplications by magic numbers the host computed
+// (no division) a slot, 32-bit whenever every index of the launch fits.
+// Pack makes two uint4 loads and one uint4 store a slot, unpack one load
+// and two stores; the nibbles are joined and sign-extended four bytes to a
+// 32-bit word with no carry across a byte.  A thread takes kPackUnroll
+// slots a tile, every load before any store, so a block keeps 32 KB
+// (pack) or 16 KB (unpack) of loads in flight.
+//
+// The tail of each outer index pairs (k, k + htail): byte k holds element
+// k in its low nibble and k + htail in its high one, 0 where that is past
+// rem (the wire's short pairing, ref.pack_tail_ref); its tiles go one
+// packed byte an item.  A leaf whose base pointers or rows along the outer
+// index (qrow*inner, prow*inner bytes) are not 16-byte aligned walks its
+// whole blocks byte by byte (vec = 0), inside the kernel.
+//
+// The leaves travel by value in the kernel's parameters, kPackLeaves a
+// launch, as the merges' do; tiles are numbered across the launch (each
+// leaf's whole-block tiles, then its tail tiles), and a persistent grid of
+// 132 SMs x kPackBlocksPerSm blocks walks them.
+
+constexpr int kPackLeaves = 32;       // leaf descriptors a launch carries
+constexpr int kPackBlocksPerSm = 4;   // persistent grid: 132 SMs x 4
+constexpr int kPackUnroll = 4;        // slots a thread takes a tile
+constexpr int kSlotBytes = 16;        // packed bytes a slot: one uint4
+constexpr int kTileSlots = kThreads * kPackUnroll;  // a tail tile: bytes
+constexpr int kPackFields = 15;       // int64 fields of a leaf descriptor
+
+struct PackLeaf {
+  const int8_t* src;   // pack: the nibbles q; unpack: the wire p
+  int8_t* dst;         // pack: p; unpack: q
+  long long outer, inner, nf, qrow, prow;
+  long long tile0;     // the leaf's first whole-block tile in the launch
+  long long tail0;     // and its first tail tile
+  unsigned long long m_unit, m_nf;  // magic numbers of 8*inner and nf
+  int s_unit, s_nf;                 // and their shifts
+  int rem, htail;
+  int vec;             // 16-byte slots: pointers and rows aligned
+};
+
+struct PackGroup {
+  PackLeaf leaf[kPackLeaves];
+  long long n_tiles;
+  int n_leaves;
+};
+
+// n / d as (n * m) >> s with m = ceil(2^s / d), s = 31 + ceil(log2 d):
+// exact for every n < 2^31 (kernels/pack.py:fast_div_magic); the 64-bit
+// walk divides.
+__device__ __forceinline__ unsigned quotient(unsigned n, unsigned,
+                                             unsigned long long m, int s) {
+  return static_cast<unsigned>((static_cast<unsigned long long>(n) * m) >> s);
+}
+__device__ __forceinline__ long long quotient(long long n, long long d,
+                                              unsigned long long, int) {
+  return n / d;
+}
+
+// Four packed bytes from four low and four high nibble bytes, and back.
+__device__ __forceinline__ unsigned join4(unsigned lo, unsigned hi) {
+  return (lo & 0x0F0F0F0Fu) | ((hi & 0x0F0F0F0Fu) << 4);
+}
+__device__ __forceinline__ unsigned lo4(unsigned p) {
+  return __vsub4((p & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u);
+}
+__device__ __forceinline__ unsigned hi4(unsigned p) {
+  return __vsub4(((p >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u);
+}
+
+// The tile walk pack and unpack share.
+template <bool kPack, typename I>
+__device__ __forceinline__ void pack_tiles(const PackGroup& grp) {
+  int li = 0;
+  for (long long t = blockIdx.x; t < grp.n_tiles; t += gridDim.x) {
+    while (li + 1 < grp.n_leaves && t >= grp.leaf[li + 1].tile0) ++li;
+    const PackLeaf& L = grp.leaf[li];
+    const int8_t* __restrict__ src = L.src;
+    int8_t* __restrict__ dst = L.dst;
+    const I inner = static_cast<I>(L.inner);
+    const I nf = static_cast<I>(L.nf);
+    const I half = kHalf * inner;                      // a unit of p
+    const I qo = static_cast<I>(L.qrow) * inner;       // an outer index
+    const I po = static_cast<I>(L.prow) * inner;       // of q and of p
+    if (t < L.tail0) {
+      const I unit = half / kSlotBytes;                // slots a unit
+      const I slots = static_cast<I>(L.outer) * nf * unit;
+      const I s0 = static_cast<I>(t - L.tile0) * kTileSlots + threadIdx.x;
+      I qa[kPackUnroll], pa[kPackUnroll];
+#pragma unroll
+      for (int u = 0; u < kPackUnroll; ++u) {
+        const I s = s0 + u * kThreads;
+        const I r = quotient(s, unit, L.m_unit, L.s_unit);  // o*nf + b
+        const I o = quotient(r, nf, L.m_nf, L.s_nf);
+        const I b = r - o * nf;
+        const I c = (s - r * unit) * kSlotBytes;
+        qa[u] = o * qo + b * 2 * half + c;
+        pa[u] = o * po + b * half + c;
+      }
+      if (L.vec) {
+        uint4 x[kPackUnroll], y[kPackUnroll];
+#pragma unroll
+        for (int u = 0; u < kPackUnroll; ++u) {
+          if (s0 + u * kThreads < slots) {
+            if (kPack) {
+              x[u] = __ldcs(reinterpret_cast<const uint4*>(src + qa[u]));
+              y[u] = __ldcs(reinterpret_cast<const uint4*>(src + qa[u]
+                                                           + half));
+            } else {
+              x[u] = __ldcs(reinterpret_cast<const uint4*>(src + pa[u]));
+            }
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kPackUnroll; ++u) {
+          if (s0 + u * kThreads < slots) {
+            if (kPack) {
+              __stcs(reinterpret_cast<uint4*>(dst + pa[u]),
+                     make_uint4(join4(x[u].x, y[u].x), join4(x[u].y, y[u].y),
+                                join4(x[u].z, y[u].z),
+                                join4(x[u].w, y[u].w)));
+            } else {
+              __stcs(reinterpret_cast<uint4*>(dst + qa[u]),
+                     make_uint4(lo4(x[u].x), lo4(x[u].y), lo4(x[u].z),
+                                lo4(x[u].w)));
+              __stcs(reinterpret_cast<uint4*>(dst + qa[u] + half),
+                     make_uint4(hi4(x[u].x), hi4(x[u].y), hi4(x[u].z),
+                                hi4(x[u].w)));
+            }
+          }
+        }
+        continue;
+      }
+      // the scalar path: the same slots, byte by byte
+      for (int u = 0; u < kPackUnroll; ++u) {
+        if (s0 + u * kThreads >= slots) break;
+        for (int m = 0; m < kSlotBytes; ++m) {
+          if (kPack) {
+            dst[pa[u] + m] = nibble_join(src[qa[u] + m],
+                                         src[qa[u] + half + m]);
+          } else {
+            const int v = src[pa[u] + m];
+            dst[qa[u] + m] = static_cast<int8_t>(nibble_lo(v));
+            dst[qa[u] + half + m] = static_cast<int8_t>(nibble_hi(v));
+          }
+        }
+      }
+      continue;
+    }
+    // the tail: kTileSlots packed bytes a tile, one a thread a step
+    const I htail = static_cast<I>(L.htail);
+    const I tail = htail * inner;                      // an outer index's
+    const I n = static_cast<I>(L.outer) * tail;
+    const I e0 = static_cast<I>(t - L.tail0) * kTileSlots + threadIdx.x;
+#pragma unroll
+    for (int u = 0; u < kPackUnroll; ++u) {
+      const I e = e0 + u * kThreads;
+      if (e >= n) break;
+      const I o = e / tail;
+      const I x = e - o * tail;                        // k*inner + i
+      const bool paired = x / inner + htail < static_cast<I>(L.rem);
+      const I pi = o * po + nf * half + x;
+      const I qi = o * qo + nf * 2 * half + x;
+      if (kPack) {
+        dst[pi] = nibble_join(src[qi], paired ? src[qi + tail] : 0);
+      } else {
+        const int v = src[pi];
+        dst[qi] = static_cast<int8_t>(nibble_lo(v));
+        if (paired) dst[qi + tail] = static_cast<int8_t>(nibble_hi(v));
+      }
+    }
   }
 }
 
-// Inverse of pack_int4_kernel: one thread per packed byte writes its two
-// sign-extended nibbles.
+// Replaces src/repro/kernels/pack.py:pack_int4 (_pack_kernel), every leaf
+// of a tree, its short-paired tail included, in one launch.
 template <typename I>
-__global__ void unpack_int4_kernel(const int8_t* __restrict__ p,
-                                   int8_t* __restrict__ q, I dh, I inner,
-                                   I n_in) {
-  for (I n = blockIdx.x * (I)blockDim.x + threadIdx.x; n < n_in;
-       n += (I)gridDim.x * blockDim.x) {
-    const I i = n % inner;
-    const I t = n / inner;
-    const I jj = t % dh;
-    const I o = t / dh;
-    const I base = (o * 2 * dh + (jj / kHalf) * kBlock + jj % kHalf) * inner + i;
-    const int v = p[n];
-    q[base] = static_cast<int8_t>(nibble_lo(v));
-    q[base + kHalf * inner] = static_cast<int8_t>(nibble_hi(v));
+__global__ void __launch_bounds__(kThreads, kPackBlocksPerSm)
+pack_int4_kernel(const __grid_constant__ PackGroup grp) {
+  pack_tiles<true, I>(grp);
+}
+
+// Replaces src/repro/kernels/pack.py:unpack_int4 (_unpack_kernel): the
+// inverse of pack_int4_kernel, writing only the leaf's d real elements.
+template <typename I>
+__global__ void __launch_bounds__(kThreads, kPackBlocksPerSm)
+unpack_int4_kernel(const __grid_constant__ PackGroup grp) {
+  pack_tiles<false, I>(grp);
+}
+
+// Unpacks the leaf descriptors (kPackFields int64 each: src, dst, vec,
+// outer, inner, nf, qrow, prow, rem, whole-block tiles, tail tiles,
+// m_unit, s_unit, m_nf, s_nf) and launches the persistent grid; ``wide``
+// takes 64-bit offsets.
+template <bool kPack>
+int launch_pack(const long long* desc, int n_leaves, int wide, void* stream) {
+  if (n_leaves < 1 || n_leaves > kPackLeaves)
+    return (int)cudaErrorInvalidValue;
+  PackGroup grp = {};
+  long long tiles = 0;
+  for (int l = 0; l < n_leaves; ++l) {
+    const long long* f = desc + l * kPackFields;
+    PackLeaf& L = grp.leaf[l];
+    L.src = reinterpret_cast<const int8_t*>(f[0]);
+    L.dst = reinterpret_cast<int8_t*>(f[1]);
+    L.vec = (int)f[2];
+    L.outer = f[3]; L.inner = f[4]; L.nf = f[5]; L.qrow = f[6];
+    L.prow = f[7]; L.rem = (int)f[8]; L.htail = (L.rem + 1) / 2;
+    L.tile0 = tiles;
+    tiles += f[9];
+    L.tail0 = tiles;
+    tiles += f[10];
+    L.m_unit = (unsigned long long)f[11]; L.s_unit = (int)f[12];
+    L.m_nf = (unsigned long long)f[13]; L.s_nf = (int)f[14];
   }
+  grp.n_tiles = tiles;
+  grp.n_leaves = n_leaves;
+  if (tiles < 1) return (int)cudaErrorInvalidValue;
+  const long long cap = 132LL * kPackBlocksPerSm;
+  const unsigned grid = (unsigned)(tiles < cap ? tiles : cap);
+  void (*kernel)(const PackGroup) =
+      kPack ? (wide ? pack_int4_kernel<long long> : pack_int4_kernel<unsigned>)
+            : (wide ? unpack_int4_kernel<long long>
+                    : unpack_int4_kernel<unsigned>);
+  kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(grp);
+  return (int)cudaGetLastError();
 }
 
 // ---- the int4 and int8 merges -------------------------------------------
@@ -517,40 +718,21 @@ extern "C" {
 
 // Replaces src/repro/kernels/pack.py:pack_int4 (_pack_kernel).  Bound by
 // HBM bytes: reads 1 B and writes 0.5 B per element; at lm100m x 4 pods
-// 498.7 MB + 249.3 MB = 748.0 MB, 0.223 ms at 3.35 TB/s.
-// q: (outer, 2*dh, inner) int8 -> p: (outer, dh, inner) int8, dh % 128 == 0.
-int launch_pack_int4(const void* q, void* p, long long outer, long long dh,
-                     long long inner, void* stream) {
-  const long long n = outer * dh * inner;
-  const cudaStream_t s = (cudaStream_t)stream;
-  if (fits32(2 * n)) {
-    pack_int4_kernel<unsigned><<<grid_for(n), kThreads, 0, s>>>(
-        (const int8_t*)q, (int8_t*)p, (unsigned)dh, (unsigned)inner,
-        (unsigned)n);
-  } else {
-    pack_int4_kernel<long long><<<grid_for(n), kThreads, 0, s>>>(
-        (const int8_t*)q, (int8_t*)p, dh, inner, n);
-  }
-  return (int)cudaGetLastError();
+// 498.7 MB + 249.3 MB = 748.0 MB, 0.223 ms at 3.35 TB/s.  desc: n_leaves
+// (at most kPackLeaves) leaf descriptors, packed in one launch: q (outer,
+// qrow, inner) int8 -> p (outer, nf*128 + ceil(rem/2), inner) int8.
+int launch_pack_int4(const void* desc, int n_leaves, int wide,
+                     void* stream) {
+  return launch_pack<true>((const long long*)desc, n_leaves, wide, stream);
 }
 
 // Replaces src/repro/kernels/pack.py:unpack_int4 (_unpack_kernel).  Bound
 // by HBM bytes, the mirror of pack: 249.3 MB read + 498.7 MB written at
-// lm100m x 4 pods, 0.223 ms at 3.35 TB/s.
-// p: (outer, dh, inner) int8 -> q: (outer, 2*dh, inner) int8.
-int launch_unpack_int4(const void* p, void* q, long long outer, long long dh,
-                       long long inner, void* stream) {
-  const long long n = outer * dh * inner;
-  const cudaStream_t s = (cudaStream_t)stream;
-  if (fits32(2 * n)) {
-    unpack_int4_kernel<unsigned><<<grid_for(n), kThreads, 0, s>>>(
-        (const int8_t*)p, (int8_t*)q, (unsigned)dh, (unsigned)inner,
-        (unsigned)n);
-  } else {
-    unpack_int4_kernel<long long><<<grid_for(n), kThreads, 0, s>>>(
-        (const int8_t*)p, (int8_t*)q, dh, inner, n);
-  }
-  return (int)cudaGetLastError();
+// lm100m x 4 pods, 0.223 ms at 3.35 TB/s.  p (outer, prow, inner) int8 ->
+// q (outer, d, inner) int8, desc as for launch_pack_int4.
+int launch_unpack_int4(const void* desc, int n_leaves, int wide,
+                       void* stream) {
+  return launch_pack<false>((const long long*)desc, n_leaves, wide, stream);
 }
 
 // Replaces src/repro/kernels/dequant_merge.py:dequant_merge_packed

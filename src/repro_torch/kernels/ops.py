@@ -28,6 +28,22 @@ def unpack_int4(p: torch.Tensor, *, axis: int = -1) -> torch.Tensor:
     return _pk.unpack_int4_plain(p, axis=axis)
 
 
+def pack_int4_group(leaves):
+    """Pack every leaf ``(q, d, axis)`` into its wire bytes, whole blocks
+    and tail: one launch on a card."""
+    if leaves and leaves[0][0].is_cuda:
+        return _pk.pack_int4_group_cuda(leaves)
+    return _pk.pack_int4_group_plain(leaves)
+
+
+def unpack_int4_group(leaves):
+    """Unpack every wire leaf ``(p, d, axis)`` into its ``d`` nibbles along
+    ``axis``: one launch on a card."""
+    if leaves and leaves[0][0].is_cuda:
+        return _pk.unpack_int4_group_cuda(leaves)
+    return _pk.unpack_int4_group_plain(leaves)
+
+
 def quantize_int8(x: torch.Tensor):
     """Flat blockwise absmax int8: ``(q (nb, 256), scales (nb, 1))``."""
     if x.is_cuda:
@@ -124,9 +140,10 @@ def kernel_lint_cases():
     The static tile lint (``repro_torch.analysis.KernelTileLint``) reads
     each spec and its ``.cu`` source; nothing launches.  The wire kernels
     take the reference's shapes: a ``(4, 512)`` leaf (two 256-element
-    blocks a row) and two pods; the merges also take lm100m's ``wq``
-    layout (blocked on a middle axis: column tiles) at 2 layers and 4
-    pods.  The model kernels take shapes their real
+    blocks a row) and two pods; pack, unpack and the merges also take
+    lm100m's ``wq`` layout (blocked on a middle axis: column tiles for the
+    merges, whole-unit tiles of 16 KB for pack and unpack) at 2 layers
+    and 4 pods.  The model kernels take shapes their real
     tiling divides.  Flash attention has three designs: the SIMT kernel
     (fp32 prefill, 128 queries and keys, two 64-row tiles, at head dims 64
     and 256 on one KV head); the split-KV decode kernel and its combine
@@ -146,6 +163,9 @@ def kernel_lint_cases():
         ("dequantize_int8", _qz.launch_spec("dequantize_int8", g)),
         ("pack_int4", _pk.launch_spec("pack_int4", g)),
         ("unpack_int4", _pk.launch_spec("unpack_int4", (4, 256))),
+        ("pack_int4[wq]", _pk.launch_spec("pack_int4", (4,) + wq, 2)),
+        ("unpack_int4[wq]",
+         _pk.launch_spec("unpack_int4", (4, 2, 384, 12, 64), 2)),
         ("loss_weighted_update", _lwu.launch_spec(g, pods)),
         ("dequant_merge", _dqm.launch_spec("dequant_merge", g, pods)),
         ("dequant_merge_packed",

@@ -336,6 +336,12 @@ def _case(label):
                                             "kLruStages": 4}}),
     ("pack_int4", {"constants": {"kBlock": 256, "kHalf": 64,
                                  "kThreads": 256}}),
+    ("pack_int4[wq]", {"constants": {"kPackUnroll": 8}}),
+    ("pack_int4[wq]", {"constants": {"kSlotBytes": 8, "kTileSlots": 2048}}),
+    ("unpack_int4[wq]", {"constants": {"kPackBlocksPerSm": 8}}),
+    ("unpack_int4[wq]", {"constants": {"kPackLeaves": 64}}),
+    ("unpack_int4", {"threads": 128}),
+    ("unpack_int4", {"function": "unpack_int4_tiles"}),
     ("dequant_merge", {"function": "no_such_kernel"}),
     ("dequant_merge", {"threads": 128}),
     ("dequant_merge_packed[wq]", {"constants": {"kColPairs": 16,
@@ -410,6 +416,12 @@ def test_lint_cases_cover_every_kernel_and_repeat_their_launchers():
     assert _case("dequant_merge").grid == (1, 1, 1)
     assert _case("dequant_merge").smem == 4 * 2
     assert _case("quantize_int8").grid == (1, 1, 1)   # 8 blocks, 8 warps
+    # pack and unpack: a persistent grid over tiles of 1024 16-byte slots
+    # (wq at 2 layers: 24 units of 6144 slots), no shared memory
+    assert _case("pack_int4[wq]").grid == (144, 1, 1)
+    assert _case("unpack_int4[wq]").grid == (144, 1, 1)
+    assert _case("pack_int4").grid == (1, 1, 1)
+    assert _case("unpack_int4[wq]").smem == 0
 
 
 # ---------------------------------------------------------------------------

@@ -25,7 +25,10 @@ from repro_torch.kernels.flash_attention import (
     decode_combine, design, flash_attention_cuda, flash_attention_plain,
 )
 from repro_torch.kernels.loss_weighted_update import loss_weighted_update_cuda
-from repro_torch.kernels.pack import pack_int4_cuda, unpack_int4_cuda
+from repro_torch.kernels.pack import (
+    pack_int4_cuda, pack_int4_group_cuda, pack_int4_group_plain,
+    unpack_int4_cuda, unpack_int4_group_cuda, unpack_int4_group_plain,
+)
 from repro_torch.kernels.quantize import (
     dequantize_int8_cuda, quantize_int8_cuda,
 )
@@ -56,6 +59,151 @@ def test_pack_unpack_kernels_equal_plain(card, shape, axis):
     p = pack_int4_cuda(q, axis=axis)
     assert torch.equal(p, ref.pack_nibbles_ref(q, axis=axis))
     assert torch.equal(unpack_int4_cuda(p, axis=axis), q)
+
+
+# the grouped pack's leaf kinds, (nibble shape, axis, real elements d):
+# row leaves, column leaves at inner 256 and 768, tail-only, odd tails,
+# whole blocks and a tail (rows that break 16-byte slots: the scalar
+# walk), a middle axis, lm100m's stacked wk
+PACK_LEAVES = [
+    ((3, 512), 1, 512), ((2, 512, 256), 1, 512), ((2, 256, 768), 1, 256),
+    ((4, 12, 256), 2, 64), ((3, 256), 1, 77), ((5, 256), 1, 1),
+    ((2, 512), 1, 300), ((2, 512, 3), 1, 300), ((3, 2, 768, 3, 4), 2, 768),
+    ((768,), 0, 700), ((4, 12, 768, 4, 64), 2, 768),
+]
+
+
+def _nibble_leaves(card, specs, seed):
+    """``(q, d, axis)`` leaves of int8 nibbles, zero past ``d`` (the
+    quantizer's padding)."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+    leaves = []
+    for shape, ax, d in specs:
+        q = torch.randint(-8, 8, shape, generator=gen, device=card,
+                          dtype=torch.int8)
+        q.narrow(ax, d, shape[ax] - d).zero_()
+        leaves.append((q, d, ax))
+    return leaves
+
+
+def _check_group(leaves):
+    """One grouped pack and one grouped unpack of ``leaves``, each equal to
+    its plain version bit for bit; returns the launches they made."""
+    build.reset_launches()
+    packed = pack_int4_group_cuda(leaves)
+    wires = [(p, d, ax) for p, (_, d, ax) in zip(packed, leaves)]
+    back = unpack_int4_group_cuda(wires)
+    launches = (build.LAUNCHES["pack_int4"], build.LAUNCHES["unpack_int4"])
+    for p, want in zip(packed, pack_int4_group_plain(leaves)):
+        assert torch.equal(p, want), tuple(p.shape)
+    for u, want, (q, d, ax) in zip(back, unpack_int4_group_plain(wires),
+                                   leaves):
+        assert torch.equal(u, want), tuple(u.shape)
+        assert torch.equal(u, q.narrow(ax, 0, d))
+    return launches
+
+
+def test_grouped_pack_unpack_equal_plain_on_every_leaf_kind(card):
+    assert _check_group(_nibble_leaves(card, PACK_LEAVES, 21)) == (1, 1)
+
+
+def test_grouped_pack_unpack_exhaustive_over_byte_values(card):
+    """Pack: every (low, high) nibble pair in a whole block and in a tail;
+    unpack: every byte value in whole blocks and in a tail.  Each on the
+    16-byte walk and, one byte off alignment, on the scalar walk."""
+    lo, hi = torch.meshgrid(torch.arange(-8, 8), torch.arange(-8, 8),
+                            indexing="ij")
+    lo, hi = lo.reshape(-1), hi.reshape(-1)
+    block = torch.cat([lo.reshape(2, 128), hi.reshape(2, 128)], dim=1)
+    k = torch.arange(3 * 127).reshape(3, 127) % 256
+    tail = torch.zeros((3, 256), dtype=torch.int64)
+    tail[:, :127], tail[:, 127:254] = lo[k], hi[k]       # rem 254: 127 pairs
+    byte = torch.arange(-128, 128).reshape(2, 128)
+    for off in (0, 1):
+        def at(t, off=off):
+            t = t.to(device=card, dtype=torch.int8)
+            buf = torch.zeros(t.numel() + off, dtype=torch.int8, device=card)
+            v = buf[off:].view(t.shape)
+            v.copy_(t)
+            return v
+
+        leaves = [(at(block), 256, 1), (at(tail), 254, 1)]
+        packed = pack_int4_group_cuda(leaves)
+        for p, want in zip(packed, pack_int4_group_plain(leaves)):
+            assert torch.equal(p, want), off
+        wires = [(at(byte), 256, 1), (at(byte), 255, 1),
+                 (at(byte.reshape(-1)), 512, 0)]
+        for u, want in zip(unpack_int4_group_cuda(wires),
+                           unpack_int4_group_plain(wires)):
+            assert torch.equal(u, want), off
+
+
+def test_grouped_pack_unpack_take_misaligned_views(card):
+    """Leaves one byte off their 16-byte alignment, and the pod rows
+    ``a[i]`` of a pod-stacked wire array (``_merge_sliced``'s decode),
+    take the kernels' scalar walk and stay bitwise."""
+    leaves = []
+    for q, d, ax in _nibble_leaves(card, PACK_LEAVES, 22):
+        buf = torch.empty(q.numel() + 1, dtype=torch.int8, device=card)
+        v = buf[1:].view(q.shape)
+        v.copy_(q)
+        leaves.append((v, d, ax))
+    assert _check_group(leaves) == (1, 1)
+    stacked, = _nibble_leaves(card, [((3, 2, 512), 2, 300)], 23)
+    wire_rows, = pack_int4_group_cuda([stacked])
+    rows = [(wire_rows[i], 300, 1) for i in range(3)]   # 300-byte strides
+    for u, want in zip(unpack_int4_group_cuda(rows),
+                       unpack_int4_group_plain(rows)):
+        assert torch.equal(u, want)
+
+
+def test_grouped_pack_splits_long_trees_and_checks_inputs(card):
+    """33 leaves take two launches each way; bad leaves raise before any
+    launch."""
+    specs = [((2 + i % 3, 512), 1, 1 + 15 * i) for i in range(33)]
+    assert _check_group(_nibble_leaves(card, specs, 24)) == (2, 2)
+    q, d, ax = _nibble_leaves(card, [((2, 512), 1, 300)], 25)[0]
+    build.reset_launches()
+    with pytest.raises(TypeError):
+        pack_int4_group_cuda([(q.to(torch.int32), d, ax)])
+    with pytest.raises(ValueError, match="CUDA"):
+        pack_int4_group_cuda([(q, d, ax), (q.cpu(), d, ax)])
+    with pytest.raises(ValueError, match="contiguous"):
+        pack_int4_group_cuda([(q.T, 2, 0)])
+    with pytest.raises(ValueError, match="real elements"):
+        pack_int4_group_cuda([(q, 513, ax)])
+    p, = pack_int4_group_cuda([(q, d, ax)])
+    with pytest.raises(ValueError, match="wire bytes"):
+        unpack_int4_group_cuda([(p, d + 3, ax)])
+    assert build.LAUNCHES["pack_int4"] == 1
+    assert build.LAUNCHES["unpack_int4"] == 0
+
+
+def test_encode_tree_packs_and_unpacks_once_on_card(card):
+    """``encode_tree(..., "int4")`` with a residual is one pack and one
+    unpack launch on the card, and its payloads and residuals are the
+    per-leaf plain composition's bitwise."""
+    from repro_torch.dist.compression import encode_tree
+    gen = torch.Generator(device=card).manual_seed(26)
+    shapes = [(3, 512), (3, 2, 70), (4, 12, 64), (2, 300, 3), (3, 768, 4),
+              ()]
+    tree = {f"l{i}": torch.randn(s, generator=gen, device=card)
+            for i, s in enumerate(shapes)}
+    noise = wire.GeneratorNoise(3, card)
+    build.reset_launches()
+    pays, rec, err = encode_tree(tree, "int4", round_step=2, noise=noise)
+    assert build.LAUNCHES["pack_int4"] == 1
+    assert build.LAUNCHES["unpack_int4"] == 1
+    fmt = wire.get_format("int4")
+    for i, (k, x) in enumerate(tree.items()):
+        q, scale, s, ax, d, _ = fmt._quantize(x, (2, i), noise)
+        packed, = pack_int4_group_plain([(q, d, ax)])
+        assert torch.equal(pays[k]["q_packed"], packed), k
+        assert torch.equal(pays[k]["scales"], scale), k
+        qt, = unpack_int4_group_plain([(packed, d, ax)])
+        r = wire.BlockedIntFormat.decode(fmt, {"q": qt, "scales": scale},
+                                         x.shape, x.dtype)
+        assert torch.equal(rec[k], r) and torch.equal(err[k], x - r), k
 
 
 def _scalars(card, n_pods, any_push, seed):
@@ -560,12 +708,15 @@ def _spec_inputs(spec, card):
         q, s = quantize_int8_cuda(randn(*g))
         return lambda: dequantize_int8_cuda(q, s, g)
     if name in ("pack_int4", "unpack_int4"):
-        q = torch.randint(-8, 8, g, generator=gen, device=card,
-                          dtype=torch.int8)
+        # (units, 256, inner) blocked on axis 1: the spec's units of
+        # 128*inner packed bytes, so the same slots and tiles
+        units, unit = shapes["p"]
+        q = torch.randint(-8, 8, (units, 256, unit // 128), generator=gen,
+                          device=card, dtype=torch.int8)
         if name == "pack_int4":
-            return lambda: pack_int4_cuda(q)
-        p = pack_int4_cuda(q)
-        return lambda: unpack_int4_cuda(p)
+            return lambda: pack_int4_cuda(q, axis=1)
+        p = pack_int4_cuda(q, axis=1)
+        return lambda: unpack_int4_cuda(p, axis=1)
     if name == "loss_weighted_update":
         gl, pods = randn(*g), randn(2, *g)
         return lambda: loss_weighted_update_cuda(gl, pods, denom - 0.8, w2,
