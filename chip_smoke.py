@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths on one NVIDIA card: the Hermes
-trainer and serving.
+trainer, serving, and the Level-A cluster simulator.
 
     python3 chip_smoke.py
 
@@ -61,7 +61,17 @@ Phases (any failure raises and the script exits nonzero):
    version, and the synchronising calls of one lm100m int4
    round, one int8 dispatch + commit and a short trainer run are counted
    under ``torch.cuda.set_sync_debug_mode("warn")``;
-9. a ``kernels`` JSON line, the ``nvidia-smi`` line, and the result line.
+9. Level A, the paper's cluster simulator: (a) one SGD step of each CNN
+   (mnist-cnn, cifar-alexnet) on the card against the CPU, loss,
+   gradients and parameters; (b) the grouped pack and unpack on the int4
+   push trees of both CNNs (nearly all short tails), bitwise, timed, one
+   launch a pass (``pack_int4[mnist-cnn]`` and the others in the
+   ``kernels`` line); (c) the quickstart's study, ``run_framework`` with
+   int4 Hermes then BSP, and (d) cifar-alexnet Hermes at Table III's
+   settings, each with the launch counters zeroed just before and read
+   just after: one pack and one unpack launch a push, replicas on the
+   card;
+10. a ``kernels`` JSON line, the ``nvidia-smi`` line, and the result line.
 
 It needs the repository's ``src/`` beside it and imports neither JAX nor
 the JAX package.
@@ -937,6 +947,193 @@ def analyzer(torch, dev, results) -> None:
     torch.cuda.empty_cache()
 
 
+def tree_gap(got, want):
+    """Largest |got - want| over matching tensors, and the largest |want|."""
+    gap = max(float((a.detach().cpu() - b.detach().cpu()).abs().max())
+              for a, b in zip(got, want))
+    top = max(float(b.detach().abs().max()) for b in want)
+    return gap, top
+
+
+def level_a(torch, dev, results) -> None:
+    """Phase 9: the paper's Level-A simulator on the card: the CNN step
+    against the CPU, the grouped pack and unpack on the CNN trees, the
+    quickstart's study and cifar-alexnet Hermes at Table III's settings."""
+    from repro_torch.config import HermesConfig
+    from repro_torch.core.allocator import Allocation
+    from repro_torch.core.bundles import make_paper_bundle
+    from repro_torch.core.cluster import _make_step
+    from repro_torch.core.simulator import run_framework
+    from repro_torch.dist import wire
+    from repro_torch.dist.compression import payload_bytes
+    from repro_torch.kernels import build
+    from repro_torch.kernels.pack import (
+        pack_int4_group_cuda, pack_int4_group_plain, unpack_int4_group_cuda,
+        unpack_int4_group_plain)
+    from repro_torch.models.cnn import param_count
+    from repro_torch.utils.trees import (
+        tree_flatten, tree_leaves, tree_map, tree_unflatten)
+
+    archs = {"mnist": "mnist-cnn", "cifar": "cifar-alexnet"}
+    # (a) one SGD step of each CNN at full width on the card against the
+    # plain CPU step, from one set of parameters; the second step reads a
+    # momentum buffer (cifar: 0.9).  cuDNN's fp32 convs (TF32 off) sum in
+    # other orders than the CPU's: held to 1e-4 of each tensor's largest
+    # magnitude
+    tol = 1e-4
+    trees = {}
+    for dataset, arch in archs.items():
+        bundle, _ = make_paper_bundle(dataset, n=256)
+        params = bundle.init(torch.Generator().manual_seed(0), "cpu")
+        trees[arch] = params
+        batch = {k: torch.as_tensor(v[:16])
+                 for k, v in bundle.train_data.items()}
+        step = _make_step(bundle)
+        out = {}
+        for where in ("cpu", dev):
+            p = tree_map(lambda x: x.to(where), params)
+            b = {k: v.to(where) for k, v in batch.items()}
+            leaves, treedef = tree_flatten(p)
+            leaves = [x.detach().requires_grad_(True) for x in leaves]
+            loss = bundle.loss(tree_unflatten(treedef, leaves), b)
+            grads = torch.autograd.grad(loss, leaves)
+            mom = tree_map(torch.zeros_like, p)
+            for _ in range(2):
+                p, mom = step(p, mom, b)
+            out[str(where)] = (float(loss.detach()), list(grads),
+                               tree_leaves(p),
+                               float(bundle.loss(p, b)))
+        cpu, card = out["cpu"], out[str(dev)]
+        loss_gap = abs(card[0] - cpu[0]) / abs(cpu[0])
+        grad_gap, grad_top = tree_gap(card[1], cpu[1])
+        par_gap, par_top = tree_gap(card[2], cpu[2])
+        on_card = all(x.device == dev for x in card[2])
+        log(f"[9a] {arch} ({param_count(params):,} parameters, batch 16, "
+            f"eta {bundle.eta}, momentum {bundle.momentum}): card vs CPU "
+            f"loss rel gap {loss_gap:.2e}, gradients {grad_gap:.2e} of "
+            f"{grad_top:.3g}, parameters after two steps {par_gap:.2e} of "
+            f"{par_top:.3g}, loss after them {card[3]:.6f} / {cpu[3]:.6f} "
+            f"(tolerance {tol:g} relative to the largest magnitude)")
+        if (not on_card or loss_gap > tol or grad_gap > tol * grad_top
+                or par_gap > tol * par_top
+                or abs(card[3] - cpu[3]) > tol * abs(cpu[3])):
+            raise AssertionError(f"{arch}: the step on the card disagrees "
+                                 f"with the CPU")
+
+    # (b) the grouped pack and unpack on the int4 payload trees of a push
+    fmt = wire.get_format("int4")
+    noise = wire.GeneratorNoise(9, dev)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    cases = {}
+    for arch, params in trees.items():
+        pack_leaves = []
+        for i, x in enumerate(tree_leaves(params)):
+            delta = 1e-2 * torch.randn(x.shape, generator=gen, device=dev)
+            q, _, _, ax, d, _ = fmt._quantize(delta, (0, i), noise)
+            pack_leaves.append((q, d, ax))
+        wires = pack_int4_group_plain(pack_leaves)
+        unpack_leaves = [(p, d, ax) for p, (_, d, ax) in
+                         zip(wires, pack_leaves)]
+        cases[f"pack_int4[{arch}]"] = (
+            "pack_int4", lambda lv=pack_leaves: pack_int4_group_cuda(lv),
+            lambda lv=pack_leaves: pack_int4_group_plain(lv),
+            [q.narrow(ax, 0, d) for q, d, ax in pack_leaves])
+        cases[f"unpack_int4[{arch}]"] = (
+            "unpack_int4",
+            lambda lv=unpack_leaves: unpack_int4_group_cuda(lv),
+            lambda lv=unpack_leaves: unpack_int4_group_plain(lv), wires)
+        log(f"[9b] {arch}: {len(pack_leaves)} leaves, blocked axes and real "
+            f"lengths {[(ax, d) for _, d, ax in pack_leaves]}; int4 push "
+            f"{payload_bytes(params, 'int4'):,} B (none "
+            f"{payload_bytes(params, 'none'):,})")
+    for name, (kernel, kern, plain, inputs) in cases.items():
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"{name}: kernel differs from its plain "
+                                 f"version")
+        moved = nbytes(inputs) + nbytes(got)
+        bound_ms, bound_by = bound(0, moved, (torch.int8,))
+        build.reset_launches()
+        kern()
+        per_pass = build.LAUNCHES[kernel]
+        wall_ms = time_ms(torch, kern, reps=50)
+        ms = device_ms(torch, kern, reps=20)
+        plain_ms = time_ms(torch, plain, reps=20)
+        results[name] = {
+            "name": name, "route": "cuda", "source": WIRE_SOURCE,
+            "replaces": REPLACES[kernel], "launches": None,
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "wall_ms": wall_ms, "launches_per_pass": per_pass}
+        log(f"    {name:26s} equal=True  kernel {ms:.4f} ms [wall "
+            f"{wall_ms:.4f}; {per_pass} launches a pass]  plain "
+            f"{plain_ms:.4f} ms  bound {bound_ms:.6f} ms ({bound_by}; "
+            f"{moved:,} B)")
+        if per_pass != 1:
+            raise AssertionError(f"{name}: {per_pass} launches a pass")
+
+    # (c) the quickstart's study (examples/quickstart.py) on the card, and
+    # (d) cifar-alexnet Hermes at Table III's settings
+    # (benchmarks/table3_convergence.py), bounded in iterations and wall
+    def study(label, framework, bundle, arch, **kw):
+        torch.cuda.synchronize()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        r = run_framework(framework, bundle, device=dev, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in build.LAUNCHES.items() if v}
+        pushes = sum(p for *_, p in r.gup_trace)
+        log(f"    {label}: {r.iterations} iterations, {r.ps_updates} PS "
+            f"updates, {pushes} gated pushes, sim {r.sim_time:.2f} s, acc "
+            f"{r.conv_acc:.3f} (reached {r.reached_target}), {r.api_calls} "
+            f"API calls, {r.bytes_transferred / 1e6:.2f} MB, WI "
+            f"{r.wi_avg:.2f}, wall {wall:.1f} s, replicas on {r.device}, "
+            f"launches {launches}")
+        if r.device != str(dev):
+            raise AssertionError(f"{label}: replicas on {r.device}")
+        if framework == "hermes":
+            if pushes < 1 or launches.get("pack_int4", 0) < 1 \
+                    or launches != {"pack_int4": pushes,
+                                    "unpack_int4": pushes}:
+                raise AssertionError(f"{label}: {pushes} pushes, launches "
+                                     f"{launches}")
+            for kernel in ("pack_int4", "unpack_int4"):
+                results[f"{kernel}[{arch}]"]["launches"] = launches[kernel]
+        return r, wall
+
+    bundle, _ = make_paper_bundle("mnist", n=3000, eval_batch=128)
+    kw = dict(num_workers=6, target_acc=0.90, max_iterations=500,
+              max_wall=60, init_alloc=Allocation(128, 16), eval_every=3)
+    log("[9c] the quickstart on the card: mnist n 3000, 6 workers, "
+        "Allocation(128, 16), target 0.90, int4 Hermes, then BSP")
+    h, h_wall = study("hermes", "hermes", bundle, "mnist-cnn",
+                      hermes_cfg=HermesConfig(alpha=-1.3, beta=0.1, lam=5,
+                                              eta=bundle.eta), **kw)
+    b, b_wall = study("bsp", "bsp", bundle, "mnist-cnn", **kw)
+    log(f"    {'':10s}{'iters':>8s}{'sim time':>10s}{'acc':>8s}"
+        f"{'API calls':>11s}{'WI':>6s}{'wall':>8s}")
+    for r, wall in ((b, b_wall), (h, h_wall)):
+        log(f"    {r.framework:10s}{r.iterations:8d}{r.sim_time:9.1f}s"
+            f"{r.conv_acc:8.3f}{r.api_calls:11d}{r.wi_avg:6.2f}"
+            f"{wall:7.1f}s")
+    log(f"    Hermes speedup vs BSP: {b.sim_time / h.sim_time:.2f}x (sim "
+        f"time); comm reduction: {1 - h.api_calls / b.api_calls:.1%} (API "
+        f"calls)")
+
+    bundle, noniid = make_paper_bundle("cifar", n=6000, eval_batch=128)
+    log("[9d] cifar-alexnet Hermes at Table III's settings on the card: n "
+        "6000, 12 workers, non-IID, lam 15, int4, target 0.62, capped at "
+        "900 iterations and 45 s of wall time")
+    study("hermes", "hermes", bundle, "cifar-alexnet", num_workers=12,
+          noniid=noniid, target_acc=0.62, max_iterations=900, max_wall=45,
+          init_alloc=Allocation(128, 16), eval_every=3,
+          hermes_cfg=HermesConfig(alpha=-1.3, beta=0.1, lam=15,
+                                  eta=bundle.eta))
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1281,8 +1478,9 @@ def main() -> int:
     serving_kernels(torch, dev, results)
     serving_paths(torch, dev, results)
     analyzer(torch, dev, results)
+    level_a(torch, dev, results)
 
-    # ---- 9. result lines -------------------------------------------------
+    # ---- 10. result lines -------------------------------------------------
     print(json.dumps({"kernels": list(results.values())}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

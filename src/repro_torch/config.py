@@ -1,7 +1,7 @@
 """Run configuration: the subset of the reference's ``ModelConfig`` that
 the ported paths read (the dense GQA LM, the attention-free RWKV6 LM and
-the RecurrentGemma hybrid), plus ``HermesConfig`` and
-``OptimizerConfig``.
+the RecurrentGemma hybrid), plus ``HermesConfig`` (the gate, the wire,
+the allocator and elastic membership) and ``OptimizerConfig``.
 
 A copy, not an import: the port never imports the JAX package.  Field
 names and defaults are the reference's (``src/repro/config.py``) so one
@@ -145,10 +145,22 @@ class HermesConfig:
     eta: float = 0.1
     alpha_min: float = -3.0
     alpha_max: float = 0.0
+    # the allocator (paper §IV-A): IQR fence factor, mini-batch sizes, and
+    # the statistic ("median" | "mean") the dual binary search aims at
+    iqr_k: float = 1.5
+    mbs_choices: Tuple[int, ...] = (2, 4, 8, 16, 32, 64, 128, 256)
+    target: str = "median"
     compression: str = "int4"
     error_feedback: bool = True
     kernel_dispatch: str = "auto"  # auto | on | off
     async_rounds: bool = False
+    # elastic membership: a member is declared dead after this many typical
+    # iteration times, and a resize keeps at least min_live_pods; a
+    # recovered member rejoins only when the speedup over the remaining
+    # rounds beats a stall of rejoin_cost_rounds rounds
+    failure_timeout_factor: float = 3.0
+    min_live_pods: int = 1
+    rejoin_cost_rounds: float = 2.0
     participation_rate: float = 1.0
     admission: str = "topk"
     n_clusters: int = 1
@@ -161,6 +173,13 @@ class HermesConfig:
             raise ValueError(f"kernel_dispatch {self.kernel_dispatch!r}")
         if self.window < 1 or self.lam < 1:
             raise ValueError("window and lam must be >= 1")
+        if self.failure_timeout_factor <= 0.0:
+            raise ValueError(
+                f"failure_timeout_factor {self.failure_timeout_factor}")
+        if self.min_live_pods < 1:
+            raise ValueError(f"min_live_pods {self.min_live_pods}")
+        if self.rejoin_cost_rounds < 0.0:
+            raise ValueError(f"rejoin_cost_rounds {self.rejoin_cost_rounds}")
         if not 0.0 < self.participation_rate <= 1.0:
             raise ValueError(f"participation_rate {self.participation_rate}")
         if self.admission not in ("topk", "prob"):

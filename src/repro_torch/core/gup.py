@@ -1,21 +1,81 @@
-"""HermesGUP (paper Algorithm 1), the device-resident gate batched over pods.
+"""HermesGUP (paper Algorithm 1): the z-score gate on recent test losses.
 
-The counterpart of the reference's ``core/gup.py:gup_state_jax`` /
-``gup_gate_jax`` with a leading pod axis written out (the reference vmaps
-it).  Each pod keeps a ring buffer of its last ``window`` eval losses and
-pushes when ``z = (x - mean) / std <= alpha``; ``std`` is the *population*
-standard deviation (divide by n, like ``np.std``), and ``z`` is ``+inf``
-below two samples or at zero spread.
+A worker keeps its last ``window`` test losses and, after an iteration
+with test loss ``x``, pushes iff ``z = (x - mean) / std <= alpha``;
+``std`` is the *population* standard deviation (divide by n, like
+``np.std``), and ``z`` is ``+inf`` below two samples or at zero spread.
+After ``lam`` iterations without a push, ``alpha`` decays by ``beta``
+toward ``alpha_max`` (more permissive), and it never falls below
+``alpha_min``.
+
+Two forms, as in the reference's ``core/gup.py``: the host gate of one
+worker (``GUPState``, ``gup_init``, ``gup_update``; the Level-A
+simulator), and the device-resident gate batched over pods
+(``gup_gate``: ``gup_gate_jax`` with the pod axis written out, which the
+reference vmaps; the Level-B trainer).
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import dataclasses
+from collections import deque
+from typing import Deque, Dict, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.config import HermesConfig
 
 State = Dict[str, torch.Tensor]
+
+
+@dataclasses.dataclass
+class GUPState:
+    cfg: HermesConfig
+    queue: Deque[float]
+    alpha: float
+    n_iter: int = 0
+    pushes: int = 0
+    iterations: int = 0
+
+    def snapshot(self) -> dict:
+        return {"alpha": self.alpha, "n_iter": self.n_iter,
+                "pushes": self.pushes, "iterations": self.iterations,
+                "queue": list(self.queue)}
+
+
+def gup_init(cfg: HermesConfig) -> GUPState:
+    return GUPState(cfg=cfg, queue=deque(maxlen=cfg.window), alpha=cfg.alpha)
+
+
+def zscore(queue, x: float) -> float:
+    """z of x against the current queue; +inf when undefined (no variance)."""
+    if len(queue) < 2:
+        return float("inf")
+    mu = float(np.mean(queue))
+    sigma = float(np.std(queue))
+    if sigma <= 1e-12:
+        return float("inf")
+    return (x - mu) / sigma
+
+
+def gup_update(state: GUPState, test_loss: float) -> Tuple[bool, GUPState]:
+    """Algorithm 1, one iteration of one worker.  Returns (push?, state);
+    mutates ``state``."""
+    cfg = state.cfg
+    z = zscore(state.queue, test_loss)
+    state.queue.append(test_loss)
+    state.iterations += 1
+    push = z <= state.alpha
+    if push:
+        state.n_iter = 0
+        state.pushes += 1
+    else:
+        state.n_iter += 1
+        if state.n_iter >= cfg.lam:
+            state.alpha = min(state.alpha + cfg.beta, cfg.alpha_max)
+            state.n_iter = 0
+    state.alpha = max(state.alpha, cfg.alpha_min)
+    return push, state
 
 
 def gup_gate(state: State, test_loss: torch.Tensor, cfg: HermesConfig

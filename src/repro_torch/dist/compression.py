@@ -1,5 +1,6 @@
-"""Tree-level push-payload encoding with error feedback (the reference's
-``dist/compression.py:encode_tree`` / ``decode_tree``).
+"""Tree-level push-payload encoding with error feedback and its billing
+(the reference's ``dist/compression.py``: ``encode_tree``,
+``decode_tree``, ``compress_tree``, ``payload_bytes``).
 
     eff           = tree + error          (error defaults to zeros)
     payloads      = encode(eff)           per leaf
@@ -20,11 +21,12 @@ plain versions.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Optional, Tuple
 
 import torch
 
-from repro_torch.dist.wire import NoiseFn, get_format
+from repro_torch.dist.wire import NoiseFn, get_format, payload_nbytes
 from repro_torch.kernels import ops
 from repro_torch.utils.trees import (
     flatten_up_to, tree_flatten, tree_map, tree_unflatten,
@@ -74,3 +76,40 @@ def decode_tree(payloads: Tree, template: Tree, mode: str) -> Tree:
     return tree_unflatten(treedef, fmt.decode_group(
         flatten_up_to(treedef, payloads), [x.shape for x in leaves],
         [x.dtype for x in leaves]))
+
+
+def compress_tree(tree: Tree, mode: str, error: Optional[Tree] = None, *,
+                  round_step: int = 0, noise: Optional[NoiseFn] = None
+                  ) -> Tuple[Tree, Tree]:
+    """Compress-decompress a payload tree with error feedback: returns
+    ``(reconstructed, new_error)``, what crosses the wire after a round
+    trip and the residual the sender folds into its next payload."""
+    _, rec, err = encode_tree(tree, mode, error, round_step=round_step,
+                              noise=noise)
+    return rec, err
+
+
+@functools.lru_cache(maxsize=None)
+def _leaf_bytes(mode: str, shape: Tuple[int, ...]) -> int:
+    """The bytes of one encoded fp32 leaf of ``shape``, measured from what
+    the format's ``encode`` emits for a CPU tensor of zeros."""
+    payload = get_format(mode).encode(torch.zeros(shape), key=(0, 0))
+    return payload_nbytes(payload)
+
+
+def payload_bytes(tree: Tree, mode: str, *, param_axes=None,
+                  rules=None) -> int:
+    """Wire bytes for one push of ``tree`` under ``mode``, *measured* per
+    leaf from the format's encoded payload (block padding, scales and the
+    int4 nibble packing included) and memoised per shape.  Leaf dtypes
+    are ignored: the wire format is billed, not the in-memory dtype.
+
+    The reference's ``param_axes`` / ``rules`` sharding hint needs the
+    port of ``dist/sharding.py`` (ROADMAP queue 1 item 8) and raises."""
+    if param_axes is not None or rules is not None:
+        raise NotImplementedError(
+            "payload_bytes: the param_axes/rules block_axis hint needs "
+            "dist/sharding.py, not ported yet (ROADMAP queue 1 item 8)")
+    get_format(mode)  # an unknown mode raises even for an empty tree
+    return sum(_leaf_bytes(mode, tuple(int(n) for n in x.shape))
+               for x in tree_flatten(tree)[0])

@@ -798,3 +798,96 @@ def test_launch_matches_its_spec(card, label, tmp_path):
     assert tuple(args["grid"]) == spec.grid
     assert tuple(args["block"]) == (spec.threads, 1, 1)
     assert args["shared memory"] == spec.smem + spec.static_smem, args
+
+
+# ---------------------------------------------------------------------------
+# Level A: the paper's CNNs on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ["mnist-cnn", "cifar-alexnet"])
+def test_grouped_pack_unpack_on_the_cnn_trees(card, arch):
+    """The int4 payload trees of a Level-A push: nearly every byte of the
+    CNNs sits in a short tail (fc1 (1568, 64) is 1568 rows of one
+    64-element block), one launch each way, bitwise."""
+    from repro_torch.models.cnn import make_paper_model
+    from repro_torch.utils.trees import tree_leaves
+    params = make_paper_model(arch, torch.Generator().manual_seed(0), card)
+    gen = torch.Generator(device=card).manual_seed(31)
+    fmt, noise = wire.get_format("int4"), wire.GeneratorNoise(5, card)
+    leaves = []
+    for i, x in enumerate(tree_leaves(params)):
+        delta = 1e-2 * torch.randn(x.shape, generator=gen, device=card)
+        q, _, _, ax, d, _ = fmt._quantize(delta, (0, i), noise)
+        leaves.append((q, d, ax))
+    assert _check_group(leaves) == (1, 1)
+
+
+def _gap(got, want):
+    """Largest |got - want| over matching tensors, over the largest
+    |want|."""
+    gap = max(float((a.cpu() - b).abs().max()) for a, b in zip(got, want))
+    return gap / max(float(b.abs().max()) for b in want)
+
+
+@pytest.mark.parametrize("dataset", ["mnist", "cifar"])
+def test_cnn_step_on_card_matches_cpu(card, dataset):
+    """The loss and gradients at one set of parameters, and the parameters
+    and loss after two SGD steps of the bundle's optimizer (cifar:
+    momentum 0.9), on the card (cuDNN convs, TF32 off) and on the CPU, at
+    the studies' mini-batch of 16.  cuDNN sums in other orders: each
+    within 1e-4 of the largest magnitude, the loss after the steps within
+    1e-3 (cifar's first steps blow the logits up; 32 samples land 1.8e-4
+    apart).  (At 64 samples one max-pool
+    window of cifar's nears a tie, and the two devices route its gradient
+    to different elements: 1.4e-3 of conv1's largest gradient, with the
+    card the one that agrees with fp64.)"""
+    from repro_torch.core.bundles import make_paper_bundle
+    from repro_torch.core.cluster import _make_step
+    from repro_torch.utils.trees import (
+        tree_flatten, tree_leaves, tree_map, tree_unflatten)
+    batch = 16
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    bundle, _ = make_paper_bundle(dataset, n=200)
+    params = bundle.init(torch.Generator().manual_seed(0), "cpu")
+    data = {k: torch.as_tensor(v[:batch])
+            for k, v in bundle.train_data.items()}
+    step = _make_step(bundle)
+    out = {}
+    for dev in ("cpu", card):
+        leaves, treedef = tree_flatten(tree_map(lambda x: x.to(dev), params))
+        leaves = [x.requires_grad_(True) for x in leaves]
+        b = {k: v.to(dev) for k, v in data.items()}
+        loss = bundle.loss(tree_unflatten(treedef, leaves), b)
+        grads = torch.autograd.grad(loss, leaves)
+        p = tree_unflatten(treedef, [x.detach() for x in leaves])
+        mom = tree_map(torch.zeros_like, p)
+        for _ in range(2):
+            p, mom = step(p, mom, b)
+        out[dev] = (float(loss.detach()), grads, tree_leaves(p),
+                    float(bundle.loss(p, b)))
+    cpu, got = out["cpu"], out[card]
+    assert all(x.is_cuda for x in got[2])
+    gaps = (abs(got[0] - cpu[0]) / abs(cpu[0]), _gap(got[1], cpu[1]),
+            _gap(got[2], cpu[2]), abs(got[3] - cpu[3]) / abs(cpu[3]))
+    assert max(gaps[:3]) <= 1e-4 and gaps[3] <= 1e-3, gaps
+
+
+def test_level_a_hermes_on_card_packs_every_push(card):
+    """A short Hermes study on the card: each int4 push is one launch of
+    the grouped pack and one of the grouped unpack."""
+    from repro_torch.core.allocator import Allocation
+    from repro_torch.core.bundles import make_paper_bundle
+    from repro_torch.core.simulator import run_framework
+    bundle, _ = make_paper_bundle("mnist", n=600, eval_batch=64)
+    build.reset_launches()
+    r = run_framework("hermes", bundle, num_workers=4,
+                      init_alloc=Allocation(32, 16), target_acc=1.01,
+                      max_iterations=16, max_wall=1e9, patience=10 ** 6,
+                      hermes_cfg=HermesConfig(alpha=-0.5, lam=2,
+                                              eta=bundle.eta))
+    pushes = sum(p for *_, p in r.gup_trace)
+    assert r.iterations == 16 and pushes > 0
+    assert build.LAUNCHES["pack_int4"] == build.LAUNCHES["unpack_int4"] \
+        == pushes
+    assert r.bytes_by_kind["push"] == 60089 * pushes
