@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths on one NVIDIA card: the Hermes
-trainer, serving, and the Level-A cluster simulator.
+trainer, serving, the Level-A cluster simulator, the single trainer with
+its checkpoints, and the paper's studies.
 
     python3 chip_smoke.py
 
@@ -71,7 +72,23 @@ Phases (any failure raises and the script exits nonzero):
    settings, each with the launch counters zeroed just before and read
    just after: one pack and one unpack launch a push, replicas on the
    card;
-10. a ``kernels`` JSON line, the ``nvidia-smi`` line, and the result line.
+10. the trainer's whole entry point and the paper's studies: (a)
+    ``train_single`` at lm100m (batch 8, seq 128) under deterministic
+    algorithms, 3 steps into a checkpoint, the checkpoint restored on the
+    card and held bit for bit against its file, 3 more steps resumed from
+    it, the losses and the final checkpoint bitwise those of a straight
+    6-step run, ms/step; (b) ``train_hermes`` at lm100m with 4 pods, int4,
+    ``participation_rate=0.5`` under ``topk`` and then ``prob``
+    admission: every admitted set a subset of the open one (``topk``: the
+    budget, ``prob``: the round's draw), one pack, one unpack and one
+    packed merge launch a merged round; (c) the studies of
+    ``repro_torch.studies`` on the card at their own fast settings,
+    ``comm_overhead.smoke`` and ``run``, ``table3_convergence.run("mnist")``,
+    ``straggler.async_overlap`` (its own asserts) and ``gup_trace.run``,
+    each run with the launch counters zeroed just before and read just
+    after (one pack and one unpack launch an int4 push, none for the
+    other frameworks), each study's result a JSON line;
+11. a ``kernels`` JSON line, the ``nvidia-smi`` line, and the result line.
 
 It needs the repository's ``src/`` beside it and imports neither JAX nor
 the JAX package.
@@ -1134,6 +1151,261 @@ def level_a(torch, dev, results) -> None:
     torch.cuda.empty_cache()
 
 
+def _same_bits(a, b) -> bool:
+    """Two host arrays equal byte for byte (shape and dtype too)."""
+    return a.dtype == b.dtype and a.shape == b.shape \
+        and a.tobytes() == b.tobytes()
+
+
+def _checkpoint_arrays(path):
+    """``{key: host array}`` of one checkpoint, read with numpy alone."""
+    import numpy as np
+    with open(path / "manifest.json") as f:
+        leaves = json.load(f)["leaves"]
+    with np.load(path / "arrays.npz") as data:
+        return {m["key"]: data[f"a{m['idx']}"] for m in leaves}
+
+
+def single_trainer(torch, dev, smi) -> None:
+    """Phase 10a: ``train_single`` at lm100m on the card, checkpointed,
+    restored and resumed, against a straight run."""
+    import shutil
+    from repro_torch.checkpoint import restore_tree
+    from repro_torch.checkpoint.checkpointer import (
+        _flatten_with_paths, _to_host)
+    from repro_torch.config import OptimizerConfig
+    from repro_torch.launch.train import _preset, train_single
+    from repro_torch.models.lm import init_lm
+    from repro_torch.optim.optimizers import make_optimizer
+
+    cfg = _preset("lm100m")
+    opt = OptimizerConfig(name="adamw", lr=3e-4)
+    half = 3
+    ckdir = ROOT / "build" / "ckpt_smoke"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    run = dict(batch=8, seq=128, opt_cfg=opt, log_every=10 ** 6, seed=0,
+               device=dev)
+    # Deterministic algorithms make the resumed run bitwise the straight
+    # one: the embedding's backward then accumulates without atomics.
+    # warn_only: cuBLAS's own determinism check would raise without
+    # CUBLAS_WORKSPACE_CONFIG; one stream and fixed shapes keep its
+    # GEMMs repeatable.
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            straight = train_single(cfg, steps=2 * half,
+                                    ckpt_dir=str(ckdir / "straight"), **run)
+            straight_wall = time.perf_counter() - t0
+            first = train_single(cfg, steps=half,
+                                 ckpt_dir=str(ckdir / "resumed"), **run)
+            params = init_lm(cfg, 1, dev)
+            template = {"params": params,
+                        "opt": make_optimizer(opt).init(params), "step": 0}
+            t0 = time.perf_counter()
+            state, step = restore_tree(template, str(ckdir / "resumed"),
+                                       device=dev)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            del template, params
+            saved = _checkpoint_arrays(ckdir / "resumed" / f"step_{half}")
+            restored = {k: _to_host(leaf)[0]
+                        for k, leaf in _flatten_with_paths(state)}
+            on_card = all(leaf.device == dev for _, leaf in
+                          _flatten_with_paths(state["params"]))
+            same_state = (step == half and list(restored) == list(saved)
+                          and state["step"] == half
+                          and state["opt"]["step"] == half
+                          and all(_same_bits(restored[k], saved[k])
+                                  for k in saved))
+            del state, restored, saved
+            torch.cuda.empty_cache()
+            resumed = train_single(cfg, steps=2 * half,
+                                   ckpt_dir=str(ckdir / "resumed"),
+                                   restore=True, **run)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    a = _checkpoint_arrays(ckdir / "straight" / f"step_{2 * half}")
+    b = _checkpoint_arrays(ckdir / "resumed" / f"step_{2 * half}")
+    same_final = list(a) == list(b) and all(_same_bits(a[k], b[k])
+                                            for k in a)
+    n_leaves = len(a)
+    del a, b
+    shutil.rmtree(ckdir, ignore_errors=True)
+    losses = first["losses"] + resumed["losses"]
+    finite = all(math.isfinite(x) for x in straight["losses"])
+    log(f"[10a] train_single at lm100m ({cfg.param_count():,} parameters), "
+        f"batch 8, seq 128, AdamW, deterministic algorithms: "
+        f"{straight['ms_per_step']:.1f} ms/step ({smi}), straight "
+        f"{2 * half} steps in {straight_wall:.1f} s of wall with a "
+        f"checkpoint at the end; losses {straight['losses']}")
+    log(f"    {half} steps, checkpoint, restored on the card in "
+        f"{restore_s:.1f} s: {n_leaves} leaves, state equal to the file bit "
+        f"for bit {same_state} (on the card {on_card}); resumed "
+        f"{resumed['losses']} ({resumed['ms_per_step']:.1f} ms/step): "
+        f"losses bitwise the straight run's {losses == straight['losses']}, "
+        f"final checkpoint bitwise {same_final}; warnings "
+        f"{sorted({str(w.message)[:80] for w in caught})}")
+    if not (finite and same_state and on_card and same_final
+            and losses == straight["losses"]
+            and len(resumed["losses"]) == half):
+        raise AssertionError("train_single's checkpoint round trip or "
+                             "resume differs on the card")
+
+
+def admission_runs(torch, dev) -> None:
+    """Phase 10b: ``train_hermes`` at lm100m, 4 pods, int4, participation
+    0.5, under both admission modes, every admission recorded."""
+    from repro_torch.config import HermesConfig, OptimizerConfig
+    from repro_torch.dist import hermes_sync, wire
+    from repro_torch.kernels import build
+    from repro_torch.launch.train import _preset, train_hermes
+
+    real = hermes_sync.admit_gates
+    record = []
+
+    def recording(gates, losses, cfg, **kw):
+        admitted = real(gates, losses, cfg, **kw)
+        record.append((kw["round_step"], gates.to(torch.bool).cpu(),
+                       admitted.cpu()))
+        return admitted
+
+    for admission in ("topk", "prob"):
+        record.clear()
+        hcfg = HermesConfig(alpha=-1.3, beta=0.1, lam=2, eta=1.0,
+                            compression="int4", participation_rate=0.5,
+                            admission=admission)
+        hermes_sync.admit_gates = recording
+        try:
+            torch.cuda.synchronize()
+            build.reset_launches()
+            t0 = time.perf_counter()
+            out = train_hermes(_preset("lm100m"), steps=10, batch=8, seq=128,
+                               pods=PODS,
+                               opt_cfg=OptimizerConfig(name="adamw",
+                                                       lr=3e-4),
+                               hcfg=hcfg, log_every=10 ** 6, seed=0,
+                               device=dev)
+            wall = time.perf_counter() - t0
+            launches = {k: v for k, v in build.LAUNCHES.items() if v}
+        finally:
+            hermes_sync.admit_gates = real
+        noise = wire.GeneratorNoise(0, dev)
+        faults = []
+        for round_step, opened, admitted in record:
+            n_open = int(opened.sum())
+            if bool((admitted & ~opened).any()):
+                faults.append(f"round {round_step}: admitted not in open")
+            if admission == "topk":
+                want = max(1, n_open // 2) if n_open else 0
+                if int(admitted.sum()) != want:
+                    faults.append(f"round {round_step}: {int(admitted.sum())}"
+                                  f" admitted of {n_open} open")
+            else:
+                u = noise(round_step, hermes_sync.ADMISSION_LEAF, (PODS,))
+                if not torch.equal(admitted, opened & (u < 0.5).cpu()):
+                    faults.append(f"round {round_step}: not the draw")
+        gates = [g for _, _, g in out["history"]]
+        if gates != [int(a.sum()) for _, _, a in record]:
+            faults.append("history differs from the recorded admissions")
+        merges = out["merges"]
+        want_launches = {"pack_int4": merges, "unpack_int4": merges,
+                         "dequant_merge_packed": merges}
+        log(f"[10b] lm100m int4 x {PODS} pods, participation 0.5, "
+            f"{admission}: {out['rounds']} rounds, {merges} merges, open -> "
+            f"admitted {[(int(o.sum()), int(a.sum())) for _, o, a in record]}"
+            f", global loss {out['global_loss']:.4f}, "
+            f"{out['ms_per_step']:.1f} ms/step, {out['ms_per_round']:.1f} "
+            f"ms/round, wall {wall:.1f} s, launches {launches}")
+        if (faults or merges < 1 or not math.isfinite(out["global_loss"])
+                or launches != want_launches):
+            raise AssertionError(f"{admission} admission at lm100m: "
+                                 f"{faults} launches {launches}")
+
+
+def studies(torch, dev) -> None:
+    """Phase 10c: the paper's studies on the card at their fast settings,
+    every run's launches counted."""
+    from repro_torch.kernels import build
+    from repro_torch.studies import (
+        comm_overhead, gup_trace, straggler, table3_convergence)
+
+    runs = []
+
+    def counted(module):
+        real = module.run_framework
+
+        def run(framework, bundle, **kw):
+            torch.cuda.synchronize()
+            build.reset_launches()
+            t0 = time.perf_counter()
+            r = real(framework, bundle, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {k: v for k, v in build.LAUNCHES.items() if v}
+            pushes = sum(p for *_, p in r.gup_trace)
+            cfg = kw.get("hermes_cfg")
+            int4 = framework == "hermes" and cfg.compression == "int4"
+            want = {"pack_int4": pushes, "unpack_int4": pushes} \
+                if int4 and pushes else {}
+            runs.append({"framework": framework,
+                         "async": bool(cfg and cfg.async_rounds),
+                         "iterations": r.iterations, "pushes": pushes,
+                         "sim_s": r.sim_time, "api_calls": r.api_calls,
+                         "mbytes": r.bytes_transferred / 1e6,
+                         "acc": r.conv_acc, "reached": r.reached_target,
+                         "wall_s": wall, "launches": launches,
+                         "device": r.device})
+            if r.device != str(dev) or launches != want:
+                raise AssertionError(f"{framework}: replicas on {r.device}, "
+                                     f"{pushes} int4 pushes, launches "
+                                     f"{launches}")
+            return r
+        return real, run
+
+    cases = (
+        ("comm_overhead.smoke", comm_overhead,
+         lambda: comm_overhead.smoke(device=dev)),
+        ("comm_overhead.run", comm_overhead,
+         lambda: comm_overhead.run(fast=True, device=dev)),
+        ("table3_convergence.run", table3_convergence,
+         lambda: table3_convergence.run("mnist", fast=True, device=dev)),
+        ("straggler.async_overlap", straggler,
+         lambda: straggler.async_overlap(fast=True, device=dev)),
+        ("gup_trace.run", gup_trace,
+         lambda: gup_trace.run(fast=True, device=dev)),
+    )
+    for name, module, call in cases:
+        runs.clear()
+        real, wrapped = counted(module)
+        module.run_framework = wrapped
+        try:
+            t0 = time.perf_counter()
+            out = call()
+            wall = time.perf_counter() - t0
+        finally:
+            module.run_framework = real
+        pushes = sum(r["pushes"] for r in runs)
+        log(f"[10c] {name}: wall {wall:.1f} s, {len(runs)} runs, {pushes} "
+            f"int4 pushes, one pack and one unpack launch a push")
+        print(json.dumps({"study": name, "wall_s": wall, "result": out,
+                          "runs": runs}), flush=True)
+
+
+def trainer_and_studies(torch, dev, smi) -> None:
+    """Phase 10: the single trainer with its checkpoints, admission at
+    lm100m, and the paper's studies on the card."""
+    t0 = time.perf_counter()
+    single_trainer(torch, dev, smi)
+    torch.cuda.empty_cache()
+    admission_runs(torch, dev)
+    torch.cuda.empty_cache()
+    studies(torch, dev)
+    torch.cuda.empty_cache()
+    log(f"[10] phase wall {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1480,7 +1752,9 @@ def main() -> int:
     analyzer(torch, dev, results)
     level_a(torch, dev, results)
 
-    # ---- 10. result lines -------------------------------------------------
+    trainer_and_studies(torch, dev, smi)
+
+    # ---- 11. result lines -------------------------------------------------
     print(json.dumps({"kernels": list(results.values())}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

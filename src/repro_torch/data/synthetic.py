@@ -35,10 +35,14 @@ def make_lm_dataset(n_tokens: int, vocab: int, *, seed: int = 0) -> np.ndarray:
 
 
 def make_batches(tokens: np.ndarray, batch: int, seq: int,
-                 rng: np.random.Generator
+                 rng: np.random.Generator, skip: int = 0
                  ) -> Iterator[Dict[str, torch.Tensor]]:
-    """Endless random windows of ``seq`` tokens; int64 CPU tensors."""
+    """Endless random windows of ``seq`` tokens; int64 CPU tensors.
+    ``skip`` fast-forwards the index stream past that many batches without
+    building them (a resumed run does not replay consumed batches)."""
     n = (len(tokens) - 1) // seq
+    for _ in range(skip):
+        rng.integers(0, n, batch)
     while True:
         idx = rng.integers(0, n, batch)
         x = np.stack([tokens[i * seq:(i + 1) * seq] for i in idx])

@@ -1,6 +1,6 @@
 """The Hermes round over pod-stacked trees (the reference's
-``dist/hermes_sync.py``: ``hermes_pod_state``, ``admit_gates``,
-``hermes_merge``, ``hermes_round`` and its async halves
+``dist/hermes_sync.py``: ``hermes_pod_state``, ``hermes_grow_pod_state``,
+``admit_gates``, ``hermes_merge``, ``hermes_round`` and its async halves
 ``hermes_dispatch`` / ``hermes_commit``; unplaced, one cluster).
 
 Trees are nested dicts of tensors; a pod-stacked tree carries a leading
@@ -59,24 +59,53 @@ def hermes_pod_state(cfg: HermesConfig, n_pods: int,
     }
 
 
+def hermes_grow_pod_state(gup_state: Dict[str, torch.Tensor],
+                          cfg: HermesConfig,
+                          n_new: int = 1) -> Dict[str, torch.Tensor]:
+    """Append ``n_new`` fresh rows to a pod-stacked gate state (the grow
+    path's mirror of :func:`hermes_pod_state`): an empty loss queue,
+    zeroed count and n_iter, alpha back at ``cfg.alpha``.  A fresh row
+    holds fewer than two losses for its first two rounds, so its gate
+    cannot open while it warms up."""
+    fresh = hermes_pod_state(cfg, n_new, gup_state["queue"].device)
+    return {k: torch.cat([x, fresh[k].to(x.dtype)], dim=0)
+            for k, x in gup_state.items()}
+
+
 def _pod_mask(gates: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
     """(n,) gates shaped to broadcast against a (n, ...) stacked leaf."""
     return gates.reshape(gates.shape + (1,) * (leaf.ndim - 1))
 
 
+#: the leaf index under which ``prob`` admission draws its uniforms from a
+#: round's noise source (the reference folds its round key by 0xAD317)
+ADMISSION_LEAF = 0xAD317
+
+
 def admit_gates(gates: torch.Tensor, losses: torch.Tensor,
-                cfg: HermesConfig) -> torch.Tensor:
+                cfg: HermesConfig, *, round_step: int = 0,
+                noise: Optional[NoiseFn] = None) -> torch.Tensor:
     """Participation-rate admission on top of the z-score gate: keep at most
-    ``max(1, floor(participation_rate * n_open))`` of the open gates, the
-    ones with the largest merge weight ``1/loss`` (stable sort, ties to the
-    lower pod index).  ``participation_rate >= 1`` returns ``gates``."""
+    ``max(1, floor(participation_rate * n_open))`` of the open gates.
+    ``participation_rate >= 1`` returns ``gates``.
+
+    ``admission="topk"`` keeps the ones with the largest merge weight
+    ``1/loss`` (stable sort, ties to the lower pod index); ``"prob"`` thins
+    the open gates i.i.d. Bernoulli(rate) with ``u = noise(round_step,
+    ADMISSION_LEAF, (n_pods,))`` and needs ``noise``.  Both only clear gate
+    bits: admitted is a subset of open."""
     prate = float(cfg.participation_rate)
     if prate >= 1.0:
         return gates
-    if cfg.admission != "topk":
-        raise NotImplementedError(
-            f"admission={cfg.admission!r} is not ported yet (topk is)")
     gates = gates.to(torch.bool)
+    if cfg.admission == "prob":
+        if noise is None:
+            raise ValueError("admission='prob' with participation_rate < 1 "
+                             "needs a noise source")
+        u = torch.as_tensor(noise(round_step, ADMISSION_LEAF,
+                                  tuple(gates.shape)),
+                            dtype=torch.float32, device=gates.device)
+        return gates & (u < prate)
     n_open = int(gates.sum())  # host read: the admission budget
     w2 = torch.where(gates,
                      1.0 / torch.clamp(losses.to(torch.float32), min=_EPS),
@@ -240,12 +269,14 @@ def hermes_merge(pod_params: Tree, gates: torch.Tensor, losses: torch.Tensor,
             any_push)
 
 
-def _gate(gup_state, pod_losses, cfg):
+def _gate(gup_state, pod_losses, cfg, round_step, noise):
     """Per-pod Algorithm-1 gates, then admission: ``(gates, new_gup)``."""
     if cfg.n_clusters > 1:
-        raise NotImplementedError("two-tier clusters are not ported yet")
+        raise NotImplementedError("two-tier clusters are not ported yet "
+                                  "(ROADMAP queue 1 item 5)")
     gates, new_gup = gup_gate(gup_state, pod_losses, cfg)
-    return admit_gates(gates, pod_losses, cfg), new_gup
+    return admit_gates(gates, pod_losses, cfg, round_step=round_step,
+                       noise=noise), new_gup
 
 
 def _closed_error(cfg, err_in, pod_params):
@@ -264,7 +295,8 @@ def hermes_round(pod_params: Tree, gup_state: Dict[str, torch.Tensor],
                  noise: Optional[NoiseFn] = None) -> Dict[str, Any]:
     """One Level-B round: per-pod Algorithm-1 gates, admission, then the
     merge.  ``use_kernel=None`` resolves ``cfg.kernel_dispatch`` against
-    the device of ``pod_losses``.  Returns a dict: pod_params, w_global,
+    the device of ``pod_losses``; ``round_step``/``noise`` drive the int4
+    rounding and ``prob`` admission.  Returns a dict: pod_params, w_global,
     gup, error, gates, any_push, and ``merged``, the host's copy of
     ``any_push`` that the round read to skip a closed merge (a caller
     reads it without another sync).  ``cfg.async_rounds`` is not read
@@ -273,7 +305,8 @@ def hermes_round(pod_params: Tree, gup_state: Dict[str, torch.Tensor],
     if use_kernel is None:
         use_kernel = resolve_kernel_dispatch(cfg.kernel_dispatch,
                                              pod_losses.device)
-    gates, new_gup = _gate(gup_state, pod_losses, cfg)
+    gates, new_gup = _gate(gup_state, pod_losses, cfg, round_step,
+                           noise)
     any_push = gates.any()
     err_in = error if cfg.error_feedback else None
     # The reference skips the merge with lax.cond(any_push); here the flag
@@ -316,7 +349,8 @@ def hermes_dispatch(pod_params: Tree, gup_state: Dict[str, torch.Tensor],
     :func:`hermes_round`, ``any_push`` is read on the host: a closed
     dispatch encodes nothing and pends ``payload=None``, which its commit
     takes as the identity."""
-    gates, new_gup = _gate(gup_state, pod_losses, cfg)
+    gates, new_gup = _gate(gup_state, pod_losses, cfg, round_step,
+                           noise)
     gates = gates.to(torch.bool)
     any_push = gates.any()
     err_in = error if cfg.error_feedback else None

@@ -27,6 +27,7 @@ from typing import Callable, Dict, List, Sequence, Tuple
 import torch
 
 from repro_torch.kernels import ops, ref
+from repro_torch.utils.trees import tree_flatten, tree_unflatten
 
 Payload = Dict[str, torch.Tensor]
 #: ``noise(round_step, leaf_index, padded_block_shape) -> U[0, 1)`` tensor
@@ -261,6 +262,30 @@ class Int4Format(BlockedIntFormat):
         return ops.dequant_merge_packed_group(
             [(g, p["q_packed"], p["scales"], _stacked_axis(g, p["q_packed"]))
              for g, p in zip(gs, payloads)], w2, denom, any_push)
+
+
+def _zero_noise(round_step, leaf, shape):
+    """Rounding noise for a spec-only encode: shapes, no values."""
+    return torch.zeros(shape, device="meta")
+
+
+def payload_buffer_spec(tree, mode: str, n_pods: int):
+    """The shapes and dtypes of one round's in-flight payload buffer.
+
+    For an unstacked parameter ``tree``, a tree of per-leaf payload dicts
+    mirroring what ``encode_tree`` emits for the ``(n_pods,)``-stacked
+    delta: every wire array as a ``meta`` tensor of its shape and dtype.
+    The arrays come from the format's own ``encode_group`` run on ``meta``
+    tensors (the reference's ``eval_shape``), so the spec cannot drift from
+    the wire the push bills."""
+    fmt = get_format(mode)
+    leaves, treedef = tree_flatten(tree)
+    stacked = [torch.empty((int(n_pods),) + norm_shape(x.shape),
+                           dtype=torch.float32, device="meta")
+               for x in leaves]
+    payloads = fmt.encode_group(stacked, [(0, i) for i in range(len(leaves))],
+                                _zero_noise)
+    return tree_unflatten(treedef, payloads)
 
 
 def gather_payloads(payloads):

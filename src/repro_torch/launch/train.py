@@ -1,19 +1,28 @@
-"""Level-B Hermes trainer (the reference's ``launch/train.py``,
-synchronous or async rounds).
+"""End-to-end LM training driver (the reference's ``launch/train.py``).
 
-N pod replicas of the LM train locally on disjoint shards of one synthetic
-token stream.  Every ``lam`` steps (and after the first) each pod's eval
-loss feeds the GUP gate, and the gate-open pods merge into the global model
-through the wire format and restart from it.  With ``async_rounds`` a
-round's merge lands at the next round boundary (``hermes_dispatch`` then,
-one round later, ``hermes_commit``).  All pods are stacked on one device,
-the reference's ``mesh=None`` layout.
+Two modes:
+
+* ``single`` (the default): one model replica, AdamW, with checkpoints
+  every 100 steps and at the end, and ``--restore`` from the latest one.
+* ``hermes``: the Level-B trainer.  N pod replicas of the LM train
+  locally on disjoint shards of one synthetic token stream.  Every
+  ``lam`` steps (and after the first) each pod's eval loss feeds the GUP
+  gate, admission trims the open gates to the participation budget, and
+  the admitted pods merge into the global model through the wire format
+  and restart from it.  With ``async_rounds`` a round's merge lands at
+  the next round boundary (``hermes_dispatch`` then, one round later,
+  ``hermes_commit``).  All pods are stacked on one device, the
+  reference's ``mesh=None`` layout.
 
 Usage:
+    python -m repro_torch.launch.train --preset lm100m --steps 300
+    python -m repro_torch.launch.train --preset lmtiny --device cpu \
+        --steps 10 --ckpt /tmp/ck     # then --steps 20 --restore
     python -m repro_torch.launch.train --preset lm100m --hermes --pods 4
     python -m repro_torch.launch.train --preset lm100m --hermes --pods 4 \
         --compression int8 --async-rounds
-    python -m repro_torch.launch.train --preset lmtiny --hermes --device cpu
+    python -m repro_torch.launch.train --preset lm100m --hermes --pods 4 \
+        --participation-rate 0.5 --admission prob
 """
 from __future__ import annotations
 
@@ -27,6 +36,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.bridge import from_numpy
+from repro_torch.checkpoint import Checkpointer
 from repro_torch.config import (
     FAMILY_DENSE, HermesConfig, ModelConfig, OptimizerConfig,
 )
@@ -109,8 +119,104 @@ def _to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
     return t
 
 
+def _start(device) -> torch.device:
+    """The entry points' device; on the card, TF32 off for the fp32
+    presets, in every matmul and conv."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    return dev
+
+
+def _init_params(cfg: ModelConfig, seed: int, dev: torch.device,
+                 params0: Optional[Tree]) -> Tree:
+    """The port's own init, or ``params0`` (numpy arrays) on ``dev``."""
+    return init_lm(cfg, seed, dev) if params0 is None \
+        else from_numpy(params0, dev)
+
+
+def _loss_and_grads(params: Tree, batch: Dict[str, torch.Tensor],
+                    cfg: ModelConfig):
+    """``(loss, grads)`` of one replica; the loss detached."""
+    leaves, treedef = tree_flatten(params)
+    mine = [x.detach().requires_grad_(True) for x in leaves]
+    loss = lm_loss(tree_unflatten(treedef, mine), batch, cfg)
+    grads = torch.autograd.grad(loss, mine)
+    return loss.detach(), tree_unflatten(treedef, list(grads))
+
+
+def train_single(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
+                 opt_cfg: OptimizerConfig, ckpt_dir: Optional[str] = None,
+                 restore: bool = False, log_every: int = 20, seed: int = 0,
+                 device="cuda", params0: Optional[Tree] = None) -> Dict:
+    """One replica, AdamW: the reference's ``train_single``.
+
+    The state is ``{"params", "opt", "step"}``.  With ``ckpt_dir`` it is
+    checkpointed every 100 steps and at ``steps`` (then waited for);
+    ``restore`` resumes from the latest checkpoint there, with the data
+    stream fast-forwarded past the batches already consumed.  A restore
+    at or after ``steps`` runs no step and reports ``nan`` losses.
+    ``params0`` (numpy arrays) replaces the port's own init.  Returns the
+    reference's summary (final_loss: the mean of the last 10 losses,
+    first_loss, steps) plus this run's ``losses`` and ``ms_per_step``
+    (CUDA events on the card, the host clock on the CPU).  The loop reads
+    the device only at log steps, checkpoints and after the loop."""
+    dev = _start(device)
+    cfg.validate()
+    rng = np.random.default_rng(seed)
+    tokens = make_lm_dataset(batch * seq * 40 + 1, cfg.vocab_size, seed=seed)
+    optimizer = make_optimizer(opt_cfg)
+    params = _init_params(cfg, seed, dev, params0)
+    state = {"params": params, "opt": optimizer.init(params), "step": 0}
+    start_step = 0
+    ck = Checkpointer(ckpt_dir) if ckpt_dir else None
+    if ck and restore:
+        try:
+            state, start_step = ck.restore(state, device=dev)
+            print(f"restored from step {start_step}")
+        except FileNotFoundError:
+            pass
+    # resume the data stream, don't replay already-consumed batches
+    batches = make_batches(tokens, batch, seq, rng,
+                           skip=min(start_step, steps))
+    losses: List[torch.Tensor] = []
+    clock = _PhaseClock(dev)
+    t0 = time.time()
+    for i in range(start_step, steps):
+        b = {k: _to_device(v, dev) for k, v in next(batches).items()}
+        started = clock.start()
+        with torch.profiler.record_function("single/step"):
+            loss, grads = _loss_and_grads(state["params"], b, cfg)
+            with torch.no_grad():
+                p, o = optimizer.apply(state["params"], grads, state["opt"])
+            del grads
+        clock.stop(started)
+        state = {"params": p, "opt": o, "step": state["step"] + 1}
+        losses.append(loss)
+        if (i + 1) % log_every == 0:
+            recent = [float(x) for x in _host_fetch(losses[-log_every:])]
+            print(f"step {i + 1:5d} loss {np.mean(recent):.4f} "
+                  f"({(i + 1 - start_step) / (time.time() - t0):.2f} it/s)",
+                  flush=True)
+        if ck and (i + 1) % 100 == 0:
+            ck.save(state, i + 1)
+    if ck:
+        ck.save(state, steps)
+        ck.wait()
+    host = [float(x) for x in _host_fetch(losses)]
+    # a restore at/after `steps` runs zero iterations; report nan
+    return {"final_loss": float(np.mean(host[-10:])) if host
+            else float("nan"),
+            "first_loss": host[0] if host else float("nan"),
+            "steps": steps, "losses": host,
+            "ms_per_step": 1e3 * clock.seconds() / max(len(host), 1),
+            "device": str(dev)}
+
+
 def train_hermes(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
                  pods: int, opt_cfg: OptimizerConfig, hcfg: HermesConfig,
+                 ckpt_dir: Optional[str] = None,
                  log_every: int = 20, seed: int = 0, device="cuda",
                  params0: Optional[Tree] = None,
                  noise: Optional[NoiseFn] = None) -> Dict:
@@ -118,8 +224,10 @@ def train_hermes(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
 
     ``params0`` (a parameter tree of numpy arrays) replaces the
     port's own init, so a test can start both frameworks from one model;
-    ``noise`` replaces the int4 rounding noise (default: a
-    :class:`GeneratorNoise` seeded with ``seed``).  Returns the reference's
+    ``noise`` replaces the int4 rounding noise and ``prob`` admission's
+    draw (default: a :class:`GeneratorNoise` seeded with ``seed``).
+    ``ckpt_dir`` is accepted and never read, as in the reference: the
+    Hermes trainer writes no checkpoint.  Returns the reference's
     summary (global_loss, merges, rounds, pod_losses, history, and the
     async accounting async_rounds, dispatched, committed, drained; with
     async rounds ``merges`` counts commits) plus the time per step and per
@@ -134,11 +242,7 @@ def train_hermes(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
     round.  The round functions' own host reads stand in for the
     reference's ``lax.cond``.
     """
-    dev = resolve_device(device)
-    if dev.type == "cuda":
-        # the presets are fp32: keep TF32 out of every matmul and conv
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+    dev = _start(device)
     hcfg.validate()
     cfg.validate()
     tokens = make_lm_dataset(batch * seq * 40 * pods + batch * seq + 2,
@@ -154,10 +258,7 @@ def train_hermes(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
                           np.random.default_rng(seed))))
 
     optimizer = make_optimizer(opt_cfg)
-    if params0 is None:
-        w_global = init_lm(cfg, seed, dev)
-    else:
-        w_global = from_numpy(params0, dev)
+    w_global = _init_params(cfg, seed, dev, params0)
     pod_params = tree_map(
         lambda x: x[None].expand((pods,) + tuple(x.shape)).clone(), w_global)
     pod_opt = optimizer.init(pod_params)
@@ -170,11 +271,11 @@ def train_hermes(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
         leaves, treedef = tree_flatten(pod_params)
         losses, grads = [], []
         for i in range(pods):
-            mine = [x[i].detach().requires_grad_(True) for x in leaves]
-            loss = lm_loss(tree_unflatten(treedef, mine),
-                           {k: v[i] for k, v in stacked.items()}, cfg)
-            grads.append(torch.autograd.grad(loss, mine))
-            losses.append(loss.detach())
+            loss, g = _loss_and_grads(
+                tree_unflatten(treedef, [x[i] for x in leaves]),
+                {k: v[i] for k, v in stacked.items()}, cfg)
+            grads.append(tree_flatten(g)[0])
+            losses.append(loss)
         stacked_grads = [torch.stack([g[j] for g in grads])
                          for j in range(len(leaves))]
         return torch.stack(losses), tree_unflatten(treedef, stacked_grads)
@@ -301,8 +402,12 @@ def main(argv=None) -> None:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--hermes", action="store_true",
-                    help="required: only the Hermes trainer is ported")
+                    help="the Level-B Hermes trainer (default: one replica, "
+                         "train_single)")
     ap.add_argument("--pods", type=int, default=4)
+    ap.add_argument("--clusters", type=int, default=1,
+                    help="two-tier Hermes: group the pods into N latency "
+                         "clusters; only 1 (the flat round) is ported")
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--alpha", type=float, default=-1.3)
     ap.add_argument("--beta", type=float, default=0.1)
@@ -313,21 +418,50 @@ def main(argv=None) -> None:
                     help="pipeline the rounds: dispatch a round's payload "
                          "and merge it at the next round boundary "
                          "(staleness 1)")
+    ap.add_argument("--participation-rate", type=float, default=1.0,
+                    help="admission budget on top of the z-gate: at most "
+                         "max(1, floor(rate * n_open)) of the open gates "
+                         "ship a round, the rest defer behind error "
+                         "feedback; 1.0 = admission off")
+    ap.add_argument("--admission", default="topk", choices=("topk", "prob"),
+                    help="how the budget picks shippers: 'topk' by the "
+                         "merge weight 1/loss, 'prob' i.i.d. Bernoulli "
+                         "thinning")
+    ap.add_argument("--ckpt", default=None,
+                    help="checkpoint directory (the single trainer)")
+    ap.add_argument("--restore", action="store_true",
+                    help="resume the single trainer from --ckpt's latest "
+                         "checkpoint")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-    if not args.hermes:
-        ap.error("only --hermes training is ported")
-    kw = {} if args.compression is None else {"compression": args.compression}
-    hcfg = HermesConfig(alpha=args.alpha, beta=args.beta, lam=args.lam,
-                        eta=1.0, async_rounds=args.async_rounds, **kw)
-    out = train_hermes(_preset(args.preset), steps=args.steps,
-                       batch=args.batch, seq=args.seq, pods=args.pods,
-                       opt_cfg=OptimizerConfig(name="adamw", lr=args.lr),
-                       hcfg=hcfg, seed=args.seed, device=args.device)
-    out["compression"] = hcfg.compression
-    print(json.dumps({k: v for k, v in out.items() if k != "history"},
-                     indent=2))
+
+    cfg = _preset(args.preset)
+    opt = OptimizerConfig(name="adamw", lr=args.lr)
+    if args.hermes:
+        kw = {} if args.compression is None else {
+            "compression": args.compression}
+        hcfg = HermesConfig(alpha=args.alpha, beta=args.beta, lam=args.lam,
+                            eta=1.0, async_rounds=args.async_rounds,
+                            n_clusters=args.clusters,
+                            participation_rate=args.participation_rate,
+                            admission=args.admission, **kw)
+        hcfg.validate()
+        if args.clusters > 1:
+            ap.error(f"--clusters {args.clusters}: two-tier Level-B rounds "
+                     f"are not ported yet (ROADMAP queue 1 item 5)")
+        out = train_hermes(cfg, steps=args.steps, batch=args.batch,
+                           seq=args.seq, pods=args.pods, opt_cfg=opt,
+                           hcfg=hcfg, ckpt_dir=args.ckpt, seed=args.seed,
+                           device=args.device)
+        out["compression"] = hcfg.compression
+    else:
+        out = train_single(cfg, steps=args.steps, batch=args.batch,
+                           seq=args.seq, opt_cfg=opt, ckpt_dir=args.ckpt,
+                           restore=args.restore, seed=args.seed,
+                           device=args.device)
+    print(json.dumps({k: v for k, v in out.items()
+                      if k not in ("history", "losses")}, indent=2))
 
 
 if __name__ == "__main__":

@@ -891,3 +891,68 @@ def test_level_a_hermes_on_card_packs_every_push(card):
     assert build.LAUNCHES["pack_int4"] == build.LAUNCHES["unpack_int4"] \
         == pushes
     assert r.bytes_by_kind["push"] == 60089 * pushes
+
+
+def test_checkpoint_round_trip_on_card(card, tmp_path):
+    """An async checkpoint of card tensors (fp32, bf16, int32, an int
+    step) restores on the card and on the CPU bit for bit."""
+    from repro_torch.checkpoint import Checkpointer, restore_tree
+    gen = torch.Generator(device=card).manual_seed(0)
+    tree = {"params": {"w": torch.randn(64, 33, generator=gen, device=card),
+                       "b": torch.randn(17, generator=gen, device=card)
+                       .to(torch.bfloat16)},
+            "opt": {"n": torch.arange(5, dtype=torch.int32, device=card),
+                    "step": 3},
+            "step": 3}
+    ck = Checkpointer(str(tmp_path), async_write=True)
+    ck.save(tree, 3)
+    for device in (None, "cpu"):
+        back, step = ck.restore(tree, device=device)
+        assert step == 3 and back["step"] == 3 and back["opt"]["step"] == 3
+        for got, want in ((back["params"]["w"], tree["params"]["w"]),
+                          (back["params"]["b"], tree["params"]["b"]),
+                          (back["opt"]["n"], tree["opt"]["n"])):
+            assert got.device.type == (device or "cuda")
+            assert got.dtype == want.dtype
+            assert torch.equal(got.cpu(), want.cpu())
+    back, _ = restore_tree(tree, str(tmp_path), device=card)
+    assert back["params"]["w"].is_cuda
+
+
+@pytest.mark.parametrize("admission", ["topk", "prob"])
+def test_admission_on_card(card, admission):
+    """Admission on the card: ``prob`` thins the open gates by the card
+    generator's draw (admitted a subset of open, the share near the
+    rate), ``topk`` keeps the budget; a short lmtiny Hermes run under it
+    packs, unpacks and merges once a merged round."""
+    from repro_torch.dist import hermes_sync
+    from repro_torch.launch.train import _preset, train_hermes
+    cfg = HermesConfig(participation_rate=0.5, admission=admission)
+    noise = wire.GeneratorNoise(3, card)
+    gen = torch.Generator(device=card).manual_seed(2)
+    n_open = n_admitted = 0
+    for step in range(100):
+        gates = torch.rand(64, generator=gen, device=card) < 0.5
+        losses = torch.rand(64, generator=gen, device=card) + 1.0
+        got = hermes_sync.admit_gates(gates, losses, cfg, round_step=step,
+                                      noise=noise)
+        assert got.is_cuda and not bool((got & ~gates).any())
+        if admission == "prob":
+            u = noise(step, hermes_sync.ADMISSION_LEAF, (64,))
+            assert torch.equal(got, gates & (u < 0.5))
+        else:
+            assert int(got.sum()) == max(1, int(gates.sum()) // 2)
+        n_open += int(gates.sum())
+        n_admitted += int(got.sum())
+    if admission == "prob":
+        assert abs(n_admitted / n_open - 0.5) < 4.5 * (0.25 / n_open) ** 0.5
+    build.reset_launches()
+    out = train_hermes(_preset("lmtiny"), steps=10, batch=4, seq=32, pods=4,
+                       opt_cfg=OptimizerConfig(name="adamw", lr=3e-3),
+                       hcfg=HermesConfig(alpha=-0.8, lam=2,
+                                         participation_rate=0.5,
+                                         admission=admission),
+                       log_every=10 ** 6, device=card)
+    assert out["merges"] >= 1 and math.isfinite(out["global_loss"])
+    for name in ("pack_int4", "unpack_int4", "dequant_merge_packed"):
+        assert build.LAUNCHES[name] == out["merges"], name

@@ -154,15 +154,18 @@ def test_hermes_round_matches_reference(compression, dispatch):
 
 
 def test_hermes_round_rejects_unported_modes():
-    """Two-tier clusters and Bernoulli admission are not ported: both
-    raise instead of running another round than the reference's."""
+    """Two-tier clusters are not ported: they raise instead of running
+    another round than the reference's.  Bernoulli admission is ported
+    and, as in the reference without an rng, raises without a noise
+    source (``tests/test_torch_admission.py`` holds it with one)."""
     pods, glob = {"a": torch.zeros(2, 4)}, {"a": torch.zeros(4)}
-    for kw, match in (({"n_clusters": 2}, "clusters"),
-                      ({"participation_rate": 0.5, "admission": "prob"},
-                       "admission")):
+    for kw, exc, match in (
+            ({"n_clusters": 2}, NotImplementedError, "clusters"),
+            ({"participation_rate": 0.5, "admission": "prob"}, ValueError,
+             "admission")):
         cfg = THermesConfig(**kw)
         cfg.validate()
         st = ths.hermes_pod_state(cfg, 2, torch.device("cpu"))
         for half in (ths.hermes_round, ths.hermes_dispatch):
-            with pytest.raises(NotImplementedError, match=match):
+            with pytest.raises(exc, match=match):
                 half(pods, st, torch.ones(2), glob, torch.tensor(1.0), cfg)
