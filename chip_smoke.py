@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths on one NVIDIA card: the Hermes
 trainer, serving, the Level-A cluster simulator, the single trainer with
-its checkpoints, and the paper's studies.
+its checkpoints, the paper's studies, and the fleet engine.
 
     python3 chip_smoke.py
 
@@ -88,7 +88,23 @@ Phases (any failure raises and the script exits nonzero):
     each run with the launch counters zeroed just before and read just
     after (one pack and one unpack launch an int4 push, none for the
     other frameworks), each study's result a JSON line;
-11. a ``kernels`` JSON line, the ``nvidia-smi`` line, and the result line.
+11. the fleet engine: (a) the quickstart's study on the card under
+    deterministic algorithms, each framework through ``engine="vector"``
+    and then ``engine="legacy"`` (the same loops: without admission to
+    draw, the vector entry must repeat the legacy run): int4 Hermes and
+    BSP, then ASP, SSP and SelSync (delta 1.5, so that it both syncs and
+    skips) capped at 60 iterations, each pair equal in every
+    ``RunResult`` field but the wall time, meter events included, one
+    pack and one unpack launch a push on the vector run, replicas on the
+    card, both walls printed; (b) the same Hermes at
+    ``participation_rate=0.5`` under ``prob`` admission on the vector
+    engine: deferred pushes billed 0 bytes and no PS contact, one pack
+    and one unpack launch an admitted push; (c) the batch engine on the
+    host: ``studies.sim_scale.run(fast=True)`` and one 10k-worker x
+    200-round cell with the full churn trace, participation 0.25, 8
+    clusters, int8, under 60 s of wall, each cell a ``{"sim_scale": ...}``
+    JSON line;
+12. a ``kernels`` JSON line, the ``nvidia-smi`` line, and the result line.
 
 It needs the repository's ``src/`` beside it and imports neither JAX nor
 the JAX package.
@@ -1406,6 +1422,147 @@ def trainer_and_studies(torch, dev, smi) -> None:
     log(f"[10] phase wall {time.perf_counter() - t0:.1f} s")
 
 
+def fleet_engine(torch, dev, results) -> None:
+    """Phase 11: the fleet engine.  ``engine="vector"`` against the legacy
+    loops on the card, Level-A participation admission on it, and the
+    batch engine's sweep on the host."""
+    import dataclasses
+    from repro_torch.config import HermesConfig
+    from repro_torch.core.allocator import Allocation
+    from repro_torch.core.bundles import make_paper_bundle
+    from repro_torch.core.simulator import RunResult, run_framework
+    from repro_torch.kernels import build
+    from repro_torch.studies import sim_scale
+
+    t_phase = time.perf_counter()
+    fields = [f.name for f in dataclasses.fields(RunResult)
+              if f.name not in ("wall_time", "meter_events")]
+
+    def run(label, framework, engine, **kw):
+        torch.cuda.synchronize()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        r = run_framework(framework, bundle, engine=engine, device=dev,
+                          **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in build.LAUNCHES.items() if v}
+        if r.device != str(dev):
+            raise AssertionError(f"{label} {engine}: replicas on {r.device}")
+        return r, wall, launches
+
+    # (a) the quickstart's study (phase 9c's settings), each framework on
+    # both engines.  Deterministic algorithms and cuDNN keep each op's
+    # result repeatable, so the two engines, which run the same loops
+    # when there is no admission to draw, must agree bit for bit.  warn_only: cuBLAS's own determinism check
+    # would raise without CUBLAS_WORKSPACE_CONFIG; one stream and fixed
+    # shapes keep its GEMMs repeatable (as in phase 10a).
+    bundle, _ = make_paper_bundle("mnist", n=3000, eval_batch=128)
+    base = dict(num_workers=6, target_acc=0.90, max_iterations=500,
+                max_wall=60, init_alloc=Allocation(128, 16), eval_every=3)
+    hermes = HermesConfig(alpha=-1.3, beta=0.1, lam=5, eta=bundle.eta)
+    cases = (("hermes", dict(hermes_cfg=hermes)), ("bsp", {}),
+             ("asp", dict(max_iterations=60)),
+             ("ssp", dict(max_iterations=60, ssp_s=2)),
+             ("selsync", dict(max_iterations=60, selsync_delta=1.5)))
+    log("[11a] the quickstart on both engines, deterministic algorithms: "
+        "mnist n 3000, 6 workers, Allocation(128, 16), target 0.90; ASP, "
+        "SSP (s 2) and SelSync (delta 1.5) capped at 60 iterations")
+    engine_launches = 0
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    cudnn = torch.backends.cudnn.deterministic
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            for framework, kw in cases:
+                kw = dict(base, **kw)
+                vec, vec_wall, vec_launches = run(framework, framework,
+                                                  "vector", **kw)
+                leg, leg_wall, _ = run(framework, framework, "legacy", **kw)
+                differ = [f for f in fields
+                          if getattr(vec, f) != getattr(leg, f)]
+                if list(vec.meter_events) != list(leg.meter_events):
+                    differ.append("meter_events")
+                pushes = sum(p for *_, p in vec.gup_trace)
+                log(f"    {framework:8s} {vec.iterations} iterations, "
+                    f"{vec.ps_updates} PS updates, sim {vec.sim_time:.3f} "
+                    f"s, acc {vec.conv_acc:.3f}, {vec.api_calls} API calls"
+                    f", {len(vec.meter_events)} meter events; wall vector "
+                    f"{vec_wall:.2f} s, legacy {leg_wall:.2f} s; fields "
+                    f"that differ {differ}; vector launches {vec_launches}")
+                if differ:
+                    raise AssertionError(f"{framework}: the vector engine "
+                                         f"differs from legacy in {differ}")
+                want = {"pack_int4": pushes, "unpack_int4": pushes} \
+                    if framework == "hermes" else {}
+                if vec_launches != want or (framework == "hermes"
+                                            and pushes < 1):
+                    raise AssertionError(f"{framework}: {pushes} int4 "
+                                         f"pushes, launches {vec_launches}")
+                syncs = vec.calls_by_kind.get("push", 0)
+                if framework == "selsync" \
+                        and not 0 < syncs < vec.iterations:
+                    raise AssertionError(f"selsync: {syncs} syncs in "
+                                         f"{vec.iterations} iterations: "
+                                         f"one of its paths never ran")
+                engine_launches += pushes
+    finally:
+        torch.use_deterministic_algorithms(deterministic)
+        torch.backends.cudnn.deterministic = cudnn
+
+    # (b) Level-A participation admission, which only engine="vector"
+    # has: an open gate ships with probability 0.5
+    hcfg = dataclasses.replace(hermes, participation_rate=0.5,
+                               admission="prob")
+    r, wall, launches = run("hermes prob", "hermes", "vector",
+                            hermes_cfg=hcfg, **base)
+    opened = sum(p for *_, p in r.gup_trace)
+    deferred = [e for e in r.meter_events if e[2] == "push_deferred"]
+    admitted = r.calls_by_kind.get("push", 0)
+    log(f"[11b] Hermes int4 at participation 0.5, prob, vector: "
+        f"{r.iterations} iterations, {opened} open gates, {admitted} "
+        f"admitted, {len(deferred)} deferred (billed "
+        f"{r.bytes_by_kind.get('push_deferred', 0.0)} B, "
+        f"{r.calls_by_kind.get('push_deferred', 0)} PS contacts), sim "
+        f"{r.sim_time:.3f} s, acc {r.conv_acc:.3f}, wall {wall:.2f} s, "
+        f"launches {launches}")
+    if (not deferred or admitted < 1 or admitted + len(deferred) != opened
+            or any(e[3] != 0.0 for e in deferred)
+            or r.calls_by_kind.get("push_deferred", 0) != 0
+            or launches != {"pack_int4": admitted,
+                            "unpack_int4": admitted}):
+        raise AssertionError(f"participation 0.5: {opened} open, "
+                             f"{admitted} admitted, {len(deferred)} "
+                             f"deferred, launches {launches}")
+    engine_launches += admitted
+    for kernel in ("pack_int4", "unpack_int4"):
+        results[f"{kernel}[mnist-cnn]"]["engine_launches"] = engine_launches
+    torch.cuda.empty_cache()
+
+    # (c) the batch engine on the host: the sweep's fast tiers, then the
+    # fleet at scale
+    build.reset_launches()
+    t0 = time.perf_counter()
+    sweep = sim_scale.run(fast=True, device=dev)
+    big = sim_scale._cell(10_000, 200, 0.25, 8, "int8", device=dev)
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in build.LAUNCHES.items() if v}
+    for cell in sweep["cells"] + [big]:
+        print(json.dumps({"sim_scale": cell}), flush=True)
+    log(f"[11c] sim_scale: {len(sweep['cells'])} fast cells and the 10k x "
+        f"200 cell (full churn, participation 0.25, 8 clusters, int8): "
+        f"{big['iterations']} iterations, {big['ps_updates']} PS updates, "
+        f"{big['meter_events']} meter events, wall {big['wall_s']} s; "
+        f"{wall:.1f} s in all, launches {launches}")
+    if big["wall_s"] >= 60.0 or big["iterations"] <= 10_000 * 100 \
+            or launches:
+        raise AssertionError(f"the 10k x 200 cell: {big}, launches "
+                             f"{launches}")
+    log(f"[11] phase wall {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1753,8 +1910,9 @@ def main() -> int:
     level_a(torch, dev, results)
 
     trainer_and_studies(torch, dev, smi)
+    fleet_engine(torch, dev, results)
 
-    # ---- 11. result lines -------------------------------------------------
+    # ---- 12. result lines -------------------------------------------------
     print(json.dumps({"kernels": list(results.values())}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -53,11 +53,6 @@ from repro_torch.utils.trees import tree_leaves, tree_map
 
 Tree = Any
 
-#: what ``engine="vector"``, a surrogate bundle and a churn trace need
-_ENGINE_TODO = ("the vectorized batch engine (the reference's "
-                "core/engine.py) is not ported yet: ROADMAP queue 1 item 4")
-
-
 def comp_noise(seed: int, device) -> NoiseFn:
     """The int4 dither of Hermes's pushes: push ``k``'s leaf ``i`` draws
     under ``(round_step=k, leaf=i)``, as the reference folds
@@ -96,7 +91,8 @@ class RunResult:
     # reference's async bench reports (benchmarks/straggler.py).
     comm_stall: float = 0.0
     # the port's own: the devices the workers' parameters are on at the
-    # end of the run ("cuda:0" for a run on the card)
+    # end of the run ("cuda:0" for a run on the card; "host" for the
+    # batch engine, which uses no tensor)
     device: str = ""
 
     def wi_table(self) -> Dict[str, float]:
@@ -294,19 +290,43 @@ def run_framework(framework: str, bundle: ModelBundle, *,
     transfer; a denied rejoin leaves it excluded (one ``rejoin_denied``
     meter event, no bytes).
 
-    ``engine``: ``"auto"`` and ``"legacy"`` run the per-worker loops
-    below; ``"vector"``, a surrogate bundle and a ``churn`` trace need the
-    batch engine and raise ``NotImplementedError``."""
+    ``engine``: ``"legacy"`` runs the per-worker loops below;
+    ``"vector"`` is the reference's exact slot scheduler, whose runs equal
+    the legacy loops' (every framework but EBSP, which it refuses), so it
+    runs the same loops here and adds only Level-A participation
+    admission (``participation_rate < 1`` under ``prob``), which the
+    reference's legacy loop ignores;
+    ``"auto"`` is legacy for a ``ModelBundle`` and the engine's
+    batch/surrogate mode for a ``SurrogateBundle`` or a ``churn`` trace
+    (a ``ChurnTrace``), which runs Hermes on numpy columns on the host.
+    ``device`` is resolved in every case: the batch mode needs no card,
+    but a caller without one says ``device="cpu"`` as for any run."""
     hermes_cfg = hermes_cfg or HermesConfig()
     if engine not in ("auto", "legacy", "vector"):
         raise ValueError(f"unknown engine {engine!r}")
-    if engine == "vector" or churn is not None:
-        raise NotImplementedError(f"engine={engine!r}, churn: "
-                                  f"{_ENGINE_TODO}")
-    if not isinstance(bundle, ModelBundle):
-        raise NotImplementedError(
-            f"{type(bundle).__name__}: only a ModelBundle runs on the "
-            f"per-worker loops; {_ENGINE_TODO}")
+    # deferred: the engine imports this module's helpers
+    from repro_torch.core import engine as _engine
+    stop = _StopCfg(target_acc, max_iterations, max_sim_time, max_wall,
+                    eval_every, patience)
+    if isinstance(bundle, _engine.SurrogateBundle) or churn is not None:
+        if engine == "legacy":
+            raise ValueError(
+                "churn traces / surrogate bundles need the vectorized "
+                "batch engine; drop engine='legacy'")
+        if not isinstance(bundle, _engine.SurrogateBundle):
+            raise ValueError(
+                "churn traces run on the batch engine: pass a "
+                "SurrogateBundle (real-bundle churn is the failures/"
+                "recoveries path)")
+        if failures or recoveries:
+            raise ValueError(
+                "the batch engine models churn via ChurnTrace, not "
+                "failures/recoveries")
+        resolve_device(device)
+        return _engine.run_batch(framework, bundle, num_workers=num_workers,
+                                 hcfg=hermes_cfg, seed=seed,
+                                 init_alloc=init_alloc, stop=stop,
+                                 alloc_every=alloc_every, churn=churn)
     dev = resolve_device(device)
     if dev.type == "cuda":
         # the models are fp32: keep TF32 out of every matmul and conv
@@ -318,8 +338,6 @@ def run_framework(framework: str, bundle: ModelBundle, *,
                seed=seed, init_alloc=init_alloc, noniid=noniid, device=dev,
                compression=compression,
                failure_timeout_factor=hermes_cfg.failure_timeout_factor)
-    stop = _StopCfg(target_acc, max_iterations, max_sim_time, max_wall,
-                    eval_every, patience)
     env.failures = failures or {}
     env.recoveries = recoveries or {}
     for name, rt in env.recoveries.items():
@@ -334,6 +352,10 @@ def run_framework(framework: str, bundle: ModelBundle, *,
         raise ValueError(
             "only hermes has a re-admission (grow) path; pass recoveries "
             "to hermes runs")
+    if engine == "vector" and framework == "ebsp":
+        raise ValueError(
+            "ebsp has no vectorized port (it models the benchmark-"
+            "then-schedule baseline only); use engine='legacy'")
     if framework == "bsp":
         return _run_bsp(env, stop)
     if framework == "asp":
@@ -345,7 +367,12 @@ def run_framework(framework: str, bundle: ModelBundle, *,
     if framework == "selsync":
         return _run_async(env, stop, mode="selsync", selsync_delta=selsync_delta)
     if framework == "hermes":
-        return _run_hermes(env, stop, hermes_cfg, alloc_every=alloc_every)
+        return _run_hermes(env, stop, hermes_cfg, alloc_every=alloc_every,
+                           admit=engine == "vector")
+    if engine == "vector":
+        raise ValueError(
+            f"engine='vector' has no exact-mode port of {framework!r}; "
+            "use engine='legacy'")
     raise KeyError(framework)
 
 
@@ -611,7 +638,7 @@ def _run_ebsp(env: _Env, stop: _StopCfg, *, lookahead: int) -> RunResult:
 # ---------------------------------------------------------------------------
 
 def _run_hermes(env: _Env, stop: _StopCfg, hcfg: HermesConfig, *,
-                alloc_every: float) -> RunResult:
+                alloc_every: float, admit: bool = False) -> RunResult:
     t0 = _time.time()
     ps = ps_init(env.params0, hcfg.eta)
     eta = env.bundle.eta
@@ -659,6 +686,14 @@ def _run_hermes(env: _Env, stop: _StopCfg, hcfg: HermesConfig, *,
     # different seeds draw independent quantization noise
     noise = comp_noise(env.seed ^ 0x51ED, env.device)
     comp_pushes = 0
+    # Level-A participation admission, for engine="vector" only (the
+    # reference's legacy loop ignores the rate), on its own stream: it
+    # draws only at participation_rate < 1 under ``prob``, so env.rng's
+    # sequence, and with it the ungated trajectory, is untouched
+    prate = float(getattr(hcfg, "participation_rate", 1.0))
+    adm_rng = (np.random.default_rng(env.seed ^ 0xAD317)
+               if admit and prate < 1.0
+               and getattr(hcfg, "admission", "topk") == "prob" else None)
 
     # per-worker event epoch: bumped at re-admission so an in-flight
     # pre-death completion event that lands *after* the rejoin cannot
@@ -755,7 +790,12 @@ def _run_hermes(env: _Env, stop: _StopCfg, hcfg: HermesConfig, *,
         # consume the previous in-flight round trip BEFORE a new push can
         # start one: its landing time clamps this worker's next iteration
         pending_back = merge_ready.pop(i, None)
-        if push:
+        if push and adm_rng is not None and not (adm_rng.random() < prate):
+            # the gate stays advanced (the raw decision above); the
+            # w0-anchored G and any compression residual ride the next
+            # admitted push.  Zero-byte audit event, not a PS contact.
+            env.meter.call(w.spec.name, "push_deferred", 0.0, n=0, t=sim_t)
+        elif push:
             # G measured from w0 (Algorithm 2's Worker-SGD accumulation)
             G = tree_map(lambda w0_, wl: (w0_ - wl) / eta, ps.w0, w.params)
             # The wire applies the configured format to the push: the PS

@@ -42,15 +42,16 @@ def bundles(dataset="mnist", n=N, eval_batch=64):
 
 
 def run_both(monkeypatch, framework, *, hermes=None, dataset="mnist",
-             **kw):
-    """``run_framework`` in both packages on the CPU; the port's int4
-    dither is the reference's (``jax_noise``), injected through
-    ``simulator.comp_noise``."""
+             engine="auto", **kw):
+    """``run_framework`` in both packages on the CPU, both on ``engine``
+    (``"auto"``: the legacy loops; ``"vector"``: the exact slot
+    scheduler); the port's int4 dither is the reference's
+    (``jax_noise``), injected through ``simulator.comp_noise``."""
     monkeypatch.setattr(tsim, "comp_noise",
                         lambda seed, device: jax_noise(seed))
     jb, tb, _ = bundles(dataset)
     hermes = hermes or {}
-    kw = dict(RUN, **kw)
+    kw = dict(RUN, engine=engine, **kw)
     want = jsim.run_framework(framework, jb,
                               hermes_cfg=JHermesConfig(**hermes),
                               init_alloc=JAllocation(DSS, MBS), **kw)
@@ -127,11 +128,12 @@ HERMES = dict(alpha=-0.5, lam=2, eta=0.1, iqr_k=0.0)
 STUDY = dict(max_iterations=32, alloc_every=0.3)
 
 
-def check(monkeypatch, hermes, **kw):
-    """One Hermes study in both packages, held by :func:`assert_same_run`;
-    the gate both opens and closes, and the allocator resizes shards."""
+def check(monkeypatch, hermes, engine="auto", **kw):
+    """One Hermes study in both packages on ``engine``, held by
+    :func:`assert_same_run`; the gate both opens and closes, and the
+    allocator resizes shards."""
     want, got, n_test = run_both(monkeypatch, "hermes", hermes=hermes,
-                                 **dict(STUDY, **kw))
+                                 engine=engine, **dict(STUDY, **kw))
     assert_same_run(want, got, n_test, hermes)
     pushes = sum(p for *_, p in want.gup_trace)
     assert 0 < pushes < want.iterations == len(want.gup_trace)

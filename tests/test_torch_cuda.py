@@ -893,6 +893,49 @@ def test_level_a_hermes_on_card_packs_every_push(card):
     assert r.bytes_by_kind["push"] == 60089 * pushes
 
 
+def test_level_a_vector_engine_admission_on_card(card):
+    """``engine="vector"`` at participation 0.5 under ``prob`` on the
+    card: deferred pushes billed nothing, each admitted int4 push one
+    pack and one unpack launch, the replicas on the card."""
+    from repro_torch.core import simulator as tsim
+    from repro_torch.core.allocator import Allocation
+    from repro_torch.core.bundles import make_paper_bundle
+    bundle, _ = make_paper_bundle("mnist", n=600, eval_batch=64)
+    cfg = HermesConfig(alpha=-0.5, lam=2, eta=bundle.eta,
+                       participation_rate=0.5, admission="prob")
+    build.reset_launches()
+    r = tsim.run_framework(
+        "hermes", bundle, num_workers=4, engine="vector",
+        init_alloc=Allocation(32, 16), target_acc=1.01, max_iterations=40,
+        max_wall=1e9, patience=10 ** 6, hermes_cfg=cfg)
+    opened = sum(p for *_, p in r.gup_trace)
+    admitted = r.calls_by_kind["push"]
+    deferred = [e for e in r.meter_events if e[2] == "push_deferred"]
+    assert deferred and all(e[3] == 0.0 for e in deferred)
+    assert admitted > 0 and admitted + len(deferred) == opened
+    assert build.LAUNCHES["pack_int4"] == \
+        build.LAUNCHES["unpack_int4"] == admitted
+    assert r.device == "cuda:0"
+
+
+def test_level_a_batch_engine_runs_on_the_host(card):
+    """The batch engine with the default device: numpy columns on the
+    host, no kernel launched, and the result says so."""
+    from repro_torch.core.engine import ChurnTrace, SurrogateBundle
+    from repro_torch.core.simulator import run_framework
+    build.reset_launches()
+    r = run_framework("hermes", SurrogateBundle(), num_workers=1000,
+                      hermes_cfg=HermesConfig(participation_rate=0.5,
+                                              n_clusters=4,
+                                              compression="int8"),
+                      seed=7, target_acc=2.0, patience=10 ** 9,
+                      max_iterations=40 * 1000, max_sim_time=1e9,
+                      churn=ChurnTrace(diurnal_period_s=600.0,
+                                       battery_s=400.0, failure_rate=1e-4))
+    assert r.device == "host" and r.ps_updates > 0
+    assert not any(build.LAUNCHES.values())
+
+
 def test_checkpoint_round_trip_on_card(card, tmp_path):
     """An async checkpoint of card tensors (fp32, bf16, int32, an int
     step) restores on the card and on the CPU bit for bit."""

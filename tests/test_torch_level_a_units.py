@@ -342,18 +342,63 @@ def test_run_framework_default_device_needs_a_card():
                            max_iterations=1)
 
 
-@pytest.mark.parametrize("kw", [dict(engine="vector"), dict(churn=object())])
-def test_run_framework_refuses_the_batch_engine(kw):
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        tsim.run_framework("hermes", _tiny_bundle(), device="cpu", **kw)
+#: (framework, bundle: "real" or "surrogate", keyword arguments) of every
+#: refusal of the engine dispatch, and of ``ChurnTrace.validate``
+GUARDS = {
+    "legacy_with_a_surrogate": ("hermes", "surrogate",
+                                dict(engine="legacy")),
+    "legacy_with_churn": ("hermes", "real",
+                          dict(engine="legacy", churn=dict())),
+    "churn_with_a_real_bundle": ("hermes", "real", dict(churn=dict())),
+    "batch_with_failures": ("hermes", "surrogate",
+                            dict(failures={"B1ms_0": 1.0})),
+    "batch_with_recoveries": ("hermes", "surrogate",
+                              dict(recoveries={"B1ms_0": 2.0})),
+    "batch_not_hermes": ("bsp", "surrogate", {}),
+    "ebsp_on_the_vector_engine": ("ebsp", "real", dict(engine="vector")),
+    "unknown_framework_on_the_vector_engine": ("gossip", "real",
+                                               dict(engine="vector")),
+    "unknown_engine": ("hermes", "real", dict(engine="fast")),
+    "churn_duty_above_one": ("hermes", "surrogate",
+                             dict(churn=dict(diurnal_duty=2.0))),
+    "churn_recharge_zero": ("hermes", "surrogate",
+                            dict(churn=dict(battery_s=10.0,
+                                            recharge_s=0.0))),
+}
+
+
+@pytest.mark.parametrize("case", list(GUARDS))
+def test_run_framework_guards_match_reference(case):
+    """Each bad combination of engine, bundle, churn trace, failures and
+    framework raises in the port what it raises in the reference, with
+    the same message."""
+    from repro.core import engine as jengine
+    from repro.core import simulator as jsim
+    from repro_torch.core import engine as tengine
+    framework, kind, kw = GUARDS[case]
+    caught = []
+    for run, engine, bundles, extra in (
+            (jsim.run_framework, jengine, jbundles, {}),
+            (tsim.run_framework, tengine, tbundles, dict(device="cpu"))):
+        bundle = engine.SurrogateBundle() if kind == "surrogate" else \
+            bundles.make_paper_bundle("mnist", n=60, eval_batch=8)[0]
+        args = dict(kw, **extra)
+        if "churn" in args:
+            args["churn"] = engine.ChurnTrace(**args["churn"])
+        with pytest.raises((ValueError, AssertionError)) as err:
+            run(framework, bundle, num_workers=2, max_iterations=1, **args)
+        caught.append(err)
+    want, got = caught
+    assert got.type is want.type
+    assert str(got.value) == str(want.value)
 
 
 def test_run_framework_refuses_other_bundles_and_bad_arguments():
-    class SurrogateBundle:
-        pass
+    from repro_torch.core.engine import SurrogateBundle
 
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        tsim.run_framework("hermes", SurrogateBundle(), device="cpu")
+    # the surrogate bundle models hermes only
+    with pytest.raises(ValueError, match="hermes only"):
+        tsim.run_framework("asp", SurrogateBundle(), device="cpu")
     with pytest.raises(ValueError, match="engine"):
         tsim.run_framework("hermes", _tiny_bundle(), engine="fast",
                            device="cpu")
