@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths on one NVIDIA card: the Hermes
 trainer, serving, the Level-A cluster simulator, the single trainer with
-its checkpoints, the paper's studies, and the fleet engine.
+its checkpoints, the paper's studies, the fleet engine, and the two-tier
+round with the placed gather.
 
     python3 chip_smoke.py
 
@@ -104,7 +105,26 @@ Phases (any failure raises and the script exits nonzero):
     200-round cell with the full churn trace, participation 0.25, 8
     clusters, int8, under 60 s of wall, each cell a ``{"sim_scale": ...}``
     JSON line;
-12. a ``kernels`` JSON line, the ``nvidia-smi`` line, and the result line.
+12. the two-tier Level-B round and the placed gather: (a) at lm100m x 4
+    pods in 2 clusters, gates open, for ``none``, ``int8`` and ``int4``,
+    ``hermes_cluster_round`` bitwise its dispatch + commit, one cluster
+    bitwise ``hermes_round``, a commit with a dead gated member bitwise
+    the round with its whole cluster shut, both tiers' billed bytes; the
+    grouped pack and unpack on the ``(2,) + leaf`` partial tree bitwise
+    their plain versions, one launch a pass (``pack_int4[cluster]``,
+    ``unpack_int4[cluster]`` in the ``kernels`` line); (b) ``train_hermes``
+    at lm100m, 4 pods in 2 clusters, int8 async and (run inside (c))
+    int4 sync, each with the launch counters zeroed just before and read
+    just after, and lmtiny on the card against the CPU; (c)
+    ``launch.placed_audit``: four ranks on
+    this card over gloo, the flat and two-tier rounds at lm100m (int4,
+    int8), sync, async and closed, bitwise the unplaced ones that this
+    process ran first, every gather the bytes of ``dist.wire``'s specs
+    (a closed round only the gate exchange, a commit nothing), and the
+    placed lm100m
+    trainer (6 steps int4, deterministic algorithms) against the unplaced
+    one: gates and merges equal, the loss gap printed;
+13. a ``kernels`` JSON line, the ``nvidia-smi`` line, and the result line.
 
 It needs the repository's ``src/`` beside it and imports neither JAX nor
 the JAX package.
@@ -1563,6 +1583,276 @@ def fleet_engine(torch, dev, results) -> None:
     log(f"[11] phase wall {time.perf_counter() - t_phase:.1f} s")
 
 
+def two_tier(torch, dev, results) -> None:
+    """Phase 12: the two-tier Level-B round and the placed gather.  (a)
+    the two-tier round unplaced at lm100m x 4 pods in 2 clusters, gates
+    open, against its own twins bitwise, and the grouped pack and unpack
+    on the ``(2,) + leaf`` partial tree; (b) the two-tier trainer; (c)
+    four ranks on this card over gloo, placed rounds and trainer against
+    the unplaced ones."""
+    from repro_torch.config import HermesConfig, OptimizerConfig
+    from repro_torch.core.gup import gup_gate
+    from repro_torch.dist import hermes_sync as hs
+    from repro_torch.dist import wire
+    from repro_torch.kernels import build
+    from repro_torch.kernels.pack import (
+        pack_int4_group_cuda, pack_int4_group_plain, unpack_int4_group_cuda,
+        unpack_int4_group_plain)
+    from repro_torch.launch import placed_audit
+    from repro_torch.launch.train import _preset, train_hermes
+    from repro_torch.models.lm import init_lm
+    from repro_torch.utils.trees import (
+        flatten_up_to, tree_flatten, tree_leaves, tree_map)
+
+    t_phase = time.perf_counter()
+    cfg = _preset("lm100m")
+    w = init_lm(cfg, 0, dev)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    pods = tree_map(lambda g: g[None] + 1e-3 * torch.randn(
+        (PODS,) + tuple(g.shape), generator=gen, device=dev), w)
+    meta = [torch.empty(g.shape, device="meta") for g in tree_leaves(w)]
+    noise = wire.GeneratorNoise(12, dev)
+    losses = torch.tensor([2.1, 2.2, 2.0, 2.3], device=dev)
+    L = torch.tensor(3.4, device=dev)
+    on = torch.ones(PODS, dtype=torch.bool, device=dev)
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in
+                   zip(tree_leaves(a), tree_leaves(b)))
+
+    # (a) the round's twins, bitwise, with the gates forced open by a loss
+    # history the round's losses beat
+    log("[12a] two-tier round at lm100m x 4 pods, 2 clusters, gates open")
+    expected_bytes = {"int4": (257_132_592, 128_566_296),
+                      "int8": (506_473_008, 253_236_504)}
+    for mode in ("none", "int8", "int4"):
+        cfgs = {c: HermesConfig(compression=mode, n_clusters=c)
+                for c in (1, 2)}
+        gup = hs.hermes_pod_state(cfgs[2], PODS, dev)
+        for level in (3.0, 3.2):
+            _, gup = gup_gate(gup, torch.full((PODS,), level, device=dev),
+                              cfgs[2])
+        kw = dict(round_step=1, noise=noise)
+        torch.cuda.synchronize()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        sync = hs.hermes_cluster_round(pods, gup, losses, w, L, cfgs[2], **kw)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        launches = {k: v for k, v in build.LAUNCHES.items() if v}
+        dp = hs.hermes_cluster_dispatch(pods, gup, losses, w, L, cfgs[2],
+                                        **kw)
+        slow_billed = sum(wire.payload_nbytes(p) for p in flatten_up_to(
+            tree_flatten(w)[1], dp["pending"]["cluster_payload"]))
+        cm = hs.hermes_cluster_commit(pods, dp["pending"], w, cfg=cfgs[2])
+        split = same([sync["w_global"], sync["pod_params"], sync["error"]
+                      or []], [cm["w_global"], cm["pod_params"],
+                               dp["error"] or []])
+        del dp["pending"]
+        dead = hs.hermes_cluster_commit(
+            pods, hs.hermes_cluster_dispatch(pods, gup, losses, w, L,
+                                             cfgs[2], **kw)["pending"],
+            w, cfg=cfgs[2], live=torch.tensor([True, True, True, False],
+                                              device=dev))
+        shut = hs.hermes_cluster_round(
+            pods, gup, losses, w, L, cfgs[2],
+            live=torch.tensor([True, True, False, False], device=dev), **kw)
+        drop = same([dead["w_global"], dead["pod_params"]],
+                    [shut["w_global"], shut["pod_params"]]) \
+            and dead["gates"].tolist() == [True, True, False, False]
+        del dead, shut, cm
+        one = hs.hermes_cluster_round(pods, gup, losses, w, L, cfgs[1], **kw)
+        flat = hs.hermes_round(pods, gup, losses, w, L, cfgs[1], **kw)
+        delegate = same([one["w_global"], one["pod_params"]],
+                        [flat["w_global"], flat["pod_params"]])
+        del one, flat
+        fast = PODS * sum(b for *_, b in wire.wire_operand_specs(meta, mode,
+                                                                 PODS))
+        slow = 2 * sum(b for *_, b in wire.cluster_wire_operand_specs(
+            meta, mode, 2))
+        moved = sum(float((a - b).abs().max()) > 0 for a, b in
+                    zip(tree_leaves(sync["w_global"]), tree_leaves(w)))
+        log(f"    {mode:4s} round {ms:7.1f} ms (wall), launches {launches}; "
+            f"bitwise: dispatch + commit {split}, one cluster == "
+            f"hermes_round {delegate}, dead gated member drops its "
+            f"cluster {drop}; fast tier {fast:,} B, slow tier {slow:,} B "
+            f"(pending cluster payload {slow_billed:,} B); "
+            f"{moved}/{len(meta)} leaves moved")
+        want = expected_bytes.get(mode, (fast, slow))
+        if not (split and delegate and drop and bool(sync["gates"].all())
+                and (fast, slow) == want and slow_billed == slow
+                and moved == len(meta)):
+            raise AssertionError(f"two-tier {mode} round at lm100m")
+        if mode == "int4" and (launches.get("pack_int4") != 2
+                               or launches.get("unpack_int4") != 3):
+            raise AssertionError(f"two-tier int4 launches {launches}")
+        del sync
+    # the slow tier's re-encode: grouped pack and unpack on the (2,) + leaf
+    # partial tree, against their plain versions
+    fmt = wire.get_format("int4")
+    cnoise = noise.fold(hs.CLUSTER_FOLD)
+    leaves = []
+    for i, g in enumerate(tree_leaves(w)):
+        part = 1e-3 * torch.randn((2,) + tuple(g.shape), generator=gen,
+                                  device=dev)
+        q, _, _, ax, d, _ = fmt._quantize(part, (1, i), cnoise)
+        leaves.append((q, d, ax))
+    wires = pack_int4_group_plain(leaves)
+    unpack_leaves = [(p, d, ax) for p, (_, d, ax) in zip(wires, leaves)]
+    for name, kernel, kern, plain, inputs in (
+            ("pack_int4[cluster]", "pack_int4",
+             lambda: pack_int4_group_cuda(leaves),
+             lambda: pack_int4_group_plain(leaves),
+             [q.narrow(ax, 0, d) for q, d, ax in leaves]),
+            ("unpack_int4[cluster]", "unpack_int4",
+             lambda: unpack_int4_group_cuda(unpack_leaves),
+             lambda: unpack_int4_group_plain(unpack_leaves), wires)):
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"{name}: kernel differs from its plain "
+                                 f"version")
+        moved_b = nbytes(inputs) + nbytes(got)
+        bound_ms, bound_by = bound(0, moved_b, (torch.int8,))
+        build.reset_launches()
+        kern()
+        per_pass = build.LAUNCHES[kernel]
+        wall_ms = time_ms(torch, kern, reps=20)
+        ms = device_ms(torch, kern)
+        plain_ms = time_ms(torch, plain, reps=3, warmup=1)
+        results[name] = {
+            "name": name, "route": "cuda", "source": WIRE_SOURCE,
+            "replaces": REPLACES[kernel], "launches": None,
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "wall_ms": wall_ms, "launches_per_pass": per_pass}
+        log(f"    {name:22s} equal=True  kernel {ms:.4f} ms [wall "
+            f"{wall_ms:.4f}; {per_pass} launches a pass]  plain "
+            f"{plain_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by}; "
+            f"{moved_b:,} B)  {bound_ms / ms:5.1%} of the bound")
+        if per_pass != 1:
+            raise AssertionError(f"{name}: {per_pass} launches a pass")
+        del got, want
+    del leaves, wires, unpack_leaves, pods, w
+    torch.cuda.empty_cache()
+
+    # (b) the two-tier trainer at lm100m, int8 async (int4 sync is (c)'s
+    # unplaced run), then lmtiny on the card against the CPU (plain
+    # versions, one noise source)
+    opt = OptimizerConfig(name="adamw", lr=3e-4)
+    for mode, async_rounds, steps in (("int8", True, 6),):
+        build.reset_launches()
+        t0 = time.perf_counter()
+        out = train_hermes(cfg, steps=steps, batch=8, seq=128, pods=PODS,
+                           opt_cfg=opt,
+                           hcfg=HermesConfig(alpha=-1.3, lam=2,
+                                             compression=mode, n_clusters=2,
+                                             async_rounds=async_rounds),
+                           log_every=10 ** 6, seed=0, device=dev)
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in build.LAUNCHES.items() if v}
+        finite = all(math.isfinite(x) for x in
+                     [out["global_loss"]] + out["pod_losses"])
+        log(f"[12b] lm100m 2 clusters {mode} "
+            f"{'async' if async_rounds else 'sync'}: {steps} steps, "
+            f"{out['rounds']} rounds, {out['merges']} merges (dispatched "
+            f"{out['dispatched']}, committed {out['committed']}), global "
+            f"loss {out['global_loss']:.4f}, {out['ms_per_step']:.1f} "
+            f"ms/step, {out['ms_per_round']:.1f} ms/round, wall {wall:.1f} "
+            f"s, launches {launches}; gates per round "
+            f"{[g for _, _, g in out['history']]}")
+        if (not finite or out["merges"] < 1 or not out["drained"]
+                or out["dispatched"] != out["committed"]):
+            raise AssertionError(f"two-tier trainer {mode}: {out}")
+    cpu_noise = wire.GeneratorNoise(0, torch.device("cpu"))
+    for mode, async_rounds in (("int4", False), ("int8", True)):
+        small = {}
+        for label, device in (("card", dev), ("cpu", torch.device("cpu"))):
+            small[label] = train_hermes(
+                _preset("lmtiny"), steps=8, batch=4, seq=32, pods=4,
+                opt_cfg=OptimizerConfig(name="adamw", lr=3e-3),
+                hcfg=HermesConfig(alpha=-0.8, lam=2, compression=mode,
+                                  n_clusters=2, async_rounds=async_rounds),
+                log_every=10 ** 6, device=device, noise=cpu_noise)
+        a, b = small["card"], small["cpu"]
+        same_gates = [g for _, _, g in a["history"]] == \
+            [g for _, _, g in b["history"]]
+        rel = abs(a["global_loss"] - b["global_loss"]) / abs(b["global_loss"])
+        log(f"    lmtiny 2 clusters {mode} card vs CPU: gates equal="
+            f"{same_gates}, merges {a['merges']}/{b['merges']}, global loss "
+            f"rel gap {rel:.2e}")
+        # as phase 5's small runs: AdamW amplifies the matmuls' ~1e-6
+        # order gap to ~2e-4 of the loss over 8 steps
+        if not same_gates or a["merges"] != b["merges"] or rel > 1e-3:
+            raise AssertionError(f"lmtiny two-tier {mode} on the card "
+                                 f"disagrees with the CPU run")
+    torch.cuda.empty_cache()
+
+    # (c) placed: 4 ranks on this card over gloo, against the unplaced
+    # rounds and trainer that this process runs first (then frees); that
+    # unplaced trainer is the two-tier int4 sync main path, its launch
+    # counters zeroed just before it and read just after
+    t0 = time.perf_counter()
+    audit = placed_audit.audit(
+        "lm100m", ranks=4, n_pods=PODS, n_clusters=2,
+        formats=("int4", "int8"), cases=placed_audit.CASES,
+        train=dict(steps=6, batch=8, seq=128, lr=3e-4, compression="int4",
+                   async_rounds=False), device=dev, deterministic=True)
+    bad = []
+    for key, case in audit["cases"].items():
+        gathers = [c == case["expected"] for c in case["collectives"]]
+        per_rank = [sum(b for *_, b in ph) for ph in
+                    case["collectives"][0].values()]
+        log(f"[12c] placed {key}: bitwise {case['equal']}, gathers as the "
+            f"specs {gathers}, bytes a rank {per_rank}, merged "
+            f"{case['merged']}, launches a rank {case['launches'][0]}, "
+            f"{case['seconds']:.1f} s")
+        if not (case["equal"] and all(gathers) and all(
+                m == case["unplaced_merged"] for m in case["merged"])):
+            bad.append(key)
+    for key, kernel in (("int4/flat", "dequant_merge_packed"),
+                        ("int8/flat", "dequant_merge")):
+        n = audit["cases"][key]["launches"][0].get(kernel, 0)
+        if n < 1:
+            bad.append(f"{key} launched no {kernel}")
+        results[kernel]["placed_launches"] = n
+    for kernel in ("pack_int4", "unpack_int4"):
+        results[kernel]["placed_launches"] = \
+            audit["cases"]["int4/cluster"]["launches"][0].get(kernel, 0)
+    want = audit["train"]["unplaced"]
+    log(f"[12b] lm100m 2 clusters int4 sync (deterministic algorithms): "
+        f"{len(want['history'])} rounds, {want['merges']} merges, global "
+        f"loss {want['global_loss']:.4f}, {want['ms_per_step']:.1f} "
+        f"ms/step, {want['ms_per_round']:.1f} ms/round, launches "
+        f"{want['launches']}; gates per round "
+        f"{[g for _, _, g in want['history']]}")
+    for kernel in ("pack_int4", "unpack_int4"):
+        if want["launches"].get(kernel, 0) < 1 or want["merges"] < 1:
+            raise AssertionError(f"the two-tier trainer never launched "
+                                 f"{kernel} or never merged")
+        results[f"{kernel}[cluster]"]["launches"] = want["launches"][kernel]
+    for rank, got in enumerate(audit["train"]["placed"]):
+        gates = [g for _, _, g in got["history"]] == \
+            [g for _, _, g in want["history"]]
+        gap = max([abs(a[1] - b[1]) for a, b in zip(got["history"],
+                                                    want["history"])]
+                  + [abs(got["global_loss"] - want["global_loss"])]
+                  + [abs(a - b) for a, b in zip(got["pod_losses"],
+                                                want["pod_losses"])])
+        log(f"    placed lm100m trainer rank {rank}: gates equal {gates}, "
+            f"merges {got['merges']}/{want['merges']}, losses bitwise "
+            f"{gap == 0.0} (largest gap {gap:.3g}), "
+            f"{got['ms_per_step']:.1f} ms/step, {got['ms_per_round']:.1f} "
+            f"ms/round, launches {got['launches']}")
+        if not gates or got["merges"] != want["merges"]:
+            bad.append(f"placed trainer rank {rank}")
+    log(f"    audit {time.perf_counter() - t0:.1f} s (unplaced "
+        f"{audit['unplaced_s']:.1f} s)")
+    if bad:
+        raise AssertionError(f"placed runs differ: {bad}")
+    log(f"[12] phase wall {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1911,8 +2201,9 @@ def main() -> int:
 
     trainer_and_studies(torch, dev, smi)
     fleet_engine(torch, dev, results)
+    two_tier(torch, dev, results)
 
-    # ---- 12. result lines -------------------------------------------------
+    # ---- 13. result lines -------------------------------------------------
     print(json.dumps({"kernels": list(results.values())}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

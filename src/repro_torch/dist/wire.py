@@ -1,5 +1,5 @@
-"""Wire formats of the Hermes push payloads (the reference's
-``dist/wire.py``, unplaced subset).
+"""Wire formats of the Hermes push payloads, their byte specs and the
+payload gather (the reference's ``dist/wire.py``).
 
 Every format owns its contract: ``encode(leaf) -> payload`` (a dict of
 tensors that would cross the pod axis) and ``decode(payload, shape,
@@ -19,12 +19,27 @@ PyTorch on a CPU tensor) and unpacked by one of ``unpack_int4``
 (``decode_group``); its ``fused_merge_group`` reads the packed payloads
 straight into the global leaves.  Registered: ``none``, ``fp16``,
 ``int8``, ``int4``.
+
+The ship (:func:`gather_payloads`, :func:`gather_payloads_tiered`) is the
+identity when every pod sits in one process, the reference's
+``mesh=None``, and so the bit-exact oracle of a placed round.  Placed
+over the process groups of ``launch.mesh.PodGroups``, it all-gathers
+every row-stacked wire array along its leading axis with
+``torch.distributed.all_gather_into_tensor``, on whatever device the
+arrays lie: gloo takes CUDA tensors for it (checked on the H100 machine
+with torch 2.11), so one card can host every rank of a gloo group and
+nothing stages through the host.  The reference's ``pin_gathered`` and
+``pin_tier`` steer GSPMD's layout of values derived from a gather; eager
+PyTorch has no such layout, so they have no counterpart here: each rank
+decodes what it gathered, locally.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Sequence, Tuple
+import math
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.kernels import ops, ref
 from repro_torch.utils.trees import tree_flatten, tree_unflatten
@@ -82,6 +97,32 @@ class GeneratorNoise:
         gen = torch.Generator(device=self.device).manual_seed(mixed)
         return torch.rand(shape, generator=gen, device=self.device,
                           dtype=torch.float32)
+
+    def fold(self, tag: int) -> "GeneratorNoise":
+        """A derived stream (the reference's ``fold_in(rng, tag)`` of a
+        round's key): the two-tier round's slow-tier re-encode draws from
+        ``fold(0x5C1)``."""
+        return GeneratorNoise((self.seed * 1_000_003 + int(tag)) % (1 << 62),
+                              self.device)
+
+
+class RowNoise:
+    """The noise of this rank's rows of a placed encode: leaf ``i``'s draw
+    takes the whole ``(n_rows,) + ...`` shape, as the unplaced encode
+    does, and keeps the rows ``rows``, so a placed round rounds every
+    element as the unplaced one.  Leaves in ``whole`` are encoded whole
+    on every rank and draw as they are."""
+
+    def __init__(self, noise: NoiseFn, rows: slice, n_rows: int,
+                 whole=frozenset()):
+        self.noise, self.rows, self.n_rows = noise, rows, int(n_rows)
+        self.whole = frozenset(whole)
+
+    def __call__(self, round_step, leaf_index, shape):
+        if leaf_index in self.whole:
+            return self.noise(round_step, leaf_index, shape)
+        full = (self.n_rows,) + tuple(shape[1:])
+        return self.noise(round_step, leaf_index, full)[self.rows]
 
 
 def _stacked_axis(g: torch.Tensor, q: torch.Tensor) -> int:
@@ -288,12 +329,134 @@ def payload_buffer_spec(tree, mode: str, n_pods: int):
     return tree_unflatten(treedef, payloads)
 
 
-def gather_payloads(payloads):
-    """Ship the encoded payloads across the pod axis.  With every pod
-    stacked on one device (the reference's ``mesh=None``) this is the
-    identity; a placed gather over ``torch.distributed`` replaces it in a
-    later slice."""
-    return payloads
+def row_local(mode: str, shape, *row_counts: int) -> bool:
+    """Is a leaf's encode row by row at every one of ``row_counts``
+    stackings?  A blocked format whose blocks tile the stacking axis
+    itself (a stacked scalar: the reference's non-pinnable leaf) is not:
+    its rows must meet on one rank before they are encoded."""
+    if not isinstance(get_format(mode), BlockedIntFormat):
+        return True
+    rest = tuple(int(d) for d in shape)
+    return all(block_axis((int(n),) + rest) >= 1 for n in row_counts)
+
+
+def all_gather_rows(x: torch.Tensor, group, size: int) -> torch.Tensor:
+    """``x``'s rows from every rank of ``group`` (``size`` ranks), stacked
+    in rank order along dim 0; the identity for a group of one."""
+    if size <= 1:
+        return x
+    x = x.contiguous()
+    out = torch.empty((size * x.shape[0],) + tuple(x.shape[1:]),
+                      dtype=x.dtype, device=x.device)
+    dist.all_gather_into_tensor(out, x, group=group)
+    return out
+
+
+def gather_payloads(payloads, groups=None, n_pods: Optional[int] = None, *,
+                    axis: str = "pod"):
+    """Ship the encoded payloads across the ``axis`` tier of ``groups``
+    (a ``launch.mesh.PodGroups``; ``"pod"``, or ``"cluster"`` for the
+    two-tier round's slow tier).
+
+    The identity when ``groups`` is None (every pod in one process) or the
+    tier has one rank, so the unplaced call is the bit-exact oracle of the
+    placed one.  Otherwise every wire array whose leading dim is this
+    rank's share of the ``n_pods`` rows (default: the tier's full row
+    count) is all-gathered along it; other arrays pass through, as in the
+    reference's ``_pinnable``.  Every rank must pass trees of one
+    structure: they issue the same collectives in the same order."""
+    if groups is None:
+        return payloads
+    group, size = groups.group(axis)
+    if size <= 1:
+        return payloads
+    if n_pods is None:
+        n_pods = groups.n_pods if axis == "pod" else groups.n_clusters
+    local = int(n_pods) // size
+    return _gather_rows_of(payloads, group, size, local)
+
+
+def gather_payloads_tiered(payloads, groups=None,
+                           n_rows: Optional[int] = None):
+    """The fast tier of the two-tier ship: gather the row-stacked payloads
+    over this rank's intra-cluster group only, so each rank ends up with
+    its own cluster's rows and never another cluster's.  Falls back to the
+    flat :func:`gather_payloads` when ``groups`` has no cluster tier;
+    the identity when ``groups`` is None."""
+    if groups is None:
+        return payloads
+    if groups.n_clusters <= 1:
+        return gather_payloads(payloads, groups, n_rows)
+    group, size = groups.group("intra")
+    n_rows = groups.n_pods if n_rows is None else int(n_rows)
+    return _gather_rows_of(payloads, group, size, n_rows // groups.size)
+
+
+def _gather_rows_of(payloads, group, size: int, local: int):
+    leaves, treedef = tree_flatten(payloads)
+    return tree_unflatten(treedef, [
+        all_gather_rows(a, group, size)
+        if a.ndim >= 1 and a.shape[0] == local else a for a in leaves])
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).removeprefix("torch.")
+
+
+def wire_operand_specs(tree, mode: str, n_pods: int, *, rows: int = 1,
+                       n_clusters: Optional[int] = None
+                       ) -> List[Tuple[str, Tuple[int, ...], int]]:
+    """The operands a rank all-gathers in one placed round's ship, in the
+    order it gathers them: ``(dtype name, per-rank dims, bytes)``.
+
+    ``tree`` is an unstacked parameter tree (tensors of any device,
+    ``meta`` included); a rank holds ``rows`` of the ``n_pods`` pod rows.
+    First the leaves that are not :func:`row_local` (also at
+    ``n_clusters`` rows, for the two-tier round): their pre-encode rows,
+    ``(rows,) + leaf`` in the leaf dtype, since every rank encodes such a
+    leaf whole.  Then every wire array of the others, ``(rows,) + rest``,
+    from the format's own ``encode_group`` run on ``meta`` tensors (as
+    :func:`payload_buffer_spec`), so the spec cannot drift from the wire;
+    ``none`` ships the stacked leaves themselves.  At ``rows=1`` and a
+    tree of row-local leaves these are the reference's
+    ``wire_operand_specs``; the two-tier round's fast tier gathers the
+    same operands over its intra-cluster group."""
+    counts = (n_pods,) if n_clusters is None else (n_pods, n_clusters)
+    leaves = tree_flatten(tree)[0]
+    local = [row_local(mode, x.shape, *counts) for x in leaves]
+    specs = [(x.dtype, (int(rows),) + tuple(x.shape))
+             for x, ok in zip(leaves, local) if not ok]
+    stacked = [torch.empty((int(rows),) + tuple(x.shape), dtype=x.dtype,
+                           device="meta")
+               for x, ok in zip(leaves, local) if ok]
+    payloads = get_format(mode).encode_group(
+        stacked, [(0, i) for i in range(len(stacked))], _zero_noise)
+    specs += [(a.dtype, tuple(a.shape)) for a in tree_flatten(payloads)[0]]
+    return [(_dtype_name(dt), tuple(int(d) for d in dims),
+             math.prod(dims) * torch.empty((), dtype=dt).element_size())
+            for dt, dims in specs]
+
+
+def cluster_wire_operand_specs(tree, mode: str, n_clusters: int, *,
+                               n_pods: Optional[int] = None
+                               ) -> List[Tuple[str, Tuple[int, ...], int]]:
+    """The slow-tier operands of one placed two-tier round: each rank
+    gathers its cluster's re-encoded partial, one row, over the
+    cross-cluster group.  That is :func:`wire_operand_specs` of the same
+    tree at ``n_clusters`` rows, one a rank, without the leaves that are
+    not row-local (every rank computes those whole, so they cross no tier
+    here): slow-tier bytes scale with ``n_clusters``, not ``n_pods``."""
+    counts = (n_clusters,) if n_pods is None else (n_clusters, n_pods)
+    keep = [x for x in tree_flatten(tree)[0]
+            if row_local(mode, x.shape, *counts)]
+    return wire_operand_specs(keep, mode, n_clusters)
+
+
+def control_operand_spec(rows: int) -> Tuple[str, Tuple[int, ...], int]:
+    """The gate exchange of a placed round, billed apart from the payload
+    (the reference's ``control_bytes``): each rank gathers its pods' loss
+    and gate bit as ``rows`` fp32 pairs, whether or not the round opens."""
+    return ("float32", (int(rows), 2), 8 * int(rows))
 
 
 _REGISTRY: Dict[str, WireFormat] = {}

@@ -11,8 +11,11 @@ Two modes:
   the admitted pods merge into the global model through the wire format
   and restart from it.  With ``async_rounds`` a round's merge lands at
   the next round boundary (``hermes_dispatch`` then, one round later,
-  ``hermes_commit``).  All pods are stacked on one device, the
-  reference's ``mesh=None`` layout.
+  ``hermes_commit``).  With ``--clusters N`` the pods form N clusters and
+  every round is two-tier: each cluster merges its members' pushes into
+  one partial and only the partials cross the slow tier.  All pods are
+  stacked on one device, the reference's ``mesh=None`` layout, unless
+  ``train_hermes`` is handed the process groups of a placed run.
 
 Usage:
     python -m repro_torch.launch.train --preset lm100m --steps 300
@@ -23,6 +26,8 @@ Usage:
         --compression int8 --async-rounds
     python -m repro_torch.launch.train --preset lm100m --hermes --pods 4 \
         --participation-rate 0.5 --admission prob
+    python -m repro_torch.launch.train --preset lm100m --hermes --pods 4 \
+        --clusters 2 [--async-rounds]
 """
 from __future__ import annotations
 
@@ -43,9 +48,11 @@ from repro_torch.config import (
 from repro_torch.configs import get_smoke_config
 from repro_torch.data.synthetic import make_batches, make_lm_dataset
 from repro_torch.dist.hermes_sync import (
-    hermes_commit, hermes_dispatch, hermes_pod_state, hermes_round,
+    hermes_cluster_commit, hermes_cluster_dispatch, hermes_cluster_round,
+    hermes_pod_state, pending_merges,
 )
-from repro_torch.dist.wire import GeneratorNoise, NoiseFn
+from repro_torch.dist.wire import GeneratorNoise, NoiseFn, all_gather_rows
+from repro_torch.launch.mesh import PodGroups, placed
 from repro_torch.models.lm import init_lm, lm_loss
 from repro_torch.optim.optimizers import make_optimizer
 from repro_torch.utils.trees import tree_flatten, tree_map, tree_unflatten
@@ -214,12 +221,19 @@ def train_single(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
             "device": str(dev)}
 
 
+def _all_pods(x: torch.Tensor, groups: Optional[PodGroups]) -> torch.Tensor:
+    """Every pod's entry of a per-pod vector this rank holds its rows of
+    (the vector itself unplaced)."""
+    return all_gather_rows(x, *groups.group("pod")) if placed(groups) else x
+
+
 def train_hermes(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
                  pods: int, opt_cfg: OptimizerConfig, hcfg: HermesConfig,
                  ckpt_dir: Optional[str] = None,
                  log_every: int = 20, seed: int = 0, device="cuda",
                  params0: Optional[Tree] = None,
-                 noise: Optional[NoiseFn] = None) -> Dict:
+                 noise: Optional[NoiseFn] = None,
+                 groups: Optional[PodGroups] = None) -> Dict:
     """Pod-stacked local training + gated merges.
 
     ``params0`` (a parameter tree of numpy arrays) replaces the
@@ -227,11 +241,20 @@ def train_hermes(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
     ``noise`` replaces the int4 rounding noise and ``prob`` admission's
     draw (default: a :class:`GeneratorNoise` seeded with ``seed``).
     ``ckpt_dir`` is accepted and never read, as in the reference: the
-    Hermes trainer writes no checkpoint.  Returns the reference's
-    summary (global_loss, merges, rounds, pod_losses, history, and the
-    async accounting async_rounds, dispatched, committed, drained; with
-    async rounds ``merges`` counts commits) plus the time per step and per
-    round: CUDA events on the card, the host clock on the CPU.
+    Hermes trainer writes no checkpoint.  Every round goes through the
+    two-tier entry points (``hermes_cluster_round``, or ``_dispatch`` and
+    ``_commit``), which call the flat round at ``hcfg.n_clusters == 1``.
+    Returns the reference's summary (global_loss, merges, rounds,
+    pod_losses, history, and the async accounting async_rounds,
+    dispatched, committed, drained; with async rounds ``merges`` counts
+    commits) plus the time per step and per round: CUDA events on the
+    card, the host clock on the CPU.
+
+    ``groups`` (``launch.mesh.PodGroups``, ``groups.n_pods == pods``)
+    places the run: this rank trains only its own pods, on data shards
+    indexed by the global pod id, so a placed run sees the unplaced run's
+    batches; every rank keeps and evaluates the global model.  The summary
+    is the same on every rank but for the clocks, and rank 0 alone logs.
 
     As in the reference, the loop reads the device only through
     :func:`_host_fetch`, at log steps and after the loop: the counters and
@@ -245,13 +268,18 @@ def train_hermes(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
     dev = _start(device)
     hcfg.validate()
     cfg.validate()
+    if groups is not None and groups.n_pods != pods:
+        raise ValueError(f"groups place {groups.n_pods} pods, not {pods}")
+    mine = groups.rows if placed(groups) else slice(0, pods)
+    n_mine = mine.stop - mine.start
     tokens = make_lm_dataset(batch * seq * 40 * pods + batch * seq + 2,
                              cfg.vocab_size, seed=seed)
     # held-out eval split from the same stream (same Markov transitions)
     eval_tokens = tokens[-(batch * seq + 1):]
     shards = np.array_split(tokens[:-(batch * seq + 1)], pods)
-    batch_iters = [make_batches(s, batch, seq, np.random.default_rng(seed + i))
-                   for i, s in enumerate(shards)]
+    batch_iters = [make_batches(shards[i], batch, seq,
+                                np.random.default_rng(seed + i))
+                   for i in range(mine.start, mine.stop)]
     eval_batch = tree_map(
         lambda t: t.to(dev),
         next(make_batches(eval_tokens, min(batch, 8), seq,
@@ -260,17 +288,19 @@ def train_hermes(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
     optimizer = make_optimizer(opt_cfg)
     w_global = _init_params(cfg, seed, dev, params0)
     pod_params = tree_map(
-        lambda x: x[None].expand((pods,) + tuple(x.shape)).clone(), w_global)
+        lambda x: x[None].expand((n_mine,) + tuple(x.shape)).clone(),
+        w_global)
     pod_opt = optimizer.init(pod_params)
     L_global = torch.tensor(1e9, dtype=torch.float32, device=dev)
-    gup = hermes_pod_state(hcfg, pods, dev)
+    gup = hermes_pod_state(hcfg, n_mine, dev)
     error = None
     noise = noise if noise is not None else GeneratorNoise(seed, dev)
+    logs = groups is None or groups.rank == 0
 
     def pod_losses_and_grads(pod_params, stacked):
         leaves, treedef = tree_flatten(pod_params)
         losses, grads = [], []
-        for i in range(pods):
+        for i in range(n_mine):
             loss, g = _loss_and_grads(
                 tree_unflatten(treedef, [x[i] for x in leaves]),
                 {k: v[i] for k, v in stacked.items()}, cfg)
@@ -285,7 +315,7 @@ def train_hermes(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
         leaves, treedef = tree_flatten(pod_params)
         return torch.stack([
             lm_loss(tree_unflatten(treedef, [x[i] for x in leaves]),
-                    eval_batch, cfg) for i in range(pods)])
+                    eval_batch, cfg) for i in range(n_mine)])
 
     @torch.no_grad()
     def eval_global(params):
@@ -296,8 +326,9 @@ def train_hermes(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
         when it merged.  A dispatch encodes a payload only for an open
         gate (its own host read), so a pending payload is the host's flag.
         Returns the merge as a device int32 for the counters."""
-        cm = hermes_commit(pod_params, pending, w_global, cfg=hcfg)
-        if pending["payload"] is not None:
+        cm = hermes_cluster_commit(pod_params, pending, w_global, cfg=hcfg,
+                                   groups=groups)
+        if pending_merges(pending):
             L_global = eval_global(cm["w_global"])
         return (cm["pod_params"], cm["w_global"], L_global,
                 cm["any_push"].to(torch.int32))
@@ -340,29 +371,32 @@ def train_hermes(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
                         pending = None  # frees the payload
                         merges = merges + opened
                         committed = committed + opened
-                    out = hermes_dispatch(pod_params, gup, pod_losses,
-                                          w_global, L_global, hcfg,
-                                          error=error, round_step=i,
-                                          noise=noise)
+                    out = hermes_cluster_dispatch(
+                        pod_params, gup, pod_losses, w_global, L_global,
+                        hcfg, error=error, round_step=i, noise=noise,
+                        groups=groups)
                     pending = out["pending"]
                     dispatched = dispatched + out["any_push"].to(torch.int32)
                 else:
-                    out = hermes_round(pod_params, gup, pod_losses, w_global,
-                                       L_global, hcfg, error=error,
-                                       round_step=i, noise=noise)
+                    out = hermes_cluster_round(
+                        pod_params, gup, pod_losses, w_global, L_global,
+                        hcfg, error=error, round_step=i, noise=noise,
+                        groups=groups)
                     pod_params, w_global = out["pod_params"], out["w_global"]
                     if out["merged"]:  # re-evaluate after a merge
                         L_global = eval_global(w_global)
                     merges = merges + out["any_push"].to(torch.int32)
                 gup, error = out["gup"], out["error"]
-                history.append((i + 1, torch.mean(pod_losses),
+                history.append((i + 1, torch.mean(out["losses"]),
                                 out["gates"].sum()))
             round_clock.stop(t0)
         if (i + 1) % log_every == 0:
-            pod_l, gl_l, m = _host_fetch((losses.mean(), L_global, merges))
-            print(f"step {i + 1:5d} pod-loss {float(pod_l):.4f} "
-                  f"global-L {float(gl_l):.4f} merges={int(m)}/{rounds}",
-                  flush=True)
+            pod_l, gl_l, m = _host_fetch((_all_pods(losses, groups).mean(),
+                                          L_global, merges))
+            if logs:
+                print(f"step {i + 1:5d} pod-loss {float(pod_l):.4f} "
+                      f"global-L {float(gl_l):.4f} merges={int(m)}/{rounds}",
+                      flush=True)
     # drain: the last dispatched payload has no following boundary, so it
     # is committed here; every open round merges exactly once
     if pending is not None:
@@ -378,7 +412,8 @@ def train_hermes(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
     hist_gates = torch.stack([g for _, _, g in history]) if history \
         else torch.zeros((0,), dtype=torch.int64, device=dev)
     gl, pl, merges, dispatched, committed, hist_loss, hist_gates = \
-        _host_fetch((eval_global(w_global), pod_eval(pod_params), merges,
+        _host_fetch((eval_global(w_global),
+                     _all_pods(pod_eval(pod_params), groups), merges,
                      dispatched, committed, hist_loss, hist_gates))
     pl = pl.tolist()
     merges = int(merges)
@@ -407,7 +442,10 @@ def main(argv=None) -> None:
     ap.add_argument("--pods", type=int, default=4)
     ap.add_argument("--clusters", type=int, default=1,
                     help="two-tier Hermes: group the pods into N latency "
-                         "clusters; only 1 (the flat round) is ported")
+                         "clusters; the gated merge runs intra-cluster and "
+                         "only each cluster's merged, re-encoded payload "
+                         "crosses the slow tier (--pods must divide "
+                         "evenly; 1 = flat round)")
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--alpha", type=float, default=-1.3)
     ap.add_argument("--beta", type=float, default=0.1)
@@ -447,9 +485,9 @@ def main(argv=None) -> None:
                             participation_rate=args.participation_rate,
                             admission=args.admission, **kw)
         hcfg.validate()
-        if args.clusters > 1:
-            ap.error(f"--clusters {args.clusters}: two-tier Level-B rounds "
-                     f"are not ported yet (ROADMAP queue 1 item 5)")
+        if args.clusters > 1 and args.pods % args.clusters:
+            ap.error(f"--pods {args.pods} must split evenly into "
+                     f"--clusters {args.clusters}")
         out = train_hermes(cfg, steps=args.steps, batch=args.batch,
                            seq=args.seq, pods=args.pods, opt_cfg=opt,
                            hcfg=hcfg, ckpt_dir=args.ckpt, seed=args.seed,

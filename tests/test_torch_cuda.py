@@ -432,6 +432,93 @@ def test_train_hermes_on_card_runs_every_kernel(card):
     assert counts["none"]["loss_weighted_update"] > 0
 
 
+def _lmtiny_pods(card, n_pods, seed):
+    from repro_torch.launch.train import _preset
+    from repro_torch.models.lm import init_lm
+    from repro_torch.utils.trees import tree_map
+    w = init_lm(_preset("lmtiny"), seed, card)
+    gen = torch.Generator(device=card).manual_seed(seed + 1)
+    pods = tree_map(lambda g: g[None] + 1e-2 * torch.randn(
+        (n_pods,) + tuple(g.shape), generator=gen, device=card), w)
+    return w, pods
+
+
+def test_cluster_partial_pack_unpack_kernels_equal_plain(card):
+    """The slow tier's re-encode packs the ``(n_clusters,) + leaf`` partial
+    tree: one grouped pack and one unpack launch for it, bitwise the
+    plain versions."""
+    from repro_torch.utils.trees import tree_leaves
+    w, pods = _lmtiny_pods(card, 2, 3)
+    fmt = wire.get_format("int4")
+    noise = wire.GeneratorNoise(4, card).fold(0x5C1)
+    leaves = []
+    for i, x in enumerate(tree_leaves(pods)):
+        q, _, _, ax, d, _ = fmt._quantize(1e-2 * x, (0, i), noise)
+        leaves.append((q, d, ax))
+    build.reset_launches()
+    packed = pack_int4_group_cuda(leaves)
+    assert build.LAUNCHES["pack_int4"] == 1
+    assert all(torch.equal(a, b) for a, b in
+               zip(packed, pack_int4_group_plain(leaves)))
+    wires = [(p, d, ax) for p, (_, d, ax) in zip(packed, leaves)]
+    got = unpack_int4_group_cuda(wires)
+    assert build.LAUNCHES["unpack_int4"] == 1
+    assert all(torch.equal(a, b) for a, b in
+               zip(got, unpack_int4_group_plain(wires)))
+    assert all(torch.equal(a, q.narrow(ax, 0, d))
+               for a, (q, d, ax) in zip(got, leaves))
+
+
+@pytest.mark.parametrize("mode", ["none", "fp16", "int8", "int4"])
+def test_two_tier_round_pins_on_card(card, mode):
+    """The two-tier round's own pins on the card, bitwise: one cluster is
+    ``hermes_round``; the sync round is dispatch + commit; a commit whose
+    ``live`` mask kills a gated member drops its whole cluster, as a
+    round with that cluster shut."""
+    from repro_torch.core.gup import gup_gate
+    from repro_torch.dist import hermes_sync as hs
+    from repro_torch.utils.trees import tree_leaves
+    n = 4
+    w, pods = _lmtiny_pods(card, n, 5)
+    cfgs = {c: HermesConfig(compression=mode, n_clusters=c,
+                            error_feedback=mode in ("int8", "int4"))
+            for c in (1, 2)}
+    gup = hs.hermes_pod_state(cfgs[2], n, card)
+    for level in (3.0, 3.2):  # a loss history the next losses beat
+        _, gup = gup_gate(gup, torch.full((n,), level, device=card),
+                          cfgs[2])
+    losses = torch.tensor([2.1, 2.2, 2.0, 2.3], device=card)
+    L = torch.tensor(3.4, device=card)
+    kw = dict(round_step=1, noise=wire.GeneratorNoise(6, card))
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in
+                   zip(tree_leaves(a), tree_leaves(b)))
+
+    build.reset_launches()
+    one = hs.hermes_cluster_round(pods, gup, losses, w, L, cfgs[1], **kw)
+    flat = hs.hermes_round(pods, gup, losses, w, L, cfgs[1], **kw)
+    assert same([one["w_global"], one["pod_params"]],
+                [flat["w_global"], flat["pod_params"]])
+    sync = hs.hermes_cluster_round(pods, gup, losses, w, L, cfgs[2], **kw)
+    assert bool(sync["gates"].all()) and sync["merged"]
+    dp = hs.hermes_cluster_dispatch(pods, gup, losses, w, L, cfgs[2], **kw)
+    cm = hs.hermes_cluster_commit(pods, dp["pending"], w, cfg=cfgs[2])
+    assert same([sync["w_global"], sync["pod_params"]],
+                [cm["w_global"], cm["pod_params"]])
+    dead = hs.hermes_cluster_commit(
+        pods, dp["pending"], w, cfg=cfgs[2],
+        live=torch.tensor([True, True, True, False], device=card))
+    shut = hs.hermes_cluster_round(
+        pods, gup, losses, w, L, cfgs[2],
+        live=torch.tensor([True, True, False, False], device=card), **kw)
+    assert same([dead["w_global"], dead["pod_params"]],
+                [shut["w_global"], shut["pod_params"]])
+    if mode == "int4":
+        assert build.LAUNCHES["pack_int4"] > 0
+        assert build.LAUNCHES["unpack_int4"] > 0
+
+
 def _attention_inputs(card, B, Sq, Skv, H, K, D, dtype, seed):
     gen = torch.Generator(device=card).manual_seed(seed)
     q, k, v = (torch.randn((B, S, n, D), generator=gen, device=card)

@@ -154,18 +154,23 @@ def test_hermes_round_matches_reference(compression, dispatch):
 
 
 def test_hermes_round_rejects_unported_modes():
-    """Two-tier clusters are not ported: they raise instead of running
-    another round than the reference's.  Bernoulli admission is ported
-    and, as in the reference without an rng, raises without a noise
-    source (``tests/test_torch_admission.py`` holds it with one)."""
+    """Bernoulli admission is ported and, as in the reference without an
+    rng, raises without a noise source (``tests/test_torch_admission.py``
+    holds it with one).  Two-tier clusters are ported as their own entry
+    points (``tests/test_torch_cluster.py``); the flat halves ignore
+    ``cfg.n_clusters``, as the reference's do, and run the flat round."""
     pods, glob = {"a": torch.zeros(2, 4)}, {"a": torch.zeros(4)}
-    for kw, exc, match in (
-            ({"n_clusters": 2}, NotImplementedError, "clusters"),
-            ({"participation_rate": 0.5, "admission": "prob"}, ValueError,
-             "admission")):
-        cfg = THermesConfig(**kw)
-        cfg.validate()
-        st = ths.hermes_pod_state(cfg, 2, torch.device("cpu"))
-        for half in (ths.hermes_round, ths.hermes_dispatch):
-            with pytest.raises(exc, match=match):
-                half(pods, st, torch.ones(2), glob, torch.tensor(1.0), cfg)
+    cfg = THermesConfig(participation_rate=0.5, admission="prob")
+    cfg.validate()
+    st = ths.hermes_pod_state(cfg, 2, torch.device("cpu"))
+    for half in (ths.hermes_round, ths.hermes_dispatch):
+        with pytest.raises(ValueError, match="admission"):
+            half(pods, st, torch.ones(2), glob, torch.tensor(1.0), cfg)
+    cfg1, cfg2 = THermesConfig(), THermesConfig(n_clusters=2)
+    cfg2.validate()
+    st = ths.hermes_pod_state(cfg2, 2, torch.device("cpu"))
+    for half in (ths.hermes_round, ths.hermes_dispatch):
+        a = half(pods, st, torch.ones(2), glob, torch.tensor(1.0), cfg2)
+        b = half(pods, st, torch.ones(2), glob, torch.tensor(1.0), cfg1)
+        assert "cluster_payload" not in a.get("pending", {})
+        assert torch.equal(a["gates"], b["gates"])

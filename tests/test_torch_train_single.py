@@ -133,9 +133,12 @@ def test_cli_defaults_and_flags(monkeypatch, capsys):
     assert (hcfg.participation_rate, hcfg.admission, hcfg.n_clusters,
             hcfg.compression, hcfg.lam) == (0.5, "prob", 1, "int4", 5)
     assert '"compression": "int4"' in capsys.readouterr().out
+    ttrain.main(["--hermes", "--clusters", "2", "--device", "cpu"])
+    assert calls[-1][2]["hcfg"].n_clusters == 2
     with pytest.raises(SystemExit):
-        ttrain.main(["--hermes", "--clusters", "2"])
-    assert "ROADMAP queue 1 item 5" in capsys.readouterr().err
+        ttrain.main(["--hermes", "--pods", "3", "--clusters", "2"])
+    assert "--pods 3 must split evenly into --clusters 2" in \
+        capsys.readouterr().err
     with pytest.raises(SystemExit):
         ttrain.main(["--hermes", "--admission", "fifo"])
     with pytest.raises(ValueError, match="participation_rate"):

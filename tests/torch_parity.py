@@ -27,12 +27,23 @@ def leaf_shapes(preset: str, n_pods: int = 4):
     return [(n_pods,) + tuple(s.shape) for s in jax.tree.leaves(shapes)]
 
 
-def jax_noise(seed: int):
+class jax_noise:
     """The reference's int4 noise as a port ``NoiseFn``: the uniform draw
     of ``fold_in(fold_in(PRNGKey(seed), round_step), leaf)``, which is what
-    ``train_hermes`` and ``encode_tree`` hand ``Int4Format._round``."""
-    def draw(round_step, leaf, shape):
-        key = jax.random.fold_in(
-            jax.random.fold_in(jax.random.PRNGKey(seed), round_step), leaf)
+    ``train_hermes`` and ``encode_tree`` hand ``Int4Format._round``.
+    ``fold(tag)`` is the stream of ``fold_in(round_key, tag)``: the
+    two-tier round's slow tier draws from ``fold(0x5C1)``, as the
+    reference's ``fold_in(rng, 0x5C1)``."""
+
+    def __init__(self, seed: int, tags=()):
+        self.seed, self.tags = seed, tuple(tags)
+
+    def fold(self, tag: int) -> "jax_noise":
+        return jax_noise(self.seed, self.tags + (int(tag),))
+
+    def __call__(self, round_step, leaf, shape):
+        key = jax.random.fold_in(jax.random.PRNGKey(self.seed), round_step)
+        for tag in self.tags:
+            key = jax.random.fold_in(key, tag)
+        key = jax.random.fold_in(key, leaf)
         return np.array(jax.random.uniform(key, shape))
-    return draw
