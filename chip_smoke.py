@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths on one NVIDIA card: the Hermes
 trainer, serving, the Level-A cluster simulator, the single trainer with
-its checkpoints, the paper's studies, the fleet engine, and the two-tier
-round with the placed gather.
+its checkpoints, the paper's studies, the fleet engine, the two-tier
+round with the placed gather, and elastic membership.
 
     python3 chip_smoke.py
 
@@ -124,7 +124,19 @@ Phases (any failure raises and the script exits nonzero):
     placed lm100m
     trainer (6 steps int4, deterministic algorithms) against the unplaced
     one: gates and merges equal, the loss gap printed;
-13. a ``kernels`` JSON line, the ``nvidia-smi`` line, and the result line.
+13. elastic membership at lm100m x 4 pods (``launch.elastic``): (a)
+    unplaced, ``drop_pod_equivalence`` (pod 1 dies) and
+    ``rejoin_pod_equivalence`` (pod 3 dies and rejoins) for ``none``,
+    ``int8`` and ``int4`` (the dither keyed by original pod id,
+    :class:`PodKeyedNoise`): the resized path bitwise its oracle, the
+    merged rounds, the launches of the wire kernels, the wall time of
+    every ``elastic_shrink`` and ``elastic_grow``, the wire bytes at 3 and
+    4 pods; (b) ``launch.placed_audit``'s elastic cases on four ranks of
+    this card over gloo (``drop``, ``rejoin``, ``cluster_resize``; int8
+    and int4): every rank's rows bitwise the never-resized oracle, every
+    gather its spec at the current pod count, the dead rank silent after
+    the shrink, the grow one broadcast of the 498,680,832-byte tree;
+14. a ``kernels`` JSON line, the ``nvidia-smi`` line, and the result line.
 
 It needs the repository's ``src/`` beside it and imports neither JAX nor
 the JAX package.
@@ -169,10 +181,50 @@ REPLACES = {
     "tile_copy": "src/repro/launch/analyze.py:499",
 }
 PODS = 4
+# the wire kernels, rows 1-5 of the kernel table
+WIRE_ROWS = ("pack_int4", "unpack_int4", "dequant_merge_packed",
+             "loss_weighted_update", "dequant_merge")
+
+
+# phase 13a's draws of the masked == shrunk checks
+DENOM_DRAWS, ROUND_SEEDS = 512, 16
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+class PodKeyedNoise:
+    """The int4 dither of phase 13, keyed by ORIGINAL pod id: ``noise(ids)``
+    is the rounding noise of a round whose stacked rows are the original
+    pods ``ids``.  Each leaf draws at the original ``(n_pods,) + leaf``
+    shape and keeps the live pods' rows, so a pod rounds alike whether the
+    others are masked or dropped (the round's own noise draws over the
+    current stacking, which is not resize-invariant).  The slow tier of a
+    two-tier round folds the base stream (its rows are clusters).  Module
+    level, so the placed audit can hand it to its spawned ranks."""
+
+    def __init__(self, seed: int, device: str, n_pods: int):
+        self.seed, self.device, self.n_pods = seed, device, n_pods
+
+    def __call__(self, ids):
+        from repro_torch.dist.wire import GeneratorNoise
+        return _PodRows(GeneratorNoise(self.seed, self.device), ids,
+                        self.n_pods)
+
+
+class _PodRows:
+    def __init__(self, base, ids, n_pods: int):
+        self.base, self.ids, self.n_pods = base, list(ids), n_pods
+
+    def __call__(self, round_step, leaf, shape):
+        if not shape or shape[0] != len(self.ids):
+            return self.base(round_step, leaf, shape)
+        full = self.base(round_step, leaf, (self.n_pods,) + tuple(shape[1:]))
+        return full[self.ids]
+
+    def fold(self, tag: int):
+        return self.base.fold(tag)
 
 
 def nvidia_smi_line() -> str:
@@ -1853,6 +1905,242 @@ def two_tier(torch, dev, results) -> None:
     log(f"[12] phase wall {time.perf_counter() - t_phase:.1f} s")
 
 
+def elastic(torch, dev, results) -> None:
+    """Phase 13: elastic membership at lm100m x 4 pods.  (a) masked ==
+    shrunk over many draws (the merge's denominator, then whole rounds),
+    and the shrink and rejoin proofs unplaced, with every resize timed;
+    (b) the placed elastic cases and proofs on four ranks of this card."""
+    from repro_torch.config import HermesConfig
+    from repro_torch.dist import hermes_sync as hs
+    from repro_torch.dist import wire
+    from repro_torch.kernels import build
+    from repro_torch.launch import elastic as el
+    from repro_torch.launch import placed_audit
+    from repro_torch.launch.train import _preset
+    from repro_torch.models.lm import init_lm
+    from repro_torch.utils.trees import tree_leaves, tree_map
+
+    t_phase = time.perf_counter()
+    w = init_lm(_preset("lm100m"), 0, dev)
+    meta = [torch.empty(g.shape, device="meta") for g in tree_leaves(w)]
+    tree_bytes = sum(g.numel() * g.element_size() for g in tree_leaves(w))
+
+    def lm100m(n_pods, cfg, seed, device):
+        gen = torch.Generator(device=device).manual_seed(13 + seed)
+        pods = tree_map(lambda g: g[None] + 1e-3 * torch.randn(
+            (n_pods,) + tuple(g.shape), generator=gen, device=device), w)
+        return pods, w, hs.hermes_pod_state(cfg, n_pods, device)
+
+    # every resize timed, every merge counted, through the module's names
+    walls = {"elastic_shrink": [], "elastic_grow": []}
+    merges = [0]
+    real = {k: getattr(el, k) for k in walls}
+    real_merge = hs.hermes_merge
+
+    def timed(name):
+        def call(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real[name](*args, **kw)
+            torch.cuda.synchronize()
+            walls[name].append(1e3 * (time.perf_counter() - t0))
+            return out
+        return call
+
+    def merge(*args, **kw):
+        merges[0] += 1
+        return real_merge(*args, **kw)
+
+    total = dict.fromkeys(WIRE_ROWS, 0)
+    expected_bytes = {"int4": (192_849_444, 257_132_592),
+                      "int8": (379_854_756, 506_473_008)}
+    # the merge's denominator: a masked pod's zero weight must add nothing,
+    # over many draws with two or more survivors open (a device reduction
+    # regroups with the length)
+    gen = torch.Generator(device=dev).manual_seed(24)
+    L = torch.tensor(3.4, device=dev)
+    differ = 0
+    for i in range(DENOM_DRAWS):
+        keep = [p for p in range(PODS) if p != i % PODS]
+        losses = 0.2 + 4.0 * torch.rand(PODS, generator=gen, device=dev)
+        gates = torch.rand(PODS, generator=gen, device=dev) < 0.75
+        gates[i % PODS] = False
+        if int(gates[keep].sum()) < 2:
+            gates[keep] = True
+        differ += not torch.equal(hs._merge_weights(gates, losses, L)[2],
+                                  hs._merge_weights(gates[keep],
+                                                    losses[keep], L)[2])
+    log(f"[13a] merge denominator masked == shrunk: {differ} of "
+        f"{DENOM_DRAWS} draws differ")
+    if differ:
+        raise AssertionError(f"the merge's denominator differs masked and "
+                             f"shrunk in {differ} of {DENOM_DRAWS} draws")
+
+    def masked_vs_shrunk(cfg, seed, noise, state, losses):
+        """One round at 4 rows, pod ``seed % 4`` masked, against the round
+        at the survivors' rows: whether every survivor opened and every
+        tensor is bitwise."""
+        dead = seed % PODS
+        keep = [p for p in range(PODS) if p != dead]
+        live = torch.tensor([p != dead for p in range(PODS)], device=dev)
+        pods, wg, gup = state
+        for level in (3.0, 3.2):
+            gup = hs.gup_gate(gup, torch.full((PODS,), level, device=dev),
+                              cfg)[1]
+        losses = losses.clone()
+        losses[dead] = float("nan")
+        big = hs.hermes_round(
+            pods, gup, losses, wg, L, cfg, live=live, round_step=5,
+            noise=noise and noise(range(PODS)))
+        small = hs.hermes_round(
+            el.shrink_pod_tree(pods, keep), el.shrink_pod_tree(gup, keep),
+            losses[keep], wg, L, cfg, round_step=5,
+            noise=noise and noise(keep))
+        return big["gates"].tolist() == live.tolist() and all(
+            torch.equal(a, b) for a, b in zip(
+                tree_leaves([big["w_global"], el.shrink_pod_tree(
+                    [big["pod_params"], big["error"] or []], keep)]),
+                tree_leaves([small["w_global"], [small["pod_params"],
+                                                 small["error"] or []]])))
+
+    el.elastic_shrink, el.elastic_grow = timed("elastic_shrink"), \
+        timed("elastic_grow")
+    hs.hermes_merge = merge
+    try:
+        for mode in ("none", "int8", "int4"):
+            cfg = HermesConfig(alpha=-0.5, beta=0.1, lam=2, window=4,
+                               compression=mode, min_live_pods=1,
+                               rejoin_cost_rounds=0.5)
+            noise = PodKeyedNoise(13, str(dev), PODS) \
+                if mode == "int4" else None
+            # the invariant under the proofs, with every survivor open
+            # (the demo schedule opens one pod a round): a round at 4
+            # rows with one pod masked is bitwise the round at 3 rows, at
+            # lm100m with pod 1 masked and on the toy tree over many seeds
+            held = masked_vs_shrunk(
+                cfg, 1, noise, lm100m(PODS, cfg, 1, dev),
+                torch.tensor([2.1, 2.2, 2.0, 2.3], device=dev))
+            bad_seeds = [seed for seed in range(ROUND_SEEDS)
+                         if not masked_vs_shrunk(
+                             cfg, seed, noise and PodKeyedNoise(
+                                 seed, str(dev), PODS),
+                             el._toy_pod_state(PODS, cfg, seed, dev),
+                             1.0 + 1.9 * torch.rand(
+                                 PODS, generator=torch.Generator(
+                                     device=dev).manual_seed(100 + seed),
+                                 device=dev))]
+            log(f"[13a] {mode:4s} masked == shrunk with 3 open gates: "
+                f"lm100m {held}; toy tree, seeds that differ {bad_seeds} "
+                f"of {ROUND_SEEDS}")
+            if not held or bad_seeds:
+                raise AssertionError(f"{mode}: a masked round differs from "
+                                     f"the shrunk round")
+            wire_b = tuple(n * sum(b for *_, b in wire.wire_operand_specs(
+                meta, mode, n)) for n in (PODS - 1, PODS))
+            for proof, kw in ((el.drop_pod_equivalence, {"drop": 1}),
+                              (el.rejoin_pod_equivalence, {})):
+                for v in walls.values():
+                    v.clear()
+                merges[0] = 0
+                torch.cuda.synchronize()
+                build.reset_launches()
+                t0 = time.perf_counter()
+                out = proof(n_pods=PODS, cfg=cfg, device=dev,
+                            init_state=lm100m, pod_noise=noise, **kw)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = {k: v for k, v in build.LAUNCHES.items() if v}
+                for k in WIRE_ROWS:
+                    total[k] += launches.get(k, 0)
+                log(f"[13a] {proof.__name__} {mode:4s}: bitwise "
+                    f"{out['bit_identical']}, {out['rounds']} rounds a "
+                    f"path, {merges[0]} merged rounds (both paths), "
+                    f"launches {launches}; elastic_shrink ms "
+                    f"{[round(x, 3) for x in walls['elastic_shrink']]}, "
+                    f"elastic_grow ms "
+                    f"{[round(x, 3) for x in walls['elastic_grow']]}; "
+                    f"wire at 3 / 4 pods {wire_b[0]:,} / {wire_b[1]:,} B; "
+                    f"{wall:.1f} s")
+                if not out["bit_identical"] or merges[0] < 2:
+                    raise AssertionError(f"{proof.__name__} {mode}: {out}")
+                if wire_b != expected_bytes.get(mode, wire_b):
+                    raise AssertionError(f"{mode} wire bytes {wire_b}")
+                if mode == "int4" and not all(
+                        launches.get(k, 0) >= 1 for k in WIRE_ROWS[:3]):
+                    raise AssertionError(f"int4 proofs launched {launches}")
+                if mode == "int8" and launches.get("dequant_merge", 0) < 1:
+                    raise AssertionError(f"int8 proofs launched {launches}")
+                if mode == "none" and \
+                        launches.get("loss_weighted_update", 0) < 1:
+                    raise AssertionError(f"none proofs launched {launches}")
+                del out
+    finally:
+        el.elastic_shrink, el.elastic_grow = real["elastic_shrink"], \
+            real["elastic_grow"]
+        hs.hermes_merge = real_merge
+    del w
+    torch.cuda.empty_cache()
+
+    # (b) placed: the resize on four ranks of this card over gloo against
+    # the never-resized rounds that this process runs first
+    t0 = time.perf_counter()
+    audit = placed_audit.audit(
+        "lm100m", ranks=4, n_pods=PODS, n_clusters=2,
+        formats=("int8", "int4"), cases=(), elastic=placed_audit.ELASTIC,
+        pod_noise=PodKeyedNoise(13, str(dev), PODS), device=dev)
+    survivors = {"drop": [[0], [], [2], [3]]}
+    bad = []
+    for key, case in audit["elastic"].items():
+        fmt, name = key.split("/")
+        specs = [c == e for c, e in zip(case["collectives"],
+                                        case["expected"])]
+        merged = all(all(case["unplaced_merged"][r] == m
+                         for r, m in got.items()) for got in case["merged"])
+        grow = [ph.get("grow") for ph in case["collectives"]]
+        held = case["rows"] == survivors.get(name, [[0], [1], [2], [3]])
+        tiers = all(t.get("grown", t["start"]) == t["start"]
+                    for t in case["tiers"])
+        for launches in case["launches"]:
+            for k in WIRE_ROWS:
+                total[k] += launches.get(k, 0)
+        log(f"[13b] placed {key}: bitwise {case['equal_per_rank']}, "
+            f"rows {case['rows']}, gathers as the specs {specs}, merged "
+            f"as the oracle {merged} ({sum(case['unplaced_merged'].values())}"
+            f"/{len(case['unplaced_merged'])} rounds), members "
+            f"{case['members'][0]}, grow {grow[0]}, tiers restored {tiers}, "
+            f"launches a rank {case['launches']}, {case['seconds']:.1f} s; "
+            f"shrink ms {[round(m.get('shrink', 0.0), 3) for m in case['ms']]}"
+            f", grow ms {[round(m.get('grow', 0.0), 3) for m in case['ms']]}")
+        if not (case["equal"] and all(specs) and merged and held and tiers):
+            bad.append(key)
+        if name != "drop" and grow != [[["pod/broadcast", "uint8",
+                                         [tree_bytes], tree_bytes]]] * 4:
+            bad.append(f"{key} grow {grow}")
+        if name == "cluster_resize" and \
+                case["cross_cluster_refused"] != [True] * 4:
+            bad.append(f"{key} cross-cluster shrink not refused")
+    for fmt, per in audit["proofs"].items():
+        held = [r["drop"]["bit_identical"] and r["rejoin"]["bit_identical"]
+                for r in per]
+        log(f"[13b] placed drop and rejoin proofs {fmt}, each rank its own "
+            f"rows: bitwise {held}")
+        if len(held) != 4 or not all(held):
+            bad.append(f"{fmt} placed proofs")
+    log(f"    audit {time.perf_counter() - t0:.1f} s (unplaced "
+        f"{audit['unplaced_s']:.1f} s); grow broadcast {tree_bytes:,} B")
+    if tree_bytes != 498_680_832:
+        bad.append(f"lm100m tree {tree_bytes} B")
+    if bad:
+        raise AssertionError(f"placed elastic cases differ: {bad}")
+    for k in WIRE_ROWS:
+        results[k]["elastic_launches"] = total[k]
+        if total[k] < 1:
+            raise AssertionError(f"phase 13 never launched {k}")
+    log(f"[13] launches of rows 1-5 in phase 13 (unplaced, and every rank "
+        f"of the placed cases): {total}")
+    log(f"[13] phase wall {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2202,8 +2490,9 @@ def main() -> int:
     trainer_and_studies(torch, dev, smi)
     fleet_engine(torch, dev, results)
     two_tier(torch, dev, results)
+    elastic(torch, dev, results)
 
-    # ---- 13. result lines -------------------------------------------------
+    # ---- 14. result lines -------------------------------------------------
     print(json.dumps({"kernels": list(results.values())}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -173,16 +173,30 @@ def _merge_recv(w_global, recv, w1, w2, denom, any_push, use_kernel):
                     w_global, recv)
 
 
+def _ordered_sum(x: torch.Tensor) -> torch.Tensor:
+    """``x[0] + x[1] + ...`` left to right, a 0-d tensor.  A zero anywhere
+    in ``x`` then adds nothing, so the sum with a masked pod's zero weight
+    in it is bitwise the sum with the pod left out: the elastic invariant
+    (masked == shrunk).  A device reduction regroups with the length: on
+    the H100, ``torch.sum`` of ``(a, 0, b, c)`` and of ``(a, b, c)`` differ
+    in the last bit for about one draw in four."""
+    acc = x[0]
+    for i in range(1, int(x.shape[0])):
+        acc = acc + x[i]
+    return acc
+
+
 def _merge_weights(gates, losses, L):
     """Algorithm 2's weights: ``(w1, w2, denom, any_push)``, all on the
-    device of ``gates``; a closed pod weighs 0."""
+    device of ``gates``; a closed pod weighs 0, and ``denom`` sums the
+    weights in pod order (:func:`_ordered_sum`)."""
     dev = gates.device
     one = torch.ones((), dtype=torch.float32, device=dev)
     w1 = one / torch.clamp(L.to(device=dev, dtype=torch.float32), min=_EPS)
     w2 = torch.where(gates,
                      one / torch.clamp(losses.to(torch.float32), min=_EPS),
                      torch.zeros((), dtype=torch.float32, device=dev))
-    return w1, w2, w1 + torch.sum(w2), gates.any()
+    return w1, w2, w1 + _ordered_sum(w2), gates.any()
 
 
 def _gate_zero(gates, leaf):

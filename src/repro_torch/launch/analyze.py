@@ -18,7 +18,11 @@ the plain version's bit for bit.
 
 Not ported yet (ROADMAP queue 1): the collective-placement and donation
 rules and their fixtures, and the HLO checks of the round, the async
-halves, admission, the elastic resize and the train step.
+halves, admission and the train step.  The elastic resize's check (the
+reference's ``check_elastic``: after 4 -> 3 -> 4 pods the wire bill
+tracks the pod count and nothing else crosses) is
+``launch.placed_audit``'s elastic cases, on the collectives each rank
+issues.
 
 Usage:
     python -m repro_torch.launch.analyze --self-test [--out PATH]

@@ -15,14 +15,32 @@ round: the **intra-cluster** group of a rank's cluster (the fast tier)
 and the **cross-cluster** group of the ranks at the same in-cluster
 index (the slow tier).
 
-``shrink_mesh`` and ``grow_mesh`` wait for the elastic launcher;
-``make_production_mesh`` and the per-architecture rules for the model
-zoo and the audits (ROADMAP queue 1).
+A pod group need not be the default group: after a shrink it holds the
+survivors only.  ``PodGroups.members`` lists the **global** ranks of the
+group in group-rank order, which is ascending (``dist.new_group`` sorts
+the ranks it is given), and ``PodGroups.rank`` is this process's rank
+within the group.  The layouts of :func:`rank_layout` are group-local;
+every ``dist.new_group`` call takes them through ``members`` to global
+ranks.  ``shrink_groups`` and ``grow_groups`` are ``shrink_mesh`` and
+``grow_mesh``.
+
+Creating a group is collective over the whole default group: every
+process calls every ``dist.new_group`` in the same order, the ones
+outside the new group too (they keep nothing of it).  The hashed names
+of ``use_local_synchronization=True`` would collide when a resize
+recreates a group with the same ranks, as a shrink-and-grow round trip
+does.  So every function here that creates groups is called by every
+process; a process outside the group passes ``layout=`` (the group's
+``(members, n_pods)``, which :func:`shrink_layout` computes on any rank)
+in place of a ``PodGroups`` it does not hold.
+
+``make_production_mesh`` and the per-architecture rules wait for the
+model zoo and the audits (ROADMAP queue 1).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import Any, List, Optional, Tuple
+from typing import Any, List, Optional, Sequence, Tuple
 
 import torch.distributed as dist
 
@@ -70,11 +88,18 @@ def rank_layout(world: int, n_pods: int, n_clusters: int = 1
     return intra, cross
 
 
+#: a pod group as every process can name it: ``(members, n_pods)``, the
+#: global ranks in group-rank order and the pod rows they hold
+Layout = Tuple[Tuple[int, ...], int]
+
+
 @dataclass(frozen=True)
 class PodGroups:
     """One rank's view of a placed run: the pod group (``size`` ranks,
-    this one ``rank``), its pod rows, and with clusters the two tiers'
-    groups it belongs to (``None`` when flat)."""
+    this one ``rank`` within it, ``members`` their global ranks in
+    group-rank order; ``None`` means ``0 .. size-1``, the default group),
+    its pod rows, and with clusters the two tiers' groups it belongs to
+    (``None`` when flat)."""
 
     n_pods: int
     rank: int
@@ -83,6 +108,19 @@ class PodGroups:
     n_clusters: int = 1
     intra: Any = None
     cross: Any = None
+    members: Optional[Tuple[int, ...]] = None
+
+    def __post_init__(self):
+        members = tuple(range(self.size)) if self.members is None \
+            else tuple(int(m) for m in self.members)
+        if len(members) != self.size or list(members) != sorted(set(members)):
+            raise ValueError(f"members {members} are not {self.size} "
+                             f"ascending ranks (dist.new_group sorts them)")
+        object.__setattr__(self, "members", members)
+
+    @property
+    def layout(self) -> Layout:
+        return self.members, self.n_pods
 
     @property
     def rows_per_rank(self) -> int:
@@ -132,26 +170,162 @@ def flatten_cluster_groups(groups: PodGroups) -> PodGroups:
     return replace(groups, n_clusters=1, intra=None, cross=None)
 
 
-def regroup_groups(groups: PodGroups, n_clusters: int) -> PodGroups:
+def _new_groups(lists: Sequence[Sequence[int]]) -> Optional[Any]:
+    """Create a group for each list of global ranks, in order, and return
+    the one holding this process (``None`` if none does).  Collective:
+    every process of the default group calls it with the same lists."""
+    me, mine = dist.get_rank(), None
+    for ranks in lists:
+        g = dist.new_group(list(ranks))
+        if me in ranks:
+            mine = g
+    return mine
+
+
+def _pod_group(layout: Layout) -> Optional[PodGroups]:
+    """The flat pod group of ``layout``: created (every process calls),
+    then this process's view, or ``None`` outside the group."""
+    members, n_pods = tuple(layout[0]), int(layout[1])
+    rank_layout(len(members), n_pods)
+    pod = _new_groups([members])
+    if pod is None:
+        return None
+    return PodGroups(n_pods=n_pods, rank=dist.get_group_rank(
+        pod, dist.get_rank()), size=len(members), pod=pod, members=members)
+
+
+def regroup_groups(groups: Optional[PodGroups], n_clusters: int, *,
+                   layout: Optional[Layout] = None) -> Optional[PodGroups]:
     """Inverse of :func:`flatten_cluster_groups` (``regroup_mesh``): split
-    a flat pod group cluster-major into ``n_clusters`` tiers.  Collective:
-    every rank creates every intra- and cross-cluster group, in the same
-    order, and keeps its own."""
-    groups = flatten_cluster_groups(groups)
+    a flat pod group cluster-major into ``n_clusters`` tiers.  Collective
+    over the default group: every process creates every intra- and
+    cross-cluster group, in the same order, the global ranks being the
+    group-local ones of :func:`rank_layout` taken through ``members``;
+    each keeps its own.  A process outside the pod group passes
+    ``groups=None`` and the group's ``layout``, and gets ``None``."""
+    if groups is not None:
+        groups = flatten_cluster_groups(groups)
+        layout = groups.layout
     if n_clusters <= 1:
         return groups
-    intra, cross = rank_layout(groups.size, groups.n_pods, n_clusters)
-    mine_intra = mine_cross = None
-    for ranks in intra:
-        g = dist.new_group(ranks)
-        if groups.rank in ranks:
-            mine_intra = g
-    for ranks in cross:
-        g = dist.new_group(ranks)
-        if groups.rank in ranks:
-            mine_cross = g
+    members, n_pods = layout
+    intra, cross = rank_layout(len(members), n_pods, n_clusters)
+    mine_intra = _new_groups([[members[r] for r in ranks] for ranks in intra])
+    mine_cross = _new_groups([[members[r] for r in ranks] for ranks in cross])
+    if groups is None:
+        return None
     return replace(groups, n_clusters=int(n_clusters), intra=mine_intra,
                    cross=mine_cross)
+
+
+def shrink_layout(layout: Layout, keep_pods: Sequence[int], *,
+                  cluster: Optional[int] = None,
+                  n_clusters: int = 1) -> Layout:
+    """The survivors' layout (``shrink_mesh``'s row selection), on any
+    process: ``keep_pods`` indexes the pod rows of ``layout``, or with
+    ``cluster=c`` the pods within cluster ``c`` of ``n_clusters`` (every
+    other cluster keeps all of its pods; the result is flat, cluster-major).
+    A rank keeps all of its rows or none: a rank that holds several pods
+    and loses only some of them raises, since the survivors' rows would no
+    longer split evenly over the ranks.  The ranks stay in group order, so
+    ``keep_pods`` must ascend."""
+    members, n_pods = tuple(layout[0]), int(layout[1])
+    keep = [int(k) for k in keep_pods]
+    if not keep:
+        raise ValueError("cannot shrink a pod group to zero pods")
+    if cluster is not None:
+        if n_clusters <= 1:
+            raise ValueError("cluster= only applies to a cluster layout")
+        ppc = n_pods // n_clusters
+        if not 0 <= cluster < n_clusters:
+            raise ValueError(f"cluster {cluster} of {n_clusters}")
+        if any(not 0 <= p < ppc for p in keep):
+            raise ValueError(f"pods {keep} out of range for a cluster of "
+                             f"{ppc}")
+        keep = [c * ppc + p for c in range(n_clusters)
+                for p in (keep if c == cluster else range(ppc))]
+    if keep != sorted(set(keep)) or not 0 <= keep[0] <= keep[-1] < n_pods:
+        raise ValueError(f"keep_pods {keep} must ascend within the "
+                         f"{n_pods} pod rows: the placed pod order is the "
+                         f"members' ascending global ranks")
+    rpr = n_pods // len(members)
+    kept = sorted({k // rpr for k in keep})
+    partial = [r for r in kept
+               if any(r * rpr + i not in keep for i in range(rpr))]
+    if partial:
+        raise ValueError(
+            f"ranks {[members[r] for r in partial]} would keep only some of "
+            f"their {rpr} pods: the port places whole pods on each rank (the "
+            f"reference gives each pod its own devices), and the survivors' "
+            f"rows must split evenly over the ranks")
+    return tuple(members[r] for r in kept), len(keep)
+
+
+def shrink_groups(groups: Optional[PodGroups], keep_pods: Sequence[int], *,
+                  cluster: Optional[int] = None,
+                  layout: Optional[Layout] = None) -> Optional[PodGroups]:
+    """The survivors' pod group (``shrink_mesh``): the ranks holding the
+    kept pod rows, flat and cluster-major (:func:`shrink_layout`), each
+    keeping its rows, so no buffer moves.  Collective over the default
+    group (the module docstring); returns ``None`` on a rank whose every
+    row died, which then issues no collective of the survivors' groups.
+    A process already outside the group passes ``groups=None`` and its
+    ``layout``."""
+    n_clusters = 1
+    if groups is not None:
+        layout, n_clusters = groups.layout, groups.n_clusters
+    return _pod_group(shrink_layout(layout, keep_pods, cluster=cluster,
+                                    n_clusters=n_clusters))
+
+
+def grow_layout(layout: Layout, n_new: int = 1, *,
+                new_ranks: Optional[Sequence[int]] = None) -> Layout:
+    """The regrown layout (``grow_mesh``'s row append), on any process:
+    ``n_new`` ranks append their rows (as many as an incumbent holds) at
+    the END of the pod order.  By default they are the first ranks of the
+    default group outside ``layout``, after a shrink the dropped ones (the
+    reference's first free devices).  ``dist.new_group`` orders a group by
+    global rank, so the append is exact only when every newcomer's rank is
+    above every incumbent's; otherwise this raises, as the reference leaves
+    the row -> cluster permutation to the caller there."""
+    members, n_pods = tuple(layout[0]), int(layout[1])
+    if n_new < 1:
+        raise ValueError(f"n_new {n_new}")
+    if new_ranks is None:
+        pool = [r for r in range(dist.get_world_size()) if r not in members]
+    else:
+        pool = [int(r) for r in new_ranks]
+    if len(pool) < n_new:
+        raise ValueError(f"growing by {n_new} rank(s) needs {n_new} free "
+                         f"ranks, have {len(pool)}")
+    new = pool[:n_new]
+    if len(set(new)) != n_new or set(new) & set(members) \
+            or min(new) <= max(members):
+        raise ValueError(
+            f"newcomers {new} must be new ranks above every incumbent "
+            f"{members}: the pod group orders its ranks ascending, so only "
+            f"then do their rows land at the end of the pod order")
+    rpr = n_pods // len(members)
+    return members + tuple(sorted(new)), n_pods + n_new * rpr
+
+
+def grow_groups(groups: Optional[PodGroups], n_new: int = 1, *,
+                new_ranks: Optional[Sequence[int]] = None,
+                n_clusters: Optional[int] = None,
+                layout: Optional[Layout] = None) -> Optional[PodGroups]:
+    """The regrown pod group (``grow_mesh``, :func:`grow_layout`), regrouped
+    into ``n_clusters`` tiers when given: the round trip shrink(the last
+    pod of the last cluster) -> grow(n_clusters=C) gives back the original
+    groups.  Collective over the default group (the module docstring); a
+    newcomer passes ``groups=None`` and the incumbents' ``layout``.
+    Returns ``None`` on a process in neither."""
+    if groups is not None:
+        layout = groups.layout
+    grown = grow_layout(layout, n_new, new_ranks=new_ranks)
+    flat = _pod_group(grown)
+    if n_clusters is not None and n_clusters > 1:
+        return regroup_groups(flat, n_clusters, layout=grown)
+    return flat
 
 
 def placed(groups: Optional[PodGroups]) -> bool:

@@ -22,6 +22,27 @@ losses beat: ``flat`` (``hermes_round``), ``flat_async``
 two-tier round whose gates stay shut).  ``train`` runs
 ``train_hermes`` unplaced, then placed.  The ``toy`` preset is a small
 tree with a scalar leaf, which a placed round encodes whole.
+
+Elastic cases (``elastic=``), each a run of rounds on the loss schedule
+of ``launch.elastic`` across a membership change: ``drop`` (pod 1 dies
+with an async push in flight, the flush commits it under the survivor
+mask, the survivors are global ranks ``[0, 2, 3]`` and their rows
+renumber), ``rejoin`` (the last pod dies in a masked round, the rest run
+shrunk, it grows back) and ``cluster_resize`` (4 pods in 2 clusters: the
+last pod of cluster 1 dies, the groups flatten to 3 ranks, flat rounds,
+``grow_groups(n_clusters=2)`` restores the two tiers, two-tier rounds).
+The parent runs the never-resized oracle, every round at ``n_pods``
+rows, the dead stretch live-masked, the dead row re-seeded in place at
+the grow, and hashes each row under its original pod id.  Each rank runs
+the resize placed (``elastic_shrink`` / ``elastic_grow``) and reports
+its rows' digests, the groups' global ranks, and every collective of
+each step: a round gathers its specs at the current pod count, the
+shrink (its flush commit included) nothing, the grow one broadcast of
+the unstacked tree, and a rank outside the group nothing.
+With the elastic cases each rank also runs ``launch.elastic``'s drop
+and rejoin proofs placed, checking its own rows.  ``regroup_audit``
+builds a pod group over given global ranks on spawned ranks and
+regroups it, to check each tier's members by global rank.
 """
 from __future__ import annotations
 
@@ -35,6 +56,7 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
@@ -44,11 +66,17 @@ from repro_torch.config import HermesConfig, OptimizerConfig
 from repro_torch.core.gup import gup_gate
 from repro_torch.dist import hermes_sync as hs
 from repro_torch.dist import wire
+from repro_torch.dist.wire import all_gather_rows
 from repro_torch.kernels import build
-from repro_torch.launch.mesh import make_pod_groups, rank_layout
+from repro_torch.launch import elastic as el
+from repro_torch.launch.mesh import (
+    PodGroups, flatten_cluster_groups, make_pod_groups, rank_layout,
+    regroup_groups,
+)
 from repro_torch.utils.trees import tree_flatten, tree_map
 
 CASES = ("flat", "flat_async", "cluster", "cluster_async", "closed")
+ELASTIC = ("drop", "rejoin", "cluster_resize")
 TOY = {"a": (8, 16), "b": (16,), "c": (3, 512), "e": ()}
 
 
@@ -121,7 +149,7 @@ def _run_case(case, fmt, job, dev, rows, groups=None, log=None):
         start = len(log) if log is not None else 0
         yield
         if log is not None:
-            phases[name] = log[start:]
+            phases[name] = _named(log[start:], groups)
 
     outs = {}
     if case in ("flat", "cluster", "closed"):
@@ -150,21 +178,24 @@ def _run_case(case, fmt, job, dev, rows, groups=None, log=None):
              "error": outs["error"]}, merged, phases)
 
 
-def _hashes(outs, n_rows: int, first: int = 0) -> Dict[str, Any]:
-    """Digests: every ``w_global`` leaf; per pod row (global index) every
-    leaf of that row of the pods and of the error.  The tensors are copied
-    to the host one at a time and hashed on a pool of threads (``hashlib``
-    releases the GIL)."""
+def _hashes(outs, n_rows: int, first: int = 0,
+            ids: Optional[Sequence[int]] = None) -> Dict[str, Any]:
+    """Digests: every ``w_global`` leaf; per pod row (global index, or
+    ``ids[i]`` for row ``i``) every leaf of that row of the pods, the
+    error and, where ``outs`` has it, the gate state.  The tensors are
+    copied to the host one at a time and hashed on a pool of threads
+    (``hashlib`` releases the GIL)."""
+    ids = list(range(first, first + n_rows)) if ids is None else list(ids)
     names, tensors = [], []
     for i, x in enumerate(tree_flatten(outs["w_global"])[0]):
         names.append(("w_global", i))
         tensors.append(x)
-    for key in ("pods", "error"):
-        if outs[key] is None:
+    for key in ("pods", "error", "gup"):
+        if outs.get(key) is None:
             continue
         for j, x in enumerate(tree_flatten(outs[key])[0]):
             for i in range(n_rows):
-                names.append((f"{key}{first + i}", j))
+                names.append((f"{key}{ids[i]}", j))
                 tensors.append(x[i])
     with ThreadPoolExecutor(max_workers=max(1, os.cpu_count() or 1)) as ex:
         digests = list(ex.map(_digest, tensors))
@@ -208,21 +239,46 @@ def _launches() -> Dict[str, int]:
     return {k: v for k, v in build.LAUNCHES.items() if v}
 
 
-def _counting(log: List, groups):
-    """Record every ``all_gather_into_tensor`` this rank issues: ``(tier,
-    dtype, per-rank dims, bytes)``."""
-    real = dist.all_gather_into_tensor
-    tiers = {id(groups.pod): "pod", id(None): "pod"}
-    if groups.n_clusters > 1:
-        tiers[id(groups.intra)] = "intra"
-        tiers[id(groups.cross)] = "cluster"
+def _tier(group, g: Optional[PodGroups]) -> str:
+    """The tier of ``g`` that ``group`` is (``other``: none of them)."""
+    if g is not None and group is g.pod:
+        return "pod"
+    if g is not None and g.n_clusters > 1:
+        if group is g.intra:
+            return "intra"
+        if group is g.cross:
+            return "cluster"
+    return "pod" if group is None else "other"
 
-    def counted(out, inp, group=None, async_op=False):
-        log.append((tiers[id(group)], str(inp.dtype).removeprefix("torch."),
-                    tuple(inp.shape), inp.numel() * inp.element_size()))
-        return real(out, inp, group=group, async_op=async_op)
 
-    dist.all_gather_into_tensor = counted
+def _counting(log: List):
+    """Record every ``all_gather_into_tensor`` and ``broadcast`` this rank
+    issues as ``(group, op, dtype, per-rank dims, bytes)``; :func:`_named`
+    names the group's tier."""
+    real_gather, real_broadcast = dist.all_gather_into_tensor, dist.broadcast
+
+    def entry(group, op, t):
+        return (group, op, str(t.dtype).removeprefix("torch."),
+                tuple(t.shape), t.numel() * t.element_size())
+
+    def gather(out, inp, group=None, async_op=False):
+        log.append(entry(group, "", inp))
+        return real_gather(out, inp, group=group, async_op=async_op)
+
+    def broadcast(tensor, src=None, group=None, async_op=False, **kw):
+        log.append(entry(group, "/broadcast", tensor))
+        return real_broadcast(tensor, src=src, group=group,
+                              async_op=async_op, **kw)
+
+    dist.all_gather_into_tensor = gather
+    dist.broadcast = broadcast
+
+
+def _named(entries, groups: Optional[PodGroups]) -> List:
+    """Logged collectives as ``(tier, dtype, per-rank dims, bytes)``, the
+    tier read against ``groups`` (a broadcast's suffixed ``/broadcast``)."""
+    return [(_tier(g, groups) + op, dtype, dims, nbytes)
+            for g, op, dtype, dims, nbytes in entries]
 
 
 def _rank_main(rank: int, world: int, store: str, job: Dict[str, Any],
@@ -238,7 +294,7 @@ def _rank_main(rank: int, world: int, store: str, job: Dict[str, Any],
             torch.backends.cudnn.allow_tf32 = False
         groups = make_pod_groups(job["n_pods"], job["n_clusters"])
         log: List = []
-        _counting(log, groups)
+        _counting(log)
         report: Dict[str, Any] = {"rank": rank, "cases": {}}
         rows, n_rows = groups.rows, groups.rows_per_rank
         for fmt in job["formats"]:
@@ -255,6 +311,17 @@ def _rank_main(rank: int, world: int, store: str, job: Dict[str, Any],
                     "launches": _launches(),
                     "seconds": time.perf_counter() - t0}
                 del outs
+        report["elastic"], report["proofs"] = {}, {}
+        for fmt in job["elastic_formats"]:
+            for case in job["elastic"]:
+                t0 = time.perf_counter()
+                build.reset_launches()
+                got = _run_elastic(case, fmt, job, dev, groups, log)
+                got.update(launches=_launches(),
+                           seconds=time.perf_counter() - t0)
+                report["elastic"][f"{fmt}/{case}"] = got
+            if job["elastic"]:
+                report["proofs"][fmt] = _proofs(fmt, job, dev)
         if job.get("train"):
             build.reset_launches()
             report["train"] = _train(job, dev, groups)
@@ -263,6 +330,215 @@ def _rank_main(rank: int, world: int, store: str, job: Dict[str, Any],
             json.dump(report, f)
     finally:
         dist.destroy_process_group()
+
+
+def _proofs(fmt: str, job: Dict[str, Any], dev: torch.device
+            ) -> Dict[str, Any]:
+    """``launch.elastic``'s drop (pod 1) and rejoin (the last pod) proofs
+    placed over one pod a rank: each rank runs both paths on its own rows
+    and checks them (a failing check fails the rank)."""
+    n, cfg = job["n_pods"], _elastic_cfg(fmt)
+    kw = dict(n_pods=n, cfg=cfg, device=dev, pod_noise=job["pod_noise"])
+    return {"drop": el.drop_pod_equivalence(
+                drop=1, groups=make_pod_groups(n), **kw),
+            "rejoin": el.rejoin_pod_equivalence(
+                groups=make_pod_groups(n), **kw)}
+
+
+def _elastic_plan(case: str, n_pods: int, n_clusters: int):
+    """``(dead pod, steps)`` of an elastic case: ``("round", r, tiers)``
+    (``hermes_round``, or ``hermes_cluster_round`` over ``tiers``
+    clusters), ``("dispatch", r, 1)`` (``hermes_dispatch``, left pending),
+    ``("death",)``, ``("shrink",)`` and ``("grow",)``.  Round ``r`` takes
+    ``launch.elastic._demo_losses``'s row ``r``: pod ``i``'s loss drops
+    when ``r % 7 == i + 3``, so pod 1 pushes in the dispatch that dies
+    with it, and every stretch merges."""
+    def rounds(rs, tiers=1):
+        return [("round", r, tiers) for r in rs]
+
+    if case == "drop":
+        return 1, rounds(range(4)) + [("dispatch", 4, 1), ("death",),
+                                      ("shrink",)] + rounds(range(5, 8))
+    if case == "rejoin":
+        return n_pods - 1, rounds(range(3)) + [("death",)] + rounds([3]) + \
+            [("shrink",)] + rounds([4, 5]) + [("grow",)] + rounds(range(6, 11))
+    if case == "cluster_resize":
+        return n_pods - 1, rounds(range(4), n_clusters) + [("death",)] + \
+            rounds([4], n_clusters) + [("shrink",)] + rounds([5, 6]) + \
+            [("grow",)] + rounds(range(7, 11), n_clusters)
+    raise ValueError(f"unknown elastic case {case!r} (want {ELASTIC})")
+
+
+def _step_name(step) -> str:
+    return f"r{step[1]}" if step[0] in ("round", "dispatch") else step[0]
+
+
+def _elastic_cfg(fmt: str) -> HermesConfig:
+    return HermesConfig(alpha=-0.5, beta=0.1, lam=2, window=4,
+                        compression=fmt, min_live_pods=1,
+                        rejoin_cost_rounds=0.0)
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _tiers(groups: PodGroups) -> Dict[str, List[int]]:
+    """The global ranks of each of this rank's tiers."""
+    out = {"pod": list(groups.members)}
+    if groups.n_clusters > 1:
+        out["intra"] = dist.get_process_group_ranks(groups.intra)
+        out["cluster"] = dist.get_process_group_ranks(groups.cross)
+    return out
+
+
+def _run_elastic(case, fmt, job, dev, groups=None, log=None):
+    """One elastic case.  ``groups=None``: the never-resized oracle, every
+    row kept, the dead stretch live-masked, the pending flushed under the
+    mask at the shrink and the dead row re-seeded at the grow.  Placed:
+    the resize, ``elastic_shrink`` / ``elastic_grow`` over the rank's
+    groups, each step's collectives named against the groups it ends
+    with.  Returns ``{"digests", "rows", "merged", "phases", "members",
+    "tiers", "ms"}`` (each step's wall ms), the rows under their original
+    pod ids."""
+    n, C = job["n_pods"], job["n_clusters"]
+    cfg = _elastic_cfg(fmt)
+    dead, steps = _elastic_plan(case, n, C)
+    rounds = el._Rounds(cfg, n, dev, job.get("pod_noise"))
+    oracle = groups is None
+    w = _w_global(job["preset"], job["seed"], dev)
+    gen = torch.Generator(device=dev).manual_seed(job["seed"] + 1)
+    pods = tree_map(lambda g: g[None] + 1e-3 * torch.randn(
+        (n,) + tuple(g.shape), generator=gen, device=dev), w)
+    state = {"pod_params": pods, "gup": hs.hermes_pod_state(cfg, n, dev),
+             "error": None, "w_global": w, "pending": None}
+    report: Dict[str, Any] = {"merged": {}, "phases": {}, "members": {},
+                              "tiers": {}, "ms": {}}
+    if not oracle:
+        if case != "cluster_resize":
+            groups = flatten_cluster_groups(groups)
+        report["tiers"]["start"] = _tiers(groups)
+        state["pod_params"] = tree_map(lambda x: x[groups.rows], pods)
+        state["gup"] = tree_map(lambda x: x[groups.rows], state["gup"])
+        if case == "cluster_resize":
+            # the failure domain is cluster-local: a drop in cluster 0 with
+            # a shrink of cluster 1 is refused, before any collective
+            try:
+                el.elastic_shrink(state, [0, 2], groups, cfg=cfg, cluster=1)
+                report["cross_cluster_refused"] = False
+            except ValueError:
+                report["cross_cluster_refused"] = True
+    del pods
+    ids = list(range(n))  # the original pod of each stacked row
+    alive = np.ones((n,), bool)
+    template = layout = None
+    for step in steps:
+        kind, name = step[0], _step_name(step)
+        start = len(log) if log is not None else 0
+        _sync(dev)
+        t0 = time.perf_counter()
+        if kind == "round" and state is not None:
+            st = rounds(el._from_state(state), 1, step[1], ids,
+                        live=alive[ids], groups=groups,
+                        two_tier={"n_clusters": step[2]} if step[2] > 1
+                        else None)
+            state = {**state, **el._as_state(st)}
+            report["merged"][name] = rounds.merged[-1]
+        elif kind == "dispatch" and state is not None:
+            losses, live, noise = rounds.inputs(step[1], ids, alive[ids],
+                                                groups)
+            out = hs.hermes_dispatch(
+                state["pod_params"], state["gup"], losses, state["w_global"],
+                rounds.L, cfg, live=live, error=state["error"],
+                round_step=step[1], noise=noise, groups=groups)
+            state = {**state, "gup": out["gup"], "error": out["error"],
+                     "pending": out["pending"]}
+            report["merged"][name] = hs.pending_merges(out["pending"])
+        elif kind == "death":
+            alive[dead] = False
+            row = ids.index(dead)
+            if state is not None and (oracle or groups.rows.start <= row
+                                      < groups.rows.stop):
+                state = {**state, "pod_params": el._poison(
+                    state["pod_params"], row - (0 if oracle else
+                                                groups.rows.start))}
+        elif kind == "shrink" and oracle:
+            state = el.flush_pending(state, cfg=cfg, live=alive)
+        elif kind == "shrink":
+            keep = [i for i, p in enumerate(ids) if p != dead]
+            cl = {"cluster": C - 1} if case == "cluster_resize" else {}
+            template, layout = state, el.survivor_layout(groups, keep, **cl)
+            state, groups = el.elastic_shrink(state, keep, groups, cfg=cfg,
+                                              **cl)
+            ids = [ids[i] for i in keep]
+            report["members"][name] = list(layout[0])
+        elif kind == "grow" and oracle:
+            st = el._reseed(el._from_state(state), dead,
+                            hs.hermes_pod_state(cfg, 1, dev))
+            state = {**el._as_state(st), "pending": None}
+            alive[dead] = True
+        elif kind == "grow":
+            newcomer = state is None
+            state, groups = el.elastic_grow(
+                template if newcomer else state, None if newcomer else groups,
+                cfg=cfg, layout=layout if newcomer else None,
+                n_clusters=C if case == "cluster_resize" else None)
+            ids.append(dead)
+            alive[dead] = True
+            report["members"][name] = list(groups.members)
+            report["tiers"]["grown"] = _tiers(groups)
+        _sync(dev)
+        report["ms"][name] = 1e3 * (time.perf_counter() - t0)
+        if log is not None:
+            report["phases"][name] = _named(log[start:], groups)
+    if state is None:
+        report.update(digests={}, rows=[])
+        return report
+    rows = range(n) if oracle else range(groups.rows.start, groups.rows.stop)
+    outs = {"w_global": state["w_global"], "pods": state["pod_params"],
+            "error": state["error"], "gup": state["gup"]}
+    report["rows"] = [ids[i] for i in rows]
+    report["digests"] = _hashes(outs, len(rows), ids=report["rows"])
+    return report
+
+
+def expected_elastic(tree, fmt: str, case: str, n_pods: int,
+                     n_clusters: int, merged: Dict[str, bool]
+                     ) -> List[Dict[str, List]]:
+    """Each rank's collectives, step by step, in an elastic case (one pod
+    a rank): a round gathers the gate exchange and, if it merged (the
+    oracle's ``merged``), the specs of :func:`expected_collectives` at the
+    CURRENT pod count; a dispatch the same; the death and the shrink
+    nothing, its flush commit included; the grow one broadcast of the
+    unstacked tree's bytes on every rank of the regrown group; a rank
+    outside the group nothing."""
+    dead, steps = _elastic_plan(case, n_pods, n_clusters)
+    nbytes = sum(x.numel() * x.element_size() for x in tree_flatten(tree)[0])
+    ctl = [("pod",) + wire.control_operand_spec(1)]
+    out = []
+    for rank in range(n_pods):
+        n_cur, inside, phases = n_pods, True, {}
+        for step in steps:
+            kind, name = step[0], _step_name(step)
+            got: List = []
+            if kind in ("round", "dispatch") and inside:
+                got = ctl
+                if merged[name]:
+                    tiers = step[2]
+                    key = "cluster" if tiers > 1 else "flat"
+                    got = expected_collectives(tree, fmt, key, n_cur, tiers,
+                                               n_cur)[f"{key}_round"]
+            elif kind == "shrink":
+                n_cur -= 1
+                inside = rank != dead
+            elif kind == "grow":
+                n_cur += 1
+                inside = True
+                got = [("pod/broadcast", "uint8", (nbytes,), nbytes)]
+            phases[name] = got
+        out.append(phases)
+    return json.loads(json.dumps(out))
 
 
 def expected_collectives(tree, fmt: str, case: str, n_pods: int,
@@ -301,18 +577,31 @@ def expected_collectives(tree, fmt: str, case: str, n_pods: int,
 def audit(preset: str = "toy", *, ranks: int = 4, n_pods: int = 4,
           n_clusters: int = 2, formats: Sequence[str] = wire.available_formats(),
           cases: Sequence[str] = CASES, train: Optional[Dict] = None,
+          elastic: Sequence[str] = (), pod_noise=None,
           device="cuda", seed: int = 0, deterministic: bool = True,
           timeout: float = 600.0, workdir: Optional[str] = None
           ) -> Dict[str, Any]:
     """Run the cases unplaced here, then placed on ``ranks`` spawned
     processes; returns ``{"cases": {"fmt/case": {"equal", "merged",
-    "collectives", "expected"}}, "train": {...}, "seconds"}`` with every
-    rank's report merged.  A rank that fails fails the audit (raises)."""
+    "collectives", "expected"}}, "elastic": {"fmt/case": {...}}, "train":
+    {...}, "proofs": {fmt: [each rank's {"drop", "rejoin"}]}, "seconds"}``
+    with every rank's report merged.  The elastic
+    cases need one pod a rank; ``pod_noise(ids)``, a picklable factory,
+    gives their rounds' int4 noise for the stacked rows of the original
+    pods ``ids``.  Without it they skip int4, whose default noise is not
+    resize-invariant (the reference pins ``none``, ``fp16`` and ``int8``).
+    A rank that fails fails the audit (raises)."""
     dev = resolve_device(device)
     t0 = time.perf_counter()
     rank_layout(ranks, n_pods, n_clusters)
+    if elastic and ranks != n_pods:
+        raise ValueError("the elastic cases place one pod a rank")
     job = {"preset": preset, "n_pods": n_pods, "n_clusters": n_clusters,
            "formats": list(formats), "cases": list(cases), "seed": seed,
+           "elastic": list(elastic), "pod_noise": pod_noise,
+           "elastic_formats": [f for f in formats
+                               if f != "int4" or pod_noise is not None],
+           "elastic_oracle": {},
            "device": str(dev),
            # the ranks share the host's cores; the unplaced run uses as
            # many threads as one rank
@@ -329,6 +618,10 @@ def audit(preset: str = "toy", *, ranks: int = 4, n_pods: int = 4,
                 job["digests"][f"{fmt}/{case}"] = dict(
                     _hashes(outs, n_pods), merged=merged)
                 del outs
+            for case in elastic if fmt in job["elastic_formats"] else ():
+                got = _run_elastic(case, fmt, job, dev)
+                job["elastic_oracle"][f"{fmt}/{case}"] = {
+                    "digests": got["digests"], "merged": got["merged"]}
         unplaced_train = None
         if train:
             build.reset_launches()
@@ -361,19 +654,43 @@ def audit(preset: str = "toy", *, ranks: int = 4, n_pods: int = 4,
                 trees[_scalars(case, fmt)], fmt, case, n_pods, n_clusters,
                 ranks))),
             "seconds": max(p["seconds"] for p in per)}
+    out["elastic"] = {}
+    for key, want in job["elastic_oracle"].items():
+        fmt, case = key.split("/")
+        per = [r["elastic"][key] for r in reports]
+        equal = [all(d == want["digests"][k] for k, d in p["digests"].items())
+                 for p in per]
+        out["elastic"][key] = {
+            "equal": all(equal), "equal_per_rank": equal,
+            "rows": [p["rows"] for p in per],
+            "merged": [p["merged"] for p in per],
+            "unplaced_merged": want["merged"],
+            "collectives": [p["phases"] for p in per],
+            "expected": expected_elastic(trees[True], fmt, case, n_pods,
+                                         n_clusters, want["merged"]),
+            "members": [p["members"] for p in per],
+            "tiers": [p["tiers"] for p in per],
+            "cross_cluster_refused": [p.get("cross_cluster_refused")
+                                      for p in per],
+            "launches": [p["launches"] for p in per],
+            "ms": [p["ms"] for p in per],
+            "seconds": max(p["seconds"] for p in per)}
+    out["proofs"] = {fmt: [r["proofs"][fmt] for r in reports]
+                     for fmt in (job["elastic_formats"] if elastic else ())}
     if train:
         out["train"] = {"unplaced": json.loads(json.dumps(unplaced_train)),
                         "placed": [r["train"] for r in reports]}
     return out
 
 
-def _spawn(ranks: int, job, timeout: float, workdir: Optional[str]):
+def _spawn(ranks: int, job, timeout: float, workdir: Optional[str],
+           target=_rank_main):
     """Start every rank, wait for all, and read their reports; a rank that
     exits nonzero or runs past ``timeout`` fails the audit."""
     ctx = mp.get_context("spawn")
     with tempfile.TemporaryDirectory(dir=workdir) as tmp:
         store = os.path.join(tmp, "store")
-        procs = [ctx.Process(target=_rank_main,
+        procs = [ctx.Process(target=target,
                              args=(r, ranks, store, job, tmp))
                  for r in range(ranks)]
         for p in procs:
@@ -397,6 +714,48 @@ def _spawn(ranks: int, job, timeout: float, workdir: Optional[str]):
     return reports
 
 
+def _regroup_main(rank: int, world: int, store: str, job: Dict[str, Any],
+                  out_dir: str) -> None:
+    """One rank of :func:`regroup_audit`."""
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    try:
+        members, n_pods = tuple(job["members"]), job["n_pods"]
+        pod = dist.new_group(list(members))
+        groups = None
+        if rank in members:
+            groups = PodGroups(n_pods=n_pods,
+                               rank=dist.get_group_rank(pod, rank),
+                               size=len(members), pod=pod, members=members)
+        got = regroup_groups(groups, job["n_clusters"],
+                             layout=(members, n_pods))
+        report: Dict[str, Any] = {"rank": rank, "member": got is not None}
+        if got is not None:
+            me = torch.tensor([float(rank)])
+            met = {tier: all_gather_rows(me, *got.group(tier)).int().tolist()
+                   for tier in ("pod", "intra", "cluster")}
+            report.update(group_rank=got.rank, cluster=got.cluster,
+                          rows=[got.rows.start, got.rows.stop],
+                          tiers=_tiers(got), met=met)
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(report, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def regroup_audit(members: Sequence[int], world: int, n_clusters: int, *,
+                  n_pods: Optional[int] = None, timeout: float = 120.0,
+                  workdir: Optional[str] = None) -> List[Dict[str, Any]]:
+    """Build a pod group over the global ranks ``members`` of a ``world``
+    of spawned gloo ranks (one pod a member by default), regroup it into
+    ``n_clusters`` tiers and report, per rank: whether it is a member, its
+    group rank, cluster and rows, each tier's global ranks, and the ranks
+    that met in one gather over each tier."""
+    job = {"members": list(members), "n_clusters": n_clusters,
+           "n_pods": len(members) if n_pods is None else n_pods}
+    return _spawn(world, job, timeout, workdir, target=_regroup_main)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--preset", default="toy")
@@ -406,6 +765,9 @@ def main(argv=None) -> None:
     ap.add_argument("--formats", nargs="+",
                     default=list(wire.available_formats()))
     ap.add_argument("--train-steps", type=int, default=0)
+    ap.add_argument("--elastic", action="store_true",
+                    help="also the elastic cases (needs --ranks == --pods; "
+                         "not int4, whose noise is not resize-invariant)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     train = None if not args.train_steps else {
@@ -415,10 +777,13 @@ def main(argv=None) -> None:
         "lr": 3e-4 if args.preset == "lm100m" else 3e-3}
     out = audit(args.preset, ranks=args.ranks, n_pods=args.pods,
                 n_clusters=args.clusters, formats=args.formats, train=train,
-                device=args.device)
+                elastic=ELASTIC if args.elastic else (), device=args.device)
     bad = [k for k, v in out["cases"].items() if not v["equal"]
            or any(c != v["expected"] for c in v["collectives"])]
-    print(json.dumps({"cases": len(out["cases"]), "differ": bad,
+    bad += [k for k, v in out["elastic"].items() if not v["equal"]
+            or v["collectives"] != v["expected"]]
+    print(json.dumps({"cases": len(out["cases"]) + len(out["elastic"]),
+                      "differ": bad,
                       "seconds": out["seconds"]}))
     if bad:
         raise SystemExit(1)

@@ -1086,3 +1086,159 @@ def test_admission_on_card(card, admission):
     assert out["merges"] >= 1 and math.isfinite(out["global_loss"])
     for name in ("pack_int4", "unpack_int4", "dequant_merge_packed"):
         assert build.LAUNCHES[name] == out["merges"], name
+
+
+class _PodKeyedNoise:
+    """The int4 dither keyed by original pod id (``chip_smoke.py``'s
+    ``PodKeyedNoise``): a leaf draws at the original ``(n_pods,) + leaf``
+    shape and keeps the live pods' rows, so a resize rounds every
+    surviving pod as the masked run does."""
+
+    def __init__(self, seed, device, n_pods):
+        self.seed, self.device, self.n_pods = seed, device, n_pods
+
+    def __call__(self, ids):
+        base = wire.GeneratorNoise(self.seed, self.device)
+        n, ids = self.n_pods, list(ids)
+
+        def draw(round_step, leaf, shape):
+            if not shape or shape[0] != len(ids):
+                return base(round_step, leaf, shape)
+            return base(round_step, leaf, (n,) + tuple(shape[1:]))[ids]
+        return draw
+
+
+def _lmtiny_state(card):
+    """``init_state`` of the elastic proofs: lmtiny on the card, each pod
+    a small perturbation of the global model."""
+    from repro_torch.dist import hermes_sync
+    from repro_torch.launch.train import _preset
+    from repro_torch.models.lm import init_lm
+    from repro_torch.utils.trees import tree_map
+    w = init_lm(_preset("lmtiny"), 0, card)
+
+    def init(n_pods, cfg, seed, device):
+        gen = torch.Generator(device=device).manual_seed(seed + 5)
+        pods = tree_map(lambda g: g[None] + 1e-3 * torch.randn(
+            (n_pods,) + tuple(g.shape), generator=gen, device=device), w)
+        return pods, w, hermes_sync.hermes_pod_state(cfg, n_pods, device)
+    return init
+
+
+def test_elastic_shrink_and_grow_on_card(card):
+    """The resize on the card moves the rows of the CPU's resize, bitwise:
+    the survivors' rows by index, the newcomer seeded from ``w_global``
+    with a fresh gate row and a zero residual, every tensor on the card."""
+    from repro_torch.dist import hermes_sync
+    from repro_torch.launch import elastic
+    from repro_torch.utils.trees import tree_leaves, tree_map
+    cfg = HermesConfig(min_live_pods=1)
+    pods, w, gup = _lmtiny_state(card)(4, cfg, 0, card)
+    err = tree_map(lambda x: 1e-4 * torch.ones_like(x), pods)
+    state = {"pod_params": pods, "gup": gup, "error": err, "w_global": w}
+    small, groups = elastic.elastic_shrink(state, [0, 2, 3], None, cfg=cfg)
+    assert groups is None
+    cpu = tree_map(lambda x: x.cpu(), state)
+    want, _ = elastic.elastic_shrink(cpu, [0, 2, 3], None, cfg=cfg)
+    for k in ("pod_params", "gup", "error"):
+        for a, b in zip(tree_leaves(small[k]), tree_leaves(want[k])):
+            assert a.is_cuda and torch.equal(a.cpu(), b), k
+    grown, _ = elastic.elastic_grow(small, None, cfg=cfg)
+    back, _ = elastic.elastic_grow(want, None, cfg=cfg)
+    for k in ("pod_params", "gup", "error", "w_global"):
+        for a, b in zip(tree_leaves(grown[k]), tree_leaves(back[k])):
+            assert a.is_cuda and torch.equal(a.cpu(), b), k
+    for a, g in zip(tree_leaves(grown["pod_params"]), tree_leaves(w)):
+        assert torch.equal(a[3], g)
+    assert all(not bool(e[3].any()) for e in tree_leaves(grown["error"]))
+    fresh = hermes_sync.hermes_pod_state(cfg, 1, card)
+    for k, v in fresh.items():
+        assert torch.equal(grown["gup"][k][3:], v), k
+
+
+@pytest.mark.parametrize("compression", ["int8", "int4"])
+def test_rejoin_equivalence_on_card(card, compression):
+    """The shrink -> grow proof at lmtiny x 4 pods on the card, bitwise,
+    its merges through the wire kernels (int4 with the dither keyed by
+    original pod id)."""
+    from repro_torch.launch import elastic
+    cfg = HermesConfig(alpha=-0.5, beta=0.1, lam=2, window=4,
+                       compression=compression, rejoin_cost_rounds=0.5)
+    noise = _PodKeyedNoise(3, card, 4) if compression == "int4" else None
+    build.reset_launches()
+    out = elastic.rejoin_pod_equivalence(
+        n_pods=4, cfg=cfg, device=card, init_state=_lmtiny_state(card),
+        pod_noise=noise)
+    assert out["bit_identical"] and out["warmup_checked"]
+    kernels = (("pack_int4", "unpack_int4", "dequant_merge_packed")
+               if compression == "int4" else ("dequant_merge",))
+    for name in kernels:
+        assert build.LAUNCHES[name] >= 1, name
+
+
+def test_merge_denominator_ignores_a_masked_pod_on_card(card):
+    """A masked pod's zero weight adds nothing to the merge's denominator
+    on the card: over 512 draws of four losses, pod ``i % 4`` masked and
+    at least two survivors open, ``denom`` of the masked weights is
+    bitwise that of the survivors' alone.  (A device reduction regroups
+    with the length: with ``torch.sum`` about one draw in four differs.)"""
+    from repro_torch.dist import hermes_sync
+    gen = torch.Generator(device=card).manual_seed(24)
+    L = torch.tensor(3.4, device=card)
+    differ = []
+    for i in range(512):
+        keep = [p for p in range(4) if p != i % 4]
+        losses = 0.2 + 4.0 * torch.rand(4, generator=gen, device=card)
+        gates = torch.rand(4, generator=gen, device=card) < 0.75
+        gates[i % 4] = False
+        if int(gates[keep].sum()) < 2:
+            gates[keep] = True
+        big = hermes_sync._merge_weights(gates, losses, L)[2]
+        small = hermes_sync._merge_weights(gates[keep], losses[keep], L)[2]
+        if not torch.equal(big, small):
+            differ.append(i)
+    assert not differ, f"{len(differ)} of 512 draws differ"
+
+
+@pytest.mark.parametrize("compression", ["none", "int8", "int4"])
+def test_masked_round_is_the_shrunk_round_on_card(card, compression):
+    """A round at 4 rows with pod ``seed % 4`` masked is bitwise the round
+    at the 3 survivors' rows, over 16 seeds of random losses with every
+    survivor's gate open (the demo schedule opens one gate a round, which
+    cannot show a fault in the merge's denominator); int4 with the dither
+    keyed by original pod id."""
+    from repro_torch.core.gup import gup_gate
+    from repro_torch.dist import hermes_sync
+    from repro_torch.launch import elastic
+    from repro_torch.utils.trees import tree_leaves
+    cfg = HermesConfig(alpha=-0.5, beta=0.1, lam=2, window=4,
+                       compression=compression)
+    L = torch.tensor(3.4, device=card)
+    differ = []
+    for seed in range(16):
+        dead = seed % 4
+        keep = [p for p in range(4) if p != dead]
+        live = torch.tensor([p != dead for p in range(4)], device=card)
+        pods, w, gup = elastic._toy_pod_state(4, cfg, seed, card)
+        for level in (3.0, 3.2):
+            gup = gup_gate(gup, torch.full((4,), level, device=card), cfg)[1]
+        gen = torch.Generator(device=card).manual_seed(100 + seed)
+        losses = 1.0 + 1.9 * torch.rand(4, generator=gen, device=card)
+        losses[dead] = float("nan")
+        noise = _PodKeyedNoise(seed, card, 4) \
+            if compression == "int4" else None
+        big = hermes_sync.hermes_round(
+            pods, gup, losses, w, L, cfg, live=live, round_step=5,
+            noise=noise and noise(range(4)))
+        small = hermes_sync.hermes_round(
+            elastic.shrink_pod_tree(pods, keep),
+            elastic.shrink_pod_tree(gup, keep), losses[keep], w, L, cfg,
+            round_step=5, noise=noise and noise(keep))
+        assert big["gates"].tolist() == live.tolist(), seed
+        a = tree_leaves([big["w_global"], elastic.shrink_pod_tree(
+            [big["pod_params"], big["error"] or []], keep)])
+        b = tree_leaves([small["w_global"],
+                         [small["pod_params"], small["error"] or []]])
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            differ.append(seed)
+    assert not differ, f"seeds {differ} differ"
