@@ -2,7 +2,8 @@
 """Drive the PyTorch port's main paths on one NVIDIA card: the Hermes
 trainer, serving, the Level-A cluster simulator, the single trainer with
 its checkpoints, the paper's studies, the fleet engine, the two-tier
-round with the placed gather, and elastic membership.
+round with the placed gather, elastic membership, and the model zoo with
+MoE and MLA.
 
     python3 chip_smoke.py
 
@@ -136,13 +137,29 @@ Phases (any failure raises and the script exits nonzero):
     and int4): every rank's rows bitwise the never-resized oracle, every
     gather its spec at the current pod count, the dead rank silent after
     the shrink, the grow one broadcast of the 498,680,832-byte tree;
-14. a ``kernels`` JSON line, the ``nvidia-smi`` line, and the result line.
+14. the model zoo (``launch.steps``): (a) flash attention at MLA's head
+    dims, q / k ``D`` against v ``Dv``: deepseek-v2-lite's (192, 128) in
+    bf16 decode (Sq 1 and 16 on a 1057-slot cache), bf16 ``flash_prefill``
+    and fp32 ``flash_simt`` (B 4, Sq 1024, 16 heads), dsv2-smoke's (24, 16)
+    on ``flash_simt`` and ``flash_decode``, each against its plain version
+    and timed beside SDPA and the bound (``flash_attention[mla]`` in the
+    ``kernels`` line); (b) deepseek-v2-lite-16b at full width through the
+    prefill and decode setups, bf16 parameters drawn on the card, batch 4,
+    prompt 1024, 32 greedy tokens, with the launch counters zeroed just
+    before and read just after (27 ``flash_prefill``, 27 x 32 decode and
+    combine), the peak memory held to 40 GB, the first and last layers'
+    MLA attention and one layer's sorted MoE held against their plain
+    versions; (c) qwen3-8b served at full width through ``launch.serve``
+    (36 ``flash_prefill`` launches); (d) the bf16 train setup with fp32
+    master weights at dsv2-smoke, 8 steps reducing the loss;
+15. a ``kernels`` JSON line, the ``nvidia-smi`` line, and the result line.
 
 It needs the repository's ``src/`` beside it and imports neither JAX nor
 the JAX package.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
@@ -319,7 +336,7 @@ def attention_fp64(torch, q, k, v, qpos, kvpos, window):
     sc = sc.masked_fill(~visible(qpos, kvpos, causal=True, window=window),
                         -torch.inf)
     return torch.einsum("bkgqs,bskd->bqkgd", torch.softmax(sc, -1),
-                        v.double()).reshape(B, Sq, H, D)
+                        v.double()).reshape(B, Sq, H, v.shape[-1])
 
 
 def decode_kernels(torch, results, q, k, v, qpos, kvpos, window, want,
@@ -2141,6 +2158,322 @@ def elastic(torch, dev, results) -> None:
     log(f"[13] phase wall {time.perf_counter() - t_phase:.1f} s")
 
 
+def mla_flash(torch, dev, results) -> None:
+    """Phase 14a: flash attention at MLA's head dims, D (nope + rope)
+    against Dv (v): deepseek-v2-lite's (192, 128) on each design at its
+    serving shapes (B 4, 16 heads, a 1057-slot cache: prompt 1024 + 32 new
+    tokens + 1), dsv2-smoke's (24, 16) on the SIMT and decode kernels;
+    each against its plain version, timed beside SDPA and the bound."""
+    from repro_torch.kernels.flash_attention import (
+        design, flash_attention_cuda, flash_attention_plain, visible)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device=dev).manual_seed(14)
+    i32 = dict(dtype=torch.int32, device=dev)
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def written(n, upto):
+        kvpos = torch.arange(n, **i32)
+        kvpos[upto:] = -1
+        return kvpos
+
+    # (label, B, Sq, H, D, Dv, first query position, KV positions, dtype):
+    # H = K, as MLA expands one key and value per head
+    cases = [("mla decode Sq1", 4, 1, 16, 192, 128, 1024, written(1057, 1025),
+              bf16),
+             ("mla decode Sq16", 4, 16, 16, 192, 128, 1009,
+              written(1057, 1025), bf16),
+             ("mla prefill bf16", 4, 1024, 16, 192, 128, 0,
+              written(1057, 1024), bf16),
+             ("mla prefill fp32", 4, 1024, 16, 192, 128, 0,
+              written(1057, 1024), f32)]
+    for dt, name in ((bf16, "bf16"), (f32, "fp32")):
+        cases += [(f"smoke prefill {name}", 2, 37, 4, 24, 16, 0,
+                   written(48, 37), dt),
+                  (f"smoke decode {name}", 2, 1, 4, 24, 16, 40,
+                   written(48, 41), dt)]
+    log("[14a] flash attention at MLA's head dims (D / Dv) against the "
+        "plain version")
+    timed = {}
+    for label, B, Sq, H, D, Dv, q0, kvpos, dt in cases:
+        Skv = kvpos.numel()
+        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dt)
+                   for shape in ((B, Sq, H, D), (B, Skv, H, D),
+                                 (B, Skv, H, Dv)))
+        qpos = torch.arange(q0, q0 + Sq, **i32)
+        kw = dict(causal=True, scale=D ** -0.5)
+        kind = design(Sq, D, dt, Dv)
+        got = flash_attention_cuda(q, k, v, qpos, kvpos, **kw)
+        want = flash_attention_plain(q, k, v, qpos, kvpos, **kw)
+        torch.cuda.synchronize()
+        gap = (got.float() - want.float()).abs()
+        err = float(gap.max())
+        # as phase 6: fp32 sums in another order (2e-5 is ~100 fp32 ulps
+        # of these means of N(0, 1) values); bf16 one rounding of one
+        # fp32 result on each side, one bf16 ulp apart
+        tol = 2e-5 + (2 ** -7 * want.float().abs() if dt == bf16 else 0)
+        if got.shape != (B, Sq, H, Dv) or \
+                not bool(torch.isfinite(got).all()) or \
+                bool((gap > tol).any()):
+            raise AssertionError(f"flash {label} [{kind}]: max abs err {err} "
+                                 f"against its plain version")
+        mask = visible(qpos, kvpos, causal=True, window=0)
+        pairs = int(mask.sum())
+        flops = 2 * B * H * pairs * (D + Dv)
+        moved = (q.numel() + k.numel() + v.numel() + got.numel()) \
+            * q.element_size() + (Sq + Skv) * 4
+        dev_ms = device_ms(torch, lambda: flash_attention_cuda(
+            q, k, v, qpos, kvpos, **kw))
+        wall_ms = time_ms(torch, lambda: flash_attention_cuda(
+            q, k, v, qpos, kvpos, **kw), reps=20)
+        plain_ms = time_ms(torch, lambda: flash_attention_plain(
+            q, k, v, qpos, kvpos, **kw), reps=3, warmup=1)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        try:
+            lib_err = float((sdpa(qt, kt, vt, attn_mask=mask, scale=D ** -0.5)
+                             .transpose(1, 2).float() - want.float())
+                            .abs().max())
+            lib_ms = device_ms(torch, lambda: sdpa(
+                qt, kt, vt, attn_mask=mask, scale=D ** -0.5))
+        except RuntimeError as e:  # a yardstick only: the port never calls it
+            lib_err, lib_ms = None, None
+            log(f"      SDPA at D {D} / Dv {Dv}: {e}")
+        entry = kernel_entry("flash_attention", err, dev_ms, plain_ms, flops,
+                             moved, (dt,), lib_ms)
+        entry.update(design=kind, wall_ms=wall_ms, dims=[D, Dv],
+                     source=ATTENTION_SOURCE if kind == "flash_prefill"
+                     else MODEL_SOURCE)
+        timed[label] = entry
+        log(f"    flash {label:18s} D {D}/Dv {Dv} [{kind}] err {err:.2e}  "
+            f"kernel {dev_ms:8.4f} ms (wall {wall_ms:.4f})  plain "
+            f"{plain_ms:8.4f} ms  bound {entry['bound_ms']:.4f} ms "
+            f"({entry['bound_by']}; {flops / 1e9:.3f} GFLOP, "
+            f"{moved / 1e6:.2f} MB, {pairs:,} visible pairs)  "
+            f"{entry['bound_ms'] / dev_ms:6.1%} of the bound  SDPA "
+            f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'} (err "
+            f"{'n/a' if lib_err is None else f'{lib_err:.1e}'})")
+        del q, k, v, got, want, gap, mask, qt, kt, vt
+    torch.cuda.empty_cache()
+    keys = ("design", "max_abs_err", "ms", "wall_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "source")
+    # row 8c: deepseek-v2-lite's bf16 prefill on top, the rest beneath it
+    main_entry = dict(timed["mla prefill bf16"], name="flash_attention[mla]")
+    for sub, label in (("decode", "mla decode Sq1"),
+                       ("decode_sq16", "mla decode Sq16"),
+                       ("prefill_fp32", "mla prefill fp32"),
+                       ("smoke_prefill", "smoke prefill bf16"),
+                       ("smoke_prefill_fp32", "smoke prefill fp32"),
+                       ("smoke_decode", "smoke decode bf16"),
+                       ("smoke_decode_fp32", "smoke decode fp32")):
+        main_entry[sub] = {key: timed[label][key] for key in keys}
+    results["flash_attention[mla]"] = main_entry
+
+
+def mla_serve(torch, dev, results) -> None:
+    """Phase 14b: deepseek-v2-lite-16b at full width through
+    ``launch.steps``' prefill and decode setups: bf16 parameters drawn on
+    the card, batch 4, prompt 1024, 32 greedy tokens, attention on the
+    flash kernels, the sorted MoE dispatch; the first and last layers' MLA
+    attention and one layer's MoE held against their plain versions."""
+    from dataclasses import replace
+    from repro_torch.config import ShapeConfig
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import (
+        design, flash_attention_cuda, flash_attention_plain)
+    from repro_torch.launch import steps
+    from repro_torch.launch.serve import prompt_tokens
+    from repro_torch.models import attention as A
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as M
+    from repro_torch.utils.trees import tree_leaves, tree_map
+
+    cfg = get_config("deepseek-v2-lite-16b")
+    B, P, G = 4, 1024, 32
+    shape = ShapeConfig("serve", P + G + 1, B, "prefill")
+    kw = dict(impl="kernel", moe_impl="sorted", seed=0, device=dev)
+    pre = steps.make_prefill_setup(cfg, shape, **kw)
+    dec = steps.make_decode_setup(cfg, replace(shape, kind="decode"), **kw)
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()    # what earlier phases still hold
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, cache = pre.init_state(0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = tree_leaves(params)
+    n = sum(x.numel() for x in leaves)
+    if n != cfg.param_count() or n != 16_210_324_992 or \
+            {x.dtype for x in leaves} != {torch.bfloat16}:
+        raise AssertionError(f"deepseek-v2-lite: {n} parameters of "
+                             f"{ {x.dtype for x in leaves} }")
+    prompt = torch.from_numpy(prompt_tokens(cfg, B, P, 0)).to(dev)
+    nope, rope = cfg.resolved_head_dim, cfg.mla.rope_head_dim
+    D, Dv = nope + rope, cfg.mla.v_head_dim
+    build.reset_launches()
+    t0 = time.perf_counter()
+    logits, cache = pre.step_fn(params, cache, {"tokens": prompt})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    first = logits
+    tok = torch.argmax(logits[:, -1:], dim=-1)
+    out = [tok]
+    t0 = time.perf_counter()
+    for i in range(G):
+        logits, cache = dec.step_fn(params, cache, tok, P + i)
+        tok = torch.argmax(logits[:, -1:], dim=-1)
+        out.append(tok)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()    # the whole process's
+    Lyr = cfg.num_layers
+    want = {"flash_attention": Lyr * (1 + G),
+            design(P, D, torch.bfloat16, Dv): Lyr,
+            "flash_decode": Lyr * G, "flash_decode_combine": Lyr * G}
+    flash = {k: launches.get(k, 0) for k in
+             ("flash_attention", "flash_prefill", "flash_simt",
+              "flash_decode", "flash_decode_combine")}
+    finite = bool(torch.isfinite(first.float()).all()) and \
+        bool(torch.isfinite(logits.float()).all())
+    log(f"[14b] deepseek-v2-lite-16b ({n:,} bf16 parameters, drawn on the "
+        f"card in {init_s:.1f} s), B {B}, prompt {P}, {G} new tokens: "
+        f"prefill {prefill_s:.3f} s, decode {B * G / decode_s:.1f} tok/s "
+        f"({decode_s:.3f} s), peak {peak / 1e9:.2f} GB (of it "
+        f"{held / 1e9:.2f} GB that earlier phases hold), flash launches "
+        f"{flash} (want {want}), finite {finite}, tokens "
+        f"{torch.cat(out, dim=1)[0, :8].tolist()}")
+    if not finite or peak > 40e9 or \
+            any(launches.get(k, 0) != m for k, m in want.items()):
+        raise AssertionError("deepseek-v2-lite serve at full width")
+    results["flash_attention[mla]"]["launches"] = launches["flash_attention"]
+    results["flash_attention[mla]"]["launches_by_design"] = flash
+
+    # the first and the last layer's MLA attention, kernel (flash_prefill)
+    # against its plain version, fed one input: the prompt's normed
+    # embedding, through each layer's own projections.  The random init
+    # gives q entries a standard deviation of ~11 (``dense_init`` scales
+    # wq (d, H, 192) by H^-1/2), so scores reach the hundreds and an fp32
+    # rounding of a score moves a softmax weight visibly: each side is
+    # held to the exact (fp64) attention of the same bf16 q, k, v, the
+    # kernel within twice the plain version's distance plus one bf16
+    # rounding of the output
+    x = L.embed(params["embedding"], prompt, torch.bfloat16)
+    pos = torch.arange(P, dtype=torch.int32, device=dev)
+    for li in (0, Lyr - 1):
+        lp = tree_map(lambda t: t[li], params["layers"])
+        h = L.apply_norm(lp["norm1"], x)
+        q_nope, q_rope, c_kv, k_rope = A._mla_qkv(lp["mixer"], h, cfg, pos)
+        k, v = A._mla_expand(lp["mixer"], c_kv, k_rope, torch.bfloat16)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        got = flash_attention_cuda(q, k, v, pos, pos, scale=D ** -0.5)
+        ref = flash_attention_plain(q, k, v, pos, pos, scale=D ** -0.5)
+        exact = attention_fp64(torch, q, k, v, pos, pos, 0)
+        gap = float((got.float() - ref.float()).abs().max())
+        k64 = float((got.double() - exact).abs().max())
+        p64 = float((ref.double() - exact).abs().max())
+        top = float(exact.abs().max())
+        ok = bool(torch.isfinite(got).all()) and \
+            k64 <= 2 * p64 + 2 ** -8 * top
+        log(f"[14b] layer {li} MLA attention: kernel vs plain max abs err "
+            f"{gap:.3e}; from fp64: kernel {k64:.3e}, plain {p64:.3e} (max "
+            f"|out| {top:.3g}, q std {float(q.float().std()):.3g}), held "
+            f"{ok}")
+        if not ok:
+            raise AssertionError(f"layer {li} MLA attention differs")
+        del exact
+    del q, k, v, got, ref, h, q_nope, q_rope, c_kv, k_rope
+
+    # one layer's MoE: the sorted dispatch at full capacity (nothing
+    # dropped) against the dense oracle, fp32 (TF32 off)
+    mp = tree_map(lambda t: t[0].float(), params["layers"]["mlp"])
+    xm = torch.randn((4, 32, cfg.d_model), generator=torch.Generator(
+        device=dev).manual_seed(15), device=dev)
+    dense = M.moe_dense(mp, xm, cfg)
+    srt = M.moe_sorted(mp, xm, cfg, capacity=4 * 32 * cfg.moe.top_k)
+    gap = float((srt - dense).abs().max())
+    scale = float(dense.abs().max())
+    log(f"[14b] layer 0 MoE, sorted at full capacity vs dense, fp32: max "
+        f"abs err {gap:.3e} (max |out| {scale:.3g})")
+    # the same fp32 products, summed in other orders: 1e-5 of the largest
+    if not gap <= 1e-5 * scale:
+        raise AssertionError("sorted MoE differs from the dense oracle")
+    del params, cache, logits, first, mp, xm, dense, srt, x, leaves
+    torch.cuda.empty_cache()
+
+
+def zoo_paths(torch, dev) -> None:
+    """Phase 14c and 14d: qwen3-8b served at full width through
+    ``launch.serve`` (fp32 parameters, bf16 compute, ``flash_prefill`` at
+    D 128), and ``launch.steps``' train setup at dsv2-smoke in bf16 with
+    fp32 master weights."""
+    import numpy as np
+    from repro_torch.config import OptimizerConfig, ParallelConfig, ShapeConfig
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.kernels import build
+    from repro_torch.launch import steps
+    from repro_torch.launch.serve import serve
+    from repro_torch.utils.trees import tree_leaves
+
+    cfg = get_config("qwen3-8b")
+    B, P, G = 4, 1024, 32
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    out = serve(cfg, batch=B, prompt_len=P, gen=G, device=dev,
+                keep_logits=True)
+    launches = {k: build.LAUNCHES[k] for k in
+                ("flash_attention", "flash_prefill", "flash_simt",
+                 "flash_decode", "flash_decode_combine")}
+    Lyr = cfg.num_layers
+    want = {"flash_attention": Lyr * (1 + G), "flash_prefill": Lyr,
+            "flash_simt": 0, "flash_decode": Lyr * G,
+            "flash_decode_combine": Lyr * G}
+    finite = bool(torch.isfinite(out["prefill_logits"].float()).all()) and \
+        bool(torch.isfinite(out["decode_logits"].float()).all())
+    log(f"[14c] qwen3-8b ({cfg.param_count():,} fp32 parameters, bf16 "
+        f"compute), B {B}, prompt {P}, {G} new tokens: prefill "
+        f"{out['prefill_s']:.3f} s, decode {out['decode_tok_per_s']:.1f} "
+        f"tok/s, peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB, "
+        f"launches {launches}, finite {finite}")
+    if launches != want or not finite:
+        raise AssertionError(f"qwen3-8b serve: launches {launches}, want "
+                             f"{want}, finite {finite}")
+    del out
+    torch.cuda.empty_cache()
+
+    tcfg = get_smoke_config("deepseek-v2-lite-16b")
+    setup = steps.make_train_setup(
+        tcfg, ShapeConfig("train", 32, 4, "train"), ParallelConfig(),
+        OptimizerConfig(name="adamw", lr=3e-3), device=dev)
+    state = setup.init_state(0)
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(0, tcfg.vocab_size, (4, 32)))
+             .to(dev) for k in ("tokens", "targets")}
+    losses = []
+    for _ in range(8):
+        state, loss = setup.step_fn(state, batch)
+        losses.append(float(loss))
+    dtypes = sorted({str(t.dtype) for t in tree_leaves(state["params"])})
+    masters = sorted({str(t.dtype)
+                      for t in tree_leaves(state["opt"]["master"])})
+    log(f"[14d] train setup at {tcfg.name}, bf16 parameters {dtypes}, "
+        f"master {masters}: 8 steps on one batch, losses "
+        f"{[round(x, 4) for x in losses]}")
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+            and dtypes == ["torch.bfloat16"] and masters == ["torch.float32"]):
+        raise AssertionError("the bf16 train setup does not reduce the loss")
+
+
+def mla_and_zoo(torch, dev, results) -> None:
+    """Phase 14: MLA's flash head dims, deepseek-v2-lite-16b and qwen3-8b
+    served at full width, the bf16 train setup."""
+    t_phase = time.perf_counter()
+    mla_flash(torch, dev, results)
+    mla_serve(torch, dev, results)
+    zoo_paths(torch, dev)
+    log(f"[14] phase wall {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2170,6 +2503,7 @@ def main() -> int:
     from repro_torch.models.lm import init_lm
     from repro_torch.utils.trees import tree_flatten, tree_map
 
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -2327,8 +2661,9 @@ def main() -> int:
             f"{plain_ms:8.3f} ms  bound {bound_ms:.3f} ms ({bound_by}; "
             f"{moved / 1e9:.3f} GB)  {bound_ms / ms:5.1%} of the bound"
             + lib_txt)
-    del pack_leaves, unpack_leaves, payloads, payloads8, flat8, pods_f32
-    del deltas
+    # ``inputs`` and the cases' closures hold every tensor above (6.8 GB)
+    del cases, inputs, pack_leaves, unpack_leaves, payloads, payloads8
+    del flat8, pods_f32, deltas
     torch.cuda.empty_cache()
 
     # ---- 4. a forced all-open merge at lm100m ----------------------------
@@ -2360,7 +2695,7 @@ def main() -> int:
                                  f"gap to the plain association {gap}")
         log(f"    {compression:4s} kernels {outs[True][1]:8.1f} ms  plain "
             f"association {outs[False][1]:8.1f} ms  max gap {gap:.3g}")
-    del outs
+    del outs, new_global
 
     # dispatch + commit back to back is hermes_round in two halves: the
     # anchor of the async trainer, held bitwise on the kernel path
@@ -2480,19 +2815,25 @@ def main() -> int:
             raise AssertionError(f"lmtiny {compression} on the card "
                                  f"disagrees with the CPU run")
 
-    del w_global, g_leaves
+    # the flat API loop's last leaf and its round trip stay bound too
+    del w_global, g_leaves, g, q, sc, back, half, x, over
     torch.cuda.empty_cache()
-    serving_kernels(torch, dev, results)
-    serving_paths(torch, dev, results)
-    analyzer(torch, dev, results)
-    level_a(torch, dev, results)
+    for phase, run in ((6, lambda: serving_kernels(torch, dev, results)),
+                       (7, lambda: serving_paths(torch, dev, results)),
+                       (8, lambda: analyzer(torch, dev, results)),
+                       (9, lambda: level_a(torch, dev, results)),
+                       (10, lambda: trainer_and_studies(torch, dev, smi)),
+                       (11, lambda: fleet_engine(torch, dev, results)),
+                       (12, lambda: two_tier(torch, dev, results)),
+                       (13, lambda: elastic(torch, dev, results)),
+                       (14, lambda: mla_and_zoo(torch, dev, results))):
+        gc.collect()
+        log(f"--- phase {phase} starts at {time.perf_counter() - t_start:.1f}"
+            f" s, {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+        run()
+    log(f"--- all phases done at {time.perf_counter() - t_start:.1f} s")
 
-    trainer_and_studies(torch, dev, smi)
-    fleet_engine(torch, dev, results)
-    two_tier(torch, dev, results)
-    elastic(torch, dev, results)
-
-    # ---- 14. result lines -------------------------------------------------
+    # ---- 15. result lines -------------------------------------------------
     print(json.dumps({"kernels": list(results.values())}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

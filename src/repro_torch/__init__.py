@@ -4,8 +4,10 @@ untouched JAX reference).
 The port runs the Level-B Hermes LM round (pod-stacked local training of
 the dense GQA LM, the z-score gate, and the gated loss-weighted merge over
 the ``none`` / ``fp16`` / ``int8`` / ``int4`` wires, synchronous or async)
-and serving (prefill and greedy decode of the dense LM, of RWKV6 and of
-the RecurrentGemma hybrid), and checks itself with a static analyzer
+and serving (prefill and greedy decode of the dense LMs, of the MoE LMs
+with Multi-head Latent Attention, of RWKV6 and of the RecurrentGemma
+hybrid; ``launch/steps.py`` builds the train, prefill and decode steps),
+and checks itself with a static analyzer
 (``analysis/``, ``launch/analyze.py``: a tile lint over the kernels'
 launch specs and sources, a host-sync guard over the round loop).  Its
 kernels are hand-written CUDA for ``sm_90a`` under ``kernels/csrc``:

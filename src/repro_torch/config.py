@@ -1,7 +1,9 @@
-"""Run configuration: the subset of the reference's ``ModelConfig`` that
-the ported paths read (the dense GQA LM, the attention-free RWKV6 LM and
-the RecurrentGemma hybrid), plus ``HermesConfig`` (the gate, the wire,
-the allocator and elastic membership) and ``OptimizerConfig``.
+"""Run configuration: the reference's ``ModelConfig`` for the ported paths
+(the dense stacks, MoE and MLA, the attention-free RWKV6 LM and the
+RecurrentGemma hybrid), ``ShapeConfig`` and the part of
+``ParallelConfig`` that the step builders read, plus ``HermesConfig``
+(the gate, the wire, the allocator and elastic membership) and
+``OptimizerConfig``.
 
 A copy, not an import: the port never imports the JAX package.  Field
 names and defaults are the reference's (``src/repro/config.py``) so one
@@ -25,6 +27,43 @@ VALID_FAMILIES = (FAMILY_DENSE, FAMILY_MOE, FAMILY_SSM, FAMILY_HYBRID,
 
 
 @dataclass(frozen=True)
+class MoEConfig:
+    """Mixture-of-experts block: ``num_experts`` routed experts of
+    ``expert_ff``, the top ``top_k`` taken per token, ``num_shared_experts``
+    always-on experts of ``shared_ff`` (0: ``expert_ff``), and the sorted
+    dispatch's ``capacity_factor``.  ``router_jitter`` is carried, as in
+    the reference, and read by nothing."""
+
+    num_experts: int
+    top_k: int
+    expert_ff: int
+    num_shared_experts: int = 0
+    shared_ff: int = 0
+    router_jitter: float = 0.0
+    capacity_factor: float = 1.25
+
+    def validate(self) -> None:
+        if self.num_experts < 1 or not 1 <= self.top_k <= self.num_experts \
+                or self.expert_ff < 1:
+            raise ValueError(f"moe: {self.num_experts} experts, top "
+                             f"{self.top_k}, expert_ff {self.expert_ff}")
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    """Multi-head Latent Attention (DeepSeek-V2): keys and values from a
+    ``kv_lora_rank`` latent, a decoupled RoPE head dim ``rope_head_dim``
+    shared by the heads' keys, ``v_head_dim`` (0: the nope head dim).
+    ``q_lora_rank`` 0 is full-rank queries, the only form the reference
+    builds."""
+
+    kv_lora_rank: int
+    q_lora_rank: int = 0
+    rope_head_dim: int = 64
+    v_head_dim: int = 0
+
+
+@dataclass(frozen=True)
 class RecurrentConfig:
     """Linear-recurrence blocks: ``rwkv6`` with an empty ``block_pattern``
     is the attention-free RWKV6 LM; ``rglru`` with a pattern such as
@@ -38,10 +77,17 @@ class RecurrentConfig:
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """A decoder LM: the dense GQA stack (RMSNorm, SwiGLU, RoPE), the
-    RWKV6 stack (layernorm, time-mix, channel-mix) or the RecurrentGemma
-    hybrid (RG-LRU and local-attention blocks, GeLU MLP).  Parameters are
-    fp32 (``param_dtype``); activations run in ``dtype``."""
+    """A decoder LM: the dense stack (GQA or MQA attention, or MLA with
+    ``mla``; a SwiGLU or GeLU MLP, or the MoE block with ``moe``; RMSNorm
+    or layernorm), the RWKV6 stack (layernorm, time-mix, channel-mix) or
+    the RecurrentGemma hybrid (RG-LRU and local-attention blocks, GeLU
+    MLP).  Parameters are fp32 (``param_dtype``); activations run in
+    ``dtype``.  ``remat`` recomputes each layer's activations in the
+    training backward.  The encoder-decoder and the modality frontends
+    (``is_encoder_decoder``, ``frontend``) are carried so that their
+    configs validate, and the model raises on them.  The reference's
+    ``tp_pad_heads`` pads query heads for tensor parallelism, which one
+    card does not have, and is left out."""
 
     name: str
     family: str
@@ -59,9 +105,16 @@ class ModelConfig:
     mlp_kind: str = "swiglu"  # swiglu | gelu | relu_sq (RWKV channel-mix)
     norm_kind: str = "rmsnorm"  # rmsnorm | layernorm
     tie_embeddings: bool = False
+    moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
     recurrent: Optional[RecurrentConfig] = None
+    is_encoder_decoder: bool = False
+    num_encoder_layers: int = 0
+    frontend: str = "none"  # none | vision | audio
+    frontend_tokens: int = 0
     dtype: str = "bfloat16"
     param_dtype: str = "float32"
+    remat: bool = True
     notes: str = ""
 
     @property
@@ -88,6 +141,8 @@ class ModelConfig:
         if self.num_heads % self.num_kv_heads:
             raise ValueError(f"{self.name}: heads {self.num_heads} not "
                              f"divisible by kv {self.num_kv_heads}")
+        if self.moe is not None:
+            self.moe.validate()
         if self.recurrent is not None and \
                 self.recurrent.kind not in ("rwkv6", "rglru"):
             raise ValueError(f"{self.name}: recurrent kind "
@@ -100,15 +155,33 @@ class ModelConfig:
 
     def param_count(self) -> int:
         """The exact parameter count of the port's (and the reference's)
-        tree; the reference's own ``param_count`` approximates RWKV6."""
+        tree; the reference's own ``param_count`` approximates RWKV6, MoE
+        and MLA."""
         d, L, hd, f = self.d_model, self.num_layers, self.resolved_head_dim, \
             self.d_ff
+        H = self.num_heads
         emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
         norm = 2 * d if self.norm_kind == "layernorm" else d
-        n_q, n_kv = self.num_heads * hd, self.num_kv_heads * hd
+        n_q, n_kv = H * hd, self.num_kv_heads * hd
         attn = d * n_q + 2 * d * n_kv + n_q * d + (2 * hd if self.qk_norm
                                                    else 0)
-        mlp = (3 if self.mlp_kind == "swiglu" else 2) * d * f
+        n_mat = 3 if self.mlp_kind == "swiglu" else 2
+        mlp = n_mat * d * f
+        if self.mla is not None:
+            # wq (d, H, nope + rope), w_dkv (d, r), w_kr (d, rope), kv_norm
+            # (r), w_uk (r, H, nope), w_uv (r, H, vd), wo (H, vd, d)
+            m = self.mla
+            r, vd = m.kv_lora_rank, m.v_head_dim or hd
+            attn = d * H * (hd + m.rope_head_dim) + d * r \
+                + d * m.rope_head_dim + r + r * H * (hd + vd) + H * vd * d
+        if self.moe is not None:
+            # router (d, E), E experts' wi / wg / wo, the shared experts'
+            # joint (d, n_shared * shared_ff) matrices
+            me = self.moe
+            shared = (me.shared_ff or me.expert_ff) * me.num_shared_experts
+            mlp = d * me.num_experts \
+                + n_mat * d * me.expert_ff * me.num_experts \
+                + n_mat * d * shared
         if self.is_hybrid:
             # RG-LRU: w_in_x, w_in_g (d x w), gate_a_w, gate_x_w (w x w),
             # w_out (w x d), conv_w (cw x w) and conv_b, gate_a_b,
@@ -129,6 +202,35 @@ class ModelConfig:
         else:
             per_layer = attn + mlp + 2 * norm
         return emb + L * per_layer + norm
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One input-shape cell: ``kind`` train | prefill | decode, at
+    ``global_batch`` sequences of ``seq_len`` tokens (decode: a cache of
+    ``seq_len``)."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str
+
+    def validate(self) -> None:
+        if self.kind not in ("train", "prefill", "decode"):
+            raise ValueError(f"shape kind {self.kind!r}")
+
+
+@dataclass(frozen=True)
+class ParallelConfig:
+    """How a run maps onto devices.  On one card the step builders read
+    ``microbatch`` (0: no gradient accumulation) alone; ``zero1`` and
+    ``fsdp`` shard optimizer state and parameters over a data axis, which
+    one card does not have, and are carried with the reference's
+    defaults and ignored."""
+
+    fsdp: bool = False
+    zero1: bool = True
+    microbatch: int = 0
 
 
 @dataclass(frozen=True)
@@ -190,7 +292,7 @@ class HermesConfig:
 
 @dataclass(frozen=True)
 class OptimizerConfig:
-    name: str = "sgd"  # sgd | adamw
+    name: str = "sgd"  # sgd | sgdm | adamw
     lr: float = 0.1
     momentum: float = 0.0
     beta1: float = 0.9

@@ -13,8 +13,14 @@ from repro_torch.config import ModelConfig
 
 # arch-id -> module name
 _REGISTRY: Dict[str, str] = {
-    "recurrentgemma-2b": "recurrentgemma_2b",
     "rwkv6-3b": "rwkv6_3b",
+    "phi3-mini-3.8b": "phi3_mini_3p8b",
+    "qwen3-8b": "qwen3_8b",
+    "yi-6b": "yi_6b",
+    "granite-34b": "granite_34b",
+    "grok-1-314b": "grok1_314b",
+    "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
+    "recurrentgemma-2b": "recurrentgemma_2b",
 }
 
 

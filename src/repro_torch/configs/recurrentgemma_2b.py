@@ -35,4 +35,5 @@ def smoke_config() -> ModelConfig:
         CONFIG, name="rg-smoke", num_layers=3, d_model=64, num_heads=2,
         num_kv_heads=1, head_dim=32, d_ff=128, vocab_size=256, attn_window=32,
         recurrent=RecurrentConfig(kind="rglru", lru_width=64, conv1d_width=4,
-                                  block_pattern=("rec", "rec", "attn")))
+                                  block_pattern=("rec", "rec", "attn")),
+        remat=False)

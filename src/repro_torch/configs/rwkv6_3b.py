@@ -30,4 +30,4 @@ CONFIG = ModelConfig(
 def smoke_config() -> ModelConfig:
     return replace(
         CONFIG, name="rwkv6-smoke", num_layers=2, d_model=64, num_heads=2,
-        num_kv_heads=2, head_dim=32, d_ff=128, vocab_size=256)
+        num_kv_heads=2, head_dim=32, d_ff=128, vocab_size=256, remat=False)

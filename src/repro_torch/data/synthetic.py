@@ -19,18 +19,35 @@ import torch
 
 
 def make_lm_dataset(n_tokens: int, vocab: int, *, seed: int = 0) -> np.ndarray:
-    """Markov token stream with Zipf unigram marginals; (n_tokens,) int32."""
+    """Markov token stream with Zipf unigram marginals; (n_tokens,) int32.
+
+    The reference draws, for each token, ``rng.random()`` for the successor
+    test and, when that fails, ``rng.choice(vocab, p=base)``: one more
+    ``rng.random()`` looked up in the normalised cdf of ``base``.  This copy
+    draws the same doubles in blocks and looks them all up at once, so its
+    stream is the reference's bit for bit without ~10 us of numpy a token.
+    """
     rng = np.random.default_rng(seed)
     base = 1.0 / np.arange(1, vocab + 1) ** 1.1
     base /= base.sum()
     toks = np.empty(n_tokens, np.int32)
     toks[0] = rng.choice(vocab, p=base)
     boost = rng.integers(0, vocab, size=vocab)  # deterministic successor bias
-    for i in range(1, n_tokens):
-        if rng.random() < 0.6:
-            toks[i] = boost[toks[i - 1]]
-        else:
-            toks[i] = rng.choice(vocab, p=base)
+    cdf = base.cumsum()     # as ``Generator.choice`` builds it
+    cdf /= cdf[-1]
+
+    def draws():
+        while True:
+            u = rng.random(1 << 16)
+            yield from zip(u.tolist(),
+                           cdf.searchsorted(u, side="right").tolist())
+
+    stream, succ = draws(), boost.tolist()
+    prev, out = int(toks[0]), []
+    for _ in range(1, n_tokens):
+        prev = succ[prev] if next(stream)[0] < 0.6 else next(stream)[1]
+        out.append(prev)
+    toks[1:] = out
     return toks
 
 

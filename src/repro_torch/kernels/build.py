@@ -59,11 +59,14 @@ LIBRARIES = {
         "dequantize_int8": (_P, _P, _P, _I64, _P),
     },
     "model_kernels": {
+        # ..., dtype, B, Sq, Skv, H, K, D, Dv, causal, window, scale
         "flash_simt": (_P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32,
-                       _I32, _I32, _I32, _I32, _F32, _P),
+                       _I32, _I32, _I32, _I32, _I32, _F32, _P),
+        # ..., dtype, B, Sq, Skv, H, K, D, Dv, groups, per_split, splits,
+        # causal, window, scale
         "flash_decode": (_P, _P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32,
                          _I32, _I32, _I32, _I32, _I32, _I32, _I32, _I32,
-                         _I32, _F32, _P),
+                         _I32, _I32, _F32, _P),
         "flash_decode_combine": (_P, _P, _P, _I32, _I32, _I32, _I32, _P),
         # ..., dtype, B, T, H, D, keys a block
         "wkv6": (_P, _P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32,
@@ -72,8 +75,9 @@ LIBRARIES = {
         "rglru": (_P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _P),
     },
     "attention_kernels": {
+        # ..., B, Sq, Skv, H, K, D, Dv, causal, window, scale
         "flash_prefill": (_P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32,
-                          _I32, _I32, _I32, _I32, _F32, _P),
+                          _I32, _I32, _I32, _I32, _I32, _F32, _P),
     },
     "fixture_kernels": {
         "tile_copy": (_P, _P, _I32, _I32, _I32, _I32, _P),

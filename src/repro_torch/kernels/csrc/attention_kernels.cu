@@ -10,7 +10,8 @@
 //
 // ---------------------------------------------------------------------------
 // flash_prefill_kernel (replaces src/repro/kernels/flash_attention.py:106,
-// flash_attention, for bf16 prefill at head dims 64, 128 and 256).
+// flash_attention, for bf16 prefill at head dims 64, 128 and 256, and at
+// MLA's q / k head dim 192 with a v head dim of 128).
 //
 // Bound: operations.  At recurrentgemma-2b prefill (B 4, Sq = Skv 2560, 10
 // query heads of 256 on one KV head, window 2048) the 3,146,752 visible
@@ -55,6 +56,11 @@
 // straddle a boundary, are masked element by element from the positions.
 // At recurrentgemma-2b prefill about half of the 40 x 40 tile pairs of a
 // head are skipped.
+//
+// v's head dim DV may differ from D, as in the TPU kernel: S = Q K^T takes
+// D / 16 k-steps (12 at deepseek-v2-lite's MLA, D = 128 nope + 64 rope),
+// and P V one instruction per 64 of DV columns (2 at DV 128).  Q and K
+// tiles are 64 x D, the V tile 64 x DV: 24 + 24 + 16 KB at (192, 128).
 // ---------------------------------------------------------------------------
 
 #include <climits>
@@ -73,8 +79,9 @@ constexpr int kSkip = 0;    // tile codes of the pre-pass
 constexpr int kMasked = 1;
 constexpr int kFull = 2;
 
-int fp_smem_bytes(int D, int Skv) {
-  return 3 * kFpRows * D * 2 + 1024 + 4 * ((Skv + kFpKeys - 1) / kFpKeys);
+int fp_smem_bytes(int D, int DV, int Skv) {
+  return kFpRows * (2 * D + DV) * 2 + 1024 +
+         4 * ((Skv + kFpKeys - 1) / kFpKeys);
 }
 
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
@@ -193,7 +200,7 @@ __device__ __forceinline__ uint32_t bf16_pair(__nv_bfloat162 x) {
   return *reinterpret_cast<uint32_t*>(&x);
 }
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(kFpThreads)
 flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
@@ -202,14 +209,15 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
                      const int* __restrict__ kvpos,
                      __nv_bfloat16* __restrict__ out, int Sq, int Skv, int H,
                      int K, int causal, int window, float scale) {
-  constexpr int NB = D / 64;                 // 64-column blocks
-  constexpr uint32_t kTile = kFpRows * D * 2;  // bytes of a tile
+  constexpr int NB = DV / 64;                // 64-column blocks of O
+  constexpr uint32_t kTile = kFpRows * D * 2;  // bytes of a Q or K tile
+  constexpr uint32_t kTileV = kFpRows * DV * 2;  // bytes of a V tile
   constexpr uint32_t kBlock = kFpRows * 128;   // bytes of a column block
   extern __shared__ __align__(1024) unsigned char fp_smem[];
   const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(fp_smem));
   const uint32_t Qs = (raw + 1023u) & ~1023u;  // swizzle atoms: 1024-aligned
   const uint32_t Ks = Qs + kTile, Vs = Ks + kTile;
-  int* flags = reinterpret_cast<int*>(fp_smem + (Vs + kTile - raw));
+  int* flags = reinterpret_cast<int*>(fp_smem + (Vs + kTileV - raw));
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int q0 = blockIdx.x * kFpRows, h = blockIdx.y, b = blockIdx.z;
@@ -255,6 +263,8 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
   while (j < ntiles && flags[j] == kSkip) ++j;
   const size_t kv_row = static_cast<size_t>(K) * D;
   const size_t kv0 = static_cast<size_t>(b) * Skv * kv_row + kh * D;
+  const size_t v_row = static_cast<size_t>(K) * DV;
+  const size_t v0 = static_cast<size_t>(b) * Skv * v_row + kh * DV;
   load_tile<D>(Qs, q + ((static_cast<size_t>(b) * Sq + q0) * H + h) * D,
                static_cast<size_t>(H) * D, nq, tid);
   if (j < ntiles)
@@ -262,8 +272,8 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
                  Skv - j * kFpKeys, tid);
   cp_async_commit();
   if (j < ntiles)
-    load_tile<D>(Vs, v + kv0 + j * kFpKeys * kv_row, kv_row,
-                 Skv - j * kFpKeys, tid);
+    load_tile<DV>(Vs, v + v0 + j * kFpKeys * v_row, v_row,
+                  Skv - j * kFpKeys, tid);
   cp_async_commit();
 
   const float sl2 = scale * kLog2e;
@@ -400,8 +410,8 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
     for (int cb = 0; cb < NB; ++cb) fence_regs(o[cb]);
     __syncthreads();  // every warp is done with V(j)
     if (jn < ntiles)
-      load_tile<D>(Vs, v + kv0 + jn * kFpKeys * kv_row, kv_row,
-                   Skv - jn * kFpKeys, tid);
+      load_tile<DV>(Vs, v + v0 + jn * kFpKeys * v_row, v_row,
+                    Skv - jn * kFpKeys, tid);
     cp_async_commit();
     j = jn;
   }
@@ -421,23 +431,23 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
       const int col = cb * 64 + 8 * n + 2 * (lane & 3);
       if (r0 < Sq)
         *reinterpret_cast<__nv_bfloat162*>(
-            out + ((static_cast<size_t>(b) * Sq + r0) * H + h) * D + col) =
+            out + ((static_cast<size_t>(b) * Sq + r0) * H + h) * DV + col) =
             __floats2bfloat162_rn(o[cb][4 * n] / d0, o[cb][4 * n + 1] / d0);
       if (r1 < Sq)
         *reinterpret_cast<__nv_bfloat162*>(
-            out + ((static_cast<size_t>(b) * Sq + r1) * H + h) * D + col) =
+            out + ((static_cast<size_t>(b) * Sq + r1) * H + h) * DV + col) =
             __floats2bfloat162_rn(o[cb][4 * n + 2] / d1,
                                   o[cb][4 * n + 3] / d1);
     }
 }
 
-template <int D>
+template <int D, int DV>
 int prefill_launch(const void* q, const void* k, const void* v,
                    const void* qpos, const void* kvpos, void* out, int B,
                    int Sq, int Skv, int H, int K, int causal, int window,
                    float scale, cudaStream_t stream) {
-  const int bytes = fp_smem_bytes(D, Skv);
-  auto kern = flash_prefill_kernel<D>;
+  const int bytes = fp_smem_bytes(D, DV, Skv);
+  auto kern = flash_prefill_kernel<D, DV>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -455,25 +465,24 @@ int prefill_launch(const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// q (B, Sq, H, D), k / v (B, Skv, K, D), out (B, Sq, H, D): bfloat16, rows
-// 16-byte aligned; D one of 64, 128, 256
+// q (B, Sq, H, D), k (B, Skv, K, D), v (B, Skv, K, Dv), out (B, Sq, H,
+// Dv): bfloat16, rows 16-byte aligned; (D, Dv) one of (64, 64), (128, 128),
+// (256, 256), (192, 128)
 int launch_flash_prefill(const void* q, const void* k, const void* v,
                          const void* qpos, const void* kvpos, void* out, int B,
-                         int Sq, int Skv, int H, int K, int D, int causal,
-                         int window, float scale, cudaStream_t stream) {
-  switch (D) {
-    case 64:
-      return prefill_launch<64>(q, k, v, qpos, kvpos, out, B, Sq, Skv, H, K,
-                                causal, window, scale, stream);
-    case 128:
-      return prefill_launch<128>(q, k, v, qpos, kvpos, out, B, Sq, Skv, H, K,
-                                 causal, window, scale, stream);
-    case 256:
-      return prefill_launch<256>(q, k, v, qpos, kvpos, out, B, Sq, Skv, H, K,
-                                 causal, window, scale, stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+                         int Sq, int Skv, int H, int K, int D, int Dv,
+                         int causal, int window, float scale,
+                         cudaStream_t stream) {
+#define FP_CASE(DIM, DIMV)                                                   \
+  if (D == DIM && Dv == DIMV)                                                \
+    return prefill_launch<DIM, DIMV>(q, k, v, qpos, kvpos, out, B, Sq, Skv,  \
+                                     H, K, causal, window, scale, stream);
+  FP_CASE(64, 64)
+  FP_CASE(128, 128)
+  FP_CASE(256, 256)
+  FP_CASE(192, 128)
+#undef FP_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

@@ -78,19 +78,25 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(
 // peak: operations.  D 256 takes 214,016 bytes of shared memory, so one
 // block fits an SM.  TF32 stays off for fp32, so the tensor cores are not
 // used here.
+//
+// v has a head dim Dv of its own, as in the TPU kernel (its v block and
+// scratch are Dv wide): the scores run over D, the V tile, the accumulator
+// and the output are Dv wide.  MLA (deepseek-v2-lite) takes D = nope + rope
+// = 192 against Dv 128, its smoke config 24 against 16; every other model
+// D == Dv.
 // ---------------------------------------------------------------------------
 
 constexpr int kFaThreads = 256;
 constexpr int kBK = 64;
 constexpr float kNegInf = -1e30f;
 
-template <int BQ, int D>
+template <int BQ, int D, int DV>
 constexpr int fa_smem_bytes() {
-  return (BQ * (D + 1) + 2 * kBK * (D + 1) + BQ * (kBK + 1)) *
+  return (BQ * (D + 1) + kBK * (D + 1) + kBK * (DV + 1) + BQ * (kBK + 1)) *
          static_cast<int>(sizeof(float));
 }
 
-template <typename T, int BQ, int D>
+template <typename T, int BQ, int D, int DV>
 __global__ void __launch_bounds__(kFaThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, const int* __restrict__ qpos,
@@ -99,14 +105,15 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        int window, float scale) {
   constexpr int RM = BQ / 16;   // rows per thread
   constexpr int CN = kBK / 16;  // score columns per thread
-  constexpr int DN = D / 16;    // output columns per thread
+  constexpr int DN = DV / 16;   // output columns per thread
   constexpr int LD = D + 1;
+  constexpr int LDV = DV + 1;
   constexpr int LP = kBK + 1;
   extern __shared__ float smem[];
   float* Qs = smem;              // BQ x LD, already scaled
   float* Ks = Qs + BQ * LD;      // kBK x LD
-  float* Vs = Ks + kBK * LD;     // kBK x LD
-  float* Ps = Vs + kBK * LD;     // BQ x LP
+  float* Vs = Ks + kBK * LD;     // kBK x LDV
+  float* Ps = Vs + kBK * LDV;    // BQ x LP
   __shared__ int kp_s[kBK];
   __shared__ int red_lo[kBK / 32], red_hi[kBK / 32];
 
@@ -173,16 +180,31 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (window > 0) run = run && qlo - hi < window;
     if (!run) continue;  // uniform over the block
 
-    for (int idx = tid; idx < kBK * D; idx += kFaThreads) {
-      const int c = idx / D, d = idx % D, s = k0 + c;
-      float kv = 0.f, vv = 0.f;
-      if (s < Skv) {
-        const size_t off = ((static_cast<size_t>(b) * Skv + s) * K + kh) * D + d;
-        kv = to_f32(k[off]);
-        vv = to_f32(v[off]);
+    // K and V in one pass at D == Dv, in a pass each otherwise: on the
+    // H100 one pass is 7-20% faster at D == Dv (lm100m, recurrentgemma-2b)
+    // and 1.7x slower at MLA's 192 / 128 (PERF.md rows 8 and 8c)
+    if constexpr (D == DV) {
+      for (int idx = tid; idx < kBK * D; idx += kFaThreads) {
+        const int c = idx / D, d = idx % D, s = k0 + c;
+        const size_t row = (static_cast<size_t>(b) * Skv + s) * K + kh;
+        Ks[c * LD + d] = s < Skv ? to_f32(k[row * D + d]) : 0.f;
+        Vs[c * LDV + d] = s < Skv ? to_f32(v[row * DV + d]) : 0.f;
       }
-      Ks[c * LD + d] = kv;
-      Vs[c * LD + d] = vv;
+    } else {
+      for (int idx = tid; idx < kBK * D; idx += kFaThreads) {
+        const int c = idx / D, d = idx % D, s = k0 + c;
+        Ks[c * LD + d] =
+            s < Skv ? to_f32(k[((static_cast<size_t>(b) * Skv + s) * K + kh) *
+                                   D + d])
+                    : 0.f;
+      }
+      for (int idx = tid; idx < kBK * DV; idx += kFaThreads) {
+        const int c = idx / DV, d = idx % DV, s = k0 + c;
+        Vs[c * LDV + d] =
+            s < Skv ? to_f32(v[((static_cast<size_t>(b) * Skv + s) * K + kh) *
+                                   DV + d])
+                    : 0.f;
+      }
     }
     __syncthreads();
 
@@ -247,7 +269,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < kBK; ++c) {
       float vc[DN];
 #pragma unroll
-      for (int j = 0; j < DN; ++j) vc[j] = Vs[c * LD + tx + 16 * j];
+      for (int j = 0; j < DN; ++j) vc[j] = Vs[c * LDV + tx + 16 * j];
 #pragma unroll
       for (int i = 0; i < RM; ++i) {
         const float p = Ps[(ty * RM + i) * LP + c];
@@ -262,19 +284,19 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int s = q0 + ty * RM + i;
     if (s >= Sq) continue;
     const float denom = fmaxf(l[i], 1e-30f);
-    T* o = out + ((static_cast<size_t>(b) * Sq + s) * H + h) * D;
+    T* o = out + ((static_cast<size_t>(b) * Sq + s) * H + h) * DV;
 #pragma unroll
     for (int j = 0; j < DN; ++j) o[tx + 16 * j] = from_f32<T>(acc[i][j] / denom);
   }
 }
 
-template <typename T, int BQ, int D>
+template <typename T, int BQ, int D, int DV>
 int flash_launch(const void* q, const void* k, const void* v,
                  const void* qpos, const void* kvpos, void* out, int B,
                  int Sq, int Skv, int H, int K, int causal, int window,
                  float scale, cudaStream_t stream) {
-  constexpr int bytes = fa_smem_bytes<BQ, D>();
-  auto kern = flash_attention_kernel<T, BQ, D>;
+  constexpr int bytes = fa_smem_bytes<BQ, D, DV>();
+  auto kern = flash_attention_kernel<T, BQ, D, DV>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -287,35 +309,25 @@ int flash_launch(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
+// the (D, Dv) pairs the kernels take: D == Dv for every GQA model, and
+// MLA's nope + rope against v_head_dim at deepseek-v2-lite (192, 128) and
+// its smoke config (24, 16)
+#define FA_DIMS(X) \
+  X(16, 16) X(32, 32) X(64, 64) X(128, 128) X(256, 256) X(24, 16) X(192, 128)
+
 template <typename T>
 int flash_by_dim(const void* q, const void* k, const void* v,
                  const void* qpos, const void* kvpos, void* out, int B,
-                 int Sq, int Skv, int H, int K, int D, int causal,
+                 int Sq, int Skv, int H, int K, int D, int Dv, int causal,
                  int window, float scale, cudaStream_t stream) {
-  switch (D) {
-    case 16:
-      return flash_launch<T, 64, 16>(q, k, v, qpos, kvpos, out, B, Sq,
-                                      Skv, H, K, causal, window, scale,
-                                      stream);
-    case 32:
-      return flash_launch<T, 64, 32>(q, k, v, qpos, kvpos, out, B, Sq,
-                                      Skv, H, K, causal, window, scale,
-                                      stream);
-    case 64:
-      return flash_launch<T, 64, 64>(q, k, v, qpos, kvpos, out, B, Sq,
-                                      Skv, H, K, causal, window, scale,
-                                      stream);
-    case 128:
-      return flash_launch<T, 64, 128>(q, k, v, qpos, kvpos, out, B, Sq,
-                                      Skv, H, K, causal, window, scale,
-                                      stream);
-    case 256:
-      return flash_launch<T, 64, 256>(q, k, v, qpos, kvpos, out, B, Sq,
-                                      Skv, H, K, causal, window, scale,
-                                      stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+#define FA_CASE(DIM, DIMV)                                                   \
+  if (D == DIM && Dv == DIMV)                                                \
+    return flash_launch<T, 64, DIM, DIMV>(q, k, v, qpos, kvpos, out, B, Sq,  \
+                                          Skv, H, K, causal, window, scale,  \
+                                          stream);
+  FA_DIMS(FA_CASE)
+#undef FA_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // ---------------------------------------------------------------------------
@@ -367,6 +379,14 @@ int flash_by_dim(const void* q, const void* k, const void* v,
 // Two kernels, not one with a ticket counter, so neither needs an order
 // among blocks; one host call (launch_flash_decode with out) launches
 // both, since decode pays the host's time per call at every layer.
+//
+// v's head dim Dv may differ from D (MLA): K rows, the q rows and the
+// scores run over D, V rows, the accumulators, the partials and the
+// combine over Dv.  A D whose 16-byte chunks are not a power of two (24
+// and 192 in fp32) takes the power of two above as its lanes a key, the
+// lanes past the last chunk idle; a D that is not a multiple of 16 (24
+// in bf16) takes one more mma step, its columns past D zero in both
+// fragments.
 // ---------------------------------------------------------------------------
 
 constexpr int kFdThreads = 128;
@@ -374,11 +394,18 @@ constexpr int kFdRows = 16;
 constexpr int kFdTile = 32;
 constexpr int kFcThreads = 256;
 
-template <typename T, int D>
+template <typename T, int D, int DV>
 constexpr int fd_smem_bytes() {
-  return (2 * D + 16 / static_cast<int>(sizeof(T))) * kFdTile *
+  return (D + DV + 16 / static_cast<int>(sizeof(T))) * kFdTile *
              static_cast<int>(sizeof(T)) +
          4 * (kFdRows * kFdTile + 4 * kFdRows + kFdTile + 2);
+}
+
+// the least power of two >= n, at most 32 (lanes of a key's score group)
+__host__ __device__ constexpr int fd_lanes(int n) {
+  return n >= 32 ? 32 : n > 16 ? 32 : n > 8 ? 16 : n > 4 ? 8 : n > 2 ? 4
+                                                                : n > 1 ? 2
+                                                                        : 1;
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
@@ -477,7 +504,7 @@ __device__ __forceinline__ void load_rows(const float* p, float* x) {
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, int DV>
 __global__ void __launch_bounds__(kFdThreads)
 flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const int* __restrict__ qpos,
@@ -486,23 +513,26 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     int Sq, int Skv, int H, int K, int groups, int per_split,
                     int splits, int causal, int window, float scale) {
   constexpr int VN = 16 / static_cast<int>(sizeof(T));  // values a chunk
-  constexpr int CH = D / VN;                // 16-byte chunks of a row
-  constexpr int LPK = CH < 32 ? CH : 32;    // lanes per (row, key) score
-  constexpr int NV = CH / LPK;              // chunks a lane sums
+  constexpr int CH = D / VN;                // 16-byte chunks of a q / k row
+  constexpr int CV = DV / VN;               // 16-byte chunks of a v row
+  constexpr int LPK = fd_lanes(CH);         // lanes per (row, key) score
+  constexpr int NV = (CH + LPK - 1) / LPK;  // chunks a lane sums
   constexpr int NG = kFdThreads / LPK;      // keys in flight
   constexpr int NF = LPK < kFdRows ? kFdRows / LPK : 1;  // rows a lane sums
   constexpr int DUP = LPK > kFdRows ? LPK / kFdRows : 1;  // lanes a row
-  constexpr int RL = kFdThreads / CH;       // row lanes of P.V
+  constexpr int RL = kFdThreads / CV;       // row lanes of P.V
   constexpr int RPT = RL < kFdRows ? kFdRows / RL : 1;  // its rows
   constexpr bool kMma = sizeof(T) == 2;     // bf16: q.k on the tensor cores
   constexpr int KLD = D + VN;               // K rows padded by 16 bytes
-  constexpr int KS = D / 16;                // mma steps over the head dim
+  constexpr int KS = (D + 15) / 16;         // mma steps over the head dim
   static_assert(kFdTile == 8 * (kFdThreads / 32) && kFdRows == 16,
                 "the mma path takes 8 keys a warp and 16 rows");
+  static_assert(D % VN == 0 && DV % VN == 0 && (!kMma || D % 8 == 0),
+                "rows of whole 16-byte chunks");
   extern __shared__ __align__(16) unsigned char fd_smem[];
   T* Ks = reinterpret_cast<T*>(fd_smem);    // kFdTile x KLD
-  T* Vs = Ks + kFdTile * KLD;               // kFdTile x D
-  float* Ss = reinterpret_cast<float*>(Vs + kFdTile * D);  // keys x rows
+  T* Vs = Ks + kFdTile * KLD;               // kFdTile x DV
+  float* Ss = reinterpret_cast<float*>(Vs + kFdTile * DV);  // keys x rows
   float* m_s = Ss + kFdRows * kFdTile;
   float* l_s = m_s + kFdRows;
   float* a_s = l_s + kFdRows;
@@ -545,8 +575,11 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int ks = 0; ks < KS; ++ks) {
         qa[ks][h8] = keep & *reinterpret_cast<const uint32_t*>(qr + 16 * ks);
+        // the step's upper 8 columns, zero past D
         qa[ks][2 + h8] =
-            keep & *reinterpret_cast<const uint32_t*>(qr + 16 * ks + 8);
+            (D % 16 == 0 || ks < KS - 1)
+                ? keep & *reinterpret_cast<const uint32_t*>(qr + 16 * ks + 8)
+                : 0u;
       }
     }
   } else {
@@ -558,8 +591,9 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float f = r < R ? scale : 0.f;
 #pragma unroll
       for (int n = 0; n < NV; ++n) {
-        float x[VN];
-        unpack16(qr + (n * LPK + sub) * VN, x);
+        float x[VN] = {};
+        if (CH % LPK == 0 || n * LPK + sub < CH)
+          unpack16(qr + (n * LPK + sub) * VN, x);
 #pragma unroll
         for (int e = 0; e < VN; ++e) qreg[r][n * VN + e] = x[e] * f;
       }
@@ -572,7 +606,7 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     qhi = max(qhi, qp_s[r]);
   }
 
-  const int ch = tid % CH, rl = tid / CH;
+  const int ch = tid % CV, rl = tid / CV;
   float acc[RPT][VN];
 #pragma unroll
   for (int j = 0; j < RPT; ++j)
@@ -607,12 +641,12 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
       cp_async16(Ks + c * KLD + x * VN, k + off, s < s_end);
     }
     cp_async_commit();
-    for (int idx = tid; idx < kFdTile * CH; idx += kFdThreads) {
-      const int c = idx / CH, x = idx % CH, s = k0 + c;
+    for (int idx = tid; idx < kFdTile * CV; idx += kFdThreads) {
+      const int c = idx / CV, x = idx % CV, s = k0 + c;
       const size_t off =
-          ((static_cast<size_t>(b) * Skv + min(s, Skv - 1)) * K + kh) * D +
+          ((static_cast<size_t>(b) * Skv + min(s, Skv - 1)) * K + kh) * DV +
           x * VN;
-      cp_async16(Vs + c * D + x * VN, v + off, s < s_end);
+      cp_async16(Vs + c * DV + x * VN, v + off, s < s_end);
     }
     cp_async_commit();
     cp_async_wait<1>();  // K has landed; V may still be in flight
@@ -631,7 +665,9 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int ks = 0; ks < KS; ++ks)
         mma_bf16(c4, qa[ks],
                  *reinterpret_cast<const uint32_t*>(kr + 16 * ks),
-                 *reinterpret_cast<const uint32_t*>(kr + 16 * ks + 8));
+                 (D % 16 == 0 || ks < KS - 1)
+                     ? *reinterpret_cast<const uint32_t*>(kr + 16 * ks + 8)
+                     : 0u);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int r = g + 8 * (i >> 1), c = n0 + 2 * t4 + (i & 1);
@@ -655,6 +691,7 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int r = 0; r < kFdRows; ++r) sv[r] = 0.f;
 #pragma unroll
         for (int n = 0; n < NV; ++n) {
+          if (CH % LPK != 0 && n * LPK + sub >= CH) continue;  // idle lane
           float kx[VN];
           unpack16(Ks + c * KLD + (n * LPK + sub) * VN, kx);
 #pragma unroll
@@ -739,7 +776,7 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll 4
       for (int c = 0; c < kFdTile; ++c) {
         float vx[VN], pr[RPT];
-        unpack16(Vs + c * D + ch * VN, vx);
+        unpack16(Vs + c * DV + ch * VN, vx);
         load_rows<RPT>(Ss + c * kFdRows + rl * RPT, pr);
 #pragma unroll
         for (int j = 0; j < RPT; ++j)
@@ -757,7 +794,7 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (r < R) {
       const int g = (r0 + r) / Sq, sq = (r0 + r) % Sq;
       const size_t row = (static_cast<size_t>(b) * Sq + sq) * H + kh * G + g;
-      float* dst = part_acc + (row * splits + split) * D + ch * VN;
+      float* dst = part_acc + (row * splits + split) * DV + ch * VN;
 #pragma unroll
       for (int e = 0; e < VN; e += 4)
         *reinterpret_cast<float4*>(dst + e) =
@@ -848,14 +885,14 @@ flash_decode_combine_kernel(const float* __restrict__ part_ml,
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, int DV>
 int decode_launch(const void* q, const void* k, const void* v,
                   const void* qpos, const void* kvpos, void* part_ml,
                   void* part_acc, int B, int Sq, int Skv, int H, int K,
                   int groups, int per_split, int splits, int causal,
                   int window, float scale, cudaStream_t stream) {
-  constexpr int bytes = fd_smem_bytes<T, D>();
-  auto kern = flash_decode_kernel<T, D>;
+  constexpr int bytes = fd_smem_bytes<T, D, DV>();
+  auto kern = flash_decode_kernel<T, D, DV>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -873,23 +910,17 @@ template <typename T>
 int decode_by_dim(const void* q, const void* k, const void* v,
                   const void* qpos, const void* kvpos, void* part_ml,
                   void* part_acc, int B, int Sq, int Skv, int H, int K, int D,
-                  int groups, int per_split, int splits, int causal,
+                  int Dv, int groups, int per_split, int splits, int causal,
                   int window, float scale, cudaStream_t stream) {
-#define FD_CASE(DIM)                                                         \
-  case DIM:                                                                  \
-    return decode_launch<T, DIM>(q, k, v, qpos, kvpos, part_ml, part_acc, B, \
-                                 Sq, Skv, H, K, groups, per_split, splits,   \
-                                 causal, window, scale, stream);
-  switch (D) {
-    FD_CASE(16)
-    FD_CASE(32)
-    FD_CASE(64)
-    FD_CASE(128)
-    FD_CASE(256)
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+#define FD_CASE(DIM, DIMV)                                                  \
+  if (D == DIM && Dv == DIMV)                                               \
+    return decode_launch<T, DIM, DIMV>(q, k, v, qpos, kvpos, part_ml,       \
+                                       part_acc, B, Sq, Skv, H, K, groups,  \
+                                       per_split, splits, causal, window,   \
+                                       scale, stream);
+  FA_DIMS(FD_CASE)
 #undef FD_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <typename T, int D>
@@ -1578,14 +1609,14 @@ extern "C" {
 int launch_flash_simt(const void* q, const void* k, const void* v,
                       const void* qpos, const void* kvpos, void* out,
                       int dtype, int B, int Sq, int Skv, int H, int K, int D,
-                      int causal, int window, float scale,
+                      int Dv, int causal, int window, float scale,
                       cudaStream_t stream) {
   if (dtype == 0)
     return flash_by_dim<float>(q, k, v, qpos, kvpos, out, B, Sq, Skv, H, K,
-                               D, causal, window, scale, stream);
+                               D, Dv, causal, window, scale, stream);
   if (dtype == 1)
     return flash_by_dim<__nv_bfloat16>(q, k, v, qpos, kvpos, out, B, Sq, Skv,
-                                       H, K, D, causal, window, scale,
+                                       H, K, D, Dv, causal, window, scale,
                                        stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -1594,32 +1625,34 @@ int launch_flash_decode_combine(const void* part_ml, const void* part_acc,
                                 void* out, int dtype, int rows, int splits,
                                 int D, cudaStream_t stream);
 
-// q, k, v: dtype 0 float32, 1 bfloat16; part_ml (B, Sq, H, splits, 2) and
-// part_acc (B, Sq, H, splits, D) float32 scratch.  With out (B, Sq, H, D)
-// in q's dtype not null, the combine follows on the stream: one call from
-// the host for the pair, whose host time decode pays every step.
+// q, k (head dim D), v (head dim Dv): dtype 0 float32, 1 bfloat16;
+// part_ml (B, Sq, H, splits, 2) and part_acc (B, Sq, H, splits, Dv)
+// float32 scratch.  With out (B, Sq, H, Dv) in q's dtype not null, the
+// combine follows on the stream: one call from the host for the pair,
+// whose host time decode pays every step.
 int launch_flash_decode(const void* q, const void* k, const void* v,
                         const void* qpos, const void* kvpos, void* part_ml,
                         void* part_acc, void* out, int dtype, int B, int Sq,
-                        int Skv, int H, int K, int D, int groups,
+                        int Skv, int H, int K, int D, int Dv, int groups,
                         int per_split, int splits, int causal, int window,
                         float scale, cudaStream_t stream) {
   int err = static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
     err = decode_by_dim<float>(q, k, v, qpos, kvpos, part_ml, part_acc, B,
-                               Sq, Skv, H, K, D, groups, per_split, splits,
-                               causal, window, scale, stream);
+                               Sq, Skv, H, K, D, Dv, groups, per_split,
+                               splits, causal, window, scale, stream);
   if (dtype == 1)
     err = decode_by_dim<__nv_bfloat16>(q, k, v, qpos, kvpos, part_ml,
-                                       part_acc, B, Sq, Skv, H, K, D, groups,
-                                       per_split, splits, causal, window,
-                                       scale, stream);
+                                       part_acc, B, Sq, Skv, H, K, D, Dv,
+                                       groups, per_split, splits, causal,
+                                       window, scale, stream);
   if (err != 0 || out == nullptr) return err;
   return launch_flash_decode_combine(part_ml, part_acc, out, dtype,
-                                     B * Sq * H, splits, D, stream);
+                                     B * Sq * H, splits, Dv, stream);
 }
 
-// out: (rows, D) in dtype (0 float32, 1 bfloat16), rows = B * Sq * H
+// out: (rows, D) in dtype (0 float32, 1 bfloat16), rows = B * Sq * H; D
+// is the output's width, v's head dim
 int launch_flash_decode_combine(const void* part_ml, const void* part_acc,
                                 void* out, int dtype, int rows, int splits,
                                 int D, cudaStream_t stream) {

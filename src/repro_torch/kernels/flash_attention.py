@@ -2,8 +2,8 @@
 reference's ``kernels/flash_attention.py:flash_attention`` and its
 ``kernels/ops.py:flash_attention`` wrapper).
 
-Contract, in the model layout: q ``(B, Sq, H, D)``, k / v ``(B, Skv, K,
-Dv)`` with ``H = K * G``, query head ``h`` reading KV head ``h // G``;
+Contract, in the model layout: q ``(B, Sq, H, D)``, k ``(B, Skv, K, D)``,
+v ``(B, Skv, K, Dv)`` with ``H = K * G``, query head ``h`` reading KV head ``h // G``;
 ``q_positions (Sq,)`` and ``kv_positions (Skv,)`` int32.  Key ``s`` is
 visible to query ``i`` when ``kv_positions[s] >= 0`` (a written cache
 slot), and, if ``causal``, ``kv_positions[s] <= q_positions[i]``, and, if
@@ -12,18 +12,21 @@ of the reference's ``naive_attention``.  The TPU kernel's wrapper drops
 the positions and takes query ``i`` to sit at position ``i``, which is
 wrong in decode; the kernels here take them.  fp32 inside, masked scores
 at ``-1e30`` and the row sum floored at ``1e-30``, as in the TPU kernel.
-Output ``(B, Sq, H, Dv)`` in q's dtype.
+Output ``(B, Sq, H, Dv)`` in q's dtype.  ``(D, Dv)`` is one of
+:data:`HEAD_DIMS`: ``D == Dv`` for the GQA models, and MLA's ``nope +
+rope`` against ``v_head_dim`` (deepseek-v2-lite 192 / 128, its smoke
+config 24 / 16).
 
 Three designs on the card, chosen by shape (see ``csrc/model_kernels.cu``
 and ``csrc/attention_kernels.cu``):
 
-* decode, ``Sq <= DECODE_MAX_SQ``, fp32 or bf16, every head dim: a
+* decode, ``Sq <= DECODE_MAX_SQ``, fp32 or bf16, every pair of head dims: a
   split-KV kernel (``flash_decode``), one block per (batch, KV head, row
   group, KV split) serving all ``G * Sq`` query rows of its KV head, then
   a combine kernel (``flash_decode_combine``) over the splits' partial
   ``(m, l, acc)``; :func:`decode_plan` picks the split count and
   :func:`flash_decode_plain` runs the same algorithm in plain PyTorch;
-* prefill in bf16 at head dims :data:`PREFILL_DIMS`: ``flash_prefill``,
+* prefill in bf16 at the head dims :data:`PREFILL_DIMS`: ``flash_prefill``,
   both products on the tensor cores with ``wgmma`` (bf16 operands, fp32
   accumulators, the probabilities split into two bf16 parts);
 * the rest (fp32 prefill, bf16 prefill at D < 64): the SIMT kernel
@@ -44,7 +47,9 @@ from repro_torch.kernels import build
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ITEMSIZE = {"float32": 4, "bfloat16": 2}
-HEAD_DIMS = (16, 32, 64, 128, 256)
+# (D, Dv): q / k head dim, v head dim (FA_DIMS of csrc/model_kernels.cu)
+HEAD_DIMS = ((16, 16), (32, 32), (64, 64), (128, 128), (256, 256),
+             (24, 16), (192, 128))
 THREADS = 256   # kFaThreads of csrc/model_kernels.cu (SIMT)
 KV_TILE = 64    # kBK: keys the SIMT block stages per step
 Q_TILE = 64     # query rows of a SIMT block
@@ -59,7 +64,7 @@ SMS = 132               # streaming multiprocessors of an H100 SXM
 BLOCKS_WANTED = 3 * SMS  # about three split blocks resident per SM
 
 # the wgmma bf16 prefill kernel (kFp* of csrc/attention_kernels.cu)
-PREFILL_DIMS = (64, 128, 256)
+PREFILL_DIMS = ((64, 64), (128, 128), (256, 256), (192, 128))
 PREFILL_ROWS = 64       # kFpRows: query rows of a block (one warpgroup)
 PREFILL_KEYS = 64       # kFpKeys: keys of a K / V tile
 PREFILL_THREADS = 128   # kFpThreads: one warpgroup
@@ -141,14 +146,14 @@ def decode_split_plain(q, k, v, q_positions, kv_positions, *,
                        scale: Optional[float] = None):
     """The split kernel's partials in plain PyTorch, fp32, in its scratch
     layout: ``(part_ml (B, Sq, H, splits, 2), part_acc (B, Sq, H, splits,
-    D))``, each split's row max ``m`` and row sum ``l`` and unnormalised
+    Dv))``, each split's row max ``m`` and row sum ``l`` and unnormalised
     output ``acc`` over the tiles the position ranges do not rule out (a
     split with none: ``m = -1e30, l = 0, acc = 0``).  The kernel tests the
     ranges against its row group's queries, this against all ``Sq``: the
     two differ only on a row with no visible key, outside the contract's
     use."""
     B, Sq, H, D = q.shape
-    Skv, K = k.shape[1], k.shape[2]
+    Skv, K, Dv = k.shape[1], k.shape[2], v.shape[-1]
     G = H // K
     scale = scale if scale is not None else D ** -0.5
     _, per_split, splits = decode_plan(B, Sq, H, K, Skv)
@@ -156,7 +161,7 @@ def decode_split_plain(q, k, v, q_positions, kv_positions, *,
     n = splits * chunk
     qf = q.to(torch.float32).reshape(B, Sq, K, G, D) * scale
     kf = torch.zeros((B, n, K, D), dtype=torch.float32, device=q.device)
-    vf = torch.zeros_like(kf)
+    vf = torch.zeros((B, n, K, Dv), dtype=torch.float32, device=q.device)
     kf[:, :Skv], vf[:, :Skv] = k.to(torch.float32), v.to(torch.float32)
     kp = torch.full((n,), -1, dtype=kv_positions.dtype,
                     device=kv_positions.device)
@@ -176,9 +181,9 @@ def decode_split_plain(q, k, v, q_positions, kv_positions, *,
     p = torch.exp(s - m[..., None]) * keep
     acc = torch.einsum("bqkgtc,btckd->bqkgtd",
                        p.reshape(B, Sq, K, G, splits, chunk),
-                       vf.reshape(B, splits, chunk, K, D))
+                       vf.reshape(B, splits, chunk, K, Dv))
     part_ml = torch.stack([m, p.sum(dim=-1)], dim=-1)
-    return part_ml, acc.reshape(B, Sq, H, splits, D)
+    return part_ml, acc.reshape(B, Sq, H, splits, Dv)
 
 
 def decode_combine_plain(part_ml, part_acc, dtype) -> torch.Tensor:
@@ -228,9 +233,9 @@ def _check(q, k, v, q_positions, kv_positions):
             or k.shape[3] != D or H % K):
         raise ValueError(f"flash_attention: q {tuple(q.shape)} k "
                          f"{tuple(k.shape)} v {tuple(v.shape)}")
-    if D != Dv or D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dims {D}/{Dv}; the kernel "
-                         f"takes D == Dv in {HEAD_DIMS}")
+    if (D, Dv) not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dims {D}/{Dv}; the kernels "
+                         f"take (D, Dv) in {HEAD_DIMS}")
     if tuple(q_positions.shape) != (Sq,) or \
             tuple(kv_positions.shape) != (Skv,):
         raise ValueError(f"flash_attention: positions "
@@ -241,14 +246,14 @@ def _check(q, k, v, q_positions, kv_positions):
         raise ValueError("flash_attention: empty input")
 
 
-def design(Sq: int, D: int, dtype) -> str:
+def design(Sq: int, D: int, dtype, dv: Optional[int] = None) -> str:
     """The kernel :func:`flash_attention_cuda` runs for ``Sq`` queries at
-    head dim ``D`` in ``dtype``: ``flash_decode``, ``flash_prefill`` or
-    ``flash_simt``."""
+    head dims ``D`` (q, k) and ``dv`` (v; default ``D``) in ``dtype``:
+    ``flash_decode``, ``flash_prefill`` or ``flash_simt``."""
     if Sq <= DECODE_MAX_SQ:
         return "flash_decode"
     if str(dtype).removeprefix("torch.") == "bfloat16" and \
-            D in PREFILL_DIMS:
+            (D, D if dv is None else dv) in PREFILL_DIMS:
         return "flash_prefill"
     return "flash_simt"
 
@@ -256,21 +261,21 @@ def design(Sq: int, D: int, dtype) -> str:
 def decode_split(q, k, v, qp, kp, *, causal, window, scale, out=None):
     """Launch the split kernel: ``(part_ml, part_acc)``, the splits' fp32
     ``(m, l)`` pairs ``(B, Sq, H, splits, 2)`` and accumulators ``(B, Sq,
-    H, splits, D)``.  Given ``out`` (``(B, Sq, H, D)`` in q's dtype), the
+    H, splits, Dv)``.  Given ``out`` (``(B, Sq, H, Dv)`` in q's dtype), the
     same host call launches the combine into it as well."""
     B, Sq, H, D = q.shape
-    Skv, K = k.shape[1], k.shape[2]
+    Skv, K, Dv = k.shape[1], k.shape[2], v.shape[-1]
     groups, per_split, splits = decode_plan(B, Sq, H, K, Skv)
     n = B * Sq * H * splits
-    scratch = torch.empty(n * (D + 2), dtype=torch.float32, device=q.device)
-    part_acc = scratch[:n * D].view(B, Sq, H, splits, D)   # 16-B aligned
-    part_ml = scratch[n * D:].view(B, Sq, H, splits, 2)
+    scratch = torch.empty(n * (Dv + 2), dtype=torch.float32, device=q.device)
+    part_acc = scratch[:n * Dv].view(B, Sq, H, splits, Dv)   # 16-B aligned
+    part_ml = scratch[n * Dv:].view(B, Sq, H, splits, 2)
     build.launch("flash_decode", q.device, q.data_ptr(), k.data_ptr(),
                  v.data_ptr(), qp.data_ptr(), kp.data_ptr(),
                  part_ml.data_ptr(), part_acc.data_ptr(),
                  None if out is None else out.data_ptr(), _DTYPES[q.dtype],
-                 B, Sq, Skv, H, K, D, groups, per_split, splits, int(causal),
-                 int(window), float(scale))
+                 B, Sq, Skv, H, K, D, Dv, groups, per_split, splits,
+                 int(causal), int(window), float(scale))
     if out is not None:
         build.LAUNCHES["flash_decode_combine"] += 1
     return part_ml, part_acc
@@ -278,7 +283,7 @@ def decode_split(q, k, v, qp, kp, *, causal, window, scale, out=None):
 
 def decode_combine(part_ml, part_acc, dtype) -> torch.Tensor:
     """Launch the combine kernel over :func:`decode_split`'s partials:
-    the ``(B, Sq, H, D)`` output in ``dtype``."""
+    the ``(B, Sq, H, Dv)`` output in ``dtype``."""
     B, Sq, H, splits, D = part_acc.shape
     out = torch.empty((B, Sq, H, D), dtype=dtype, device=part_acc.device)
     build.launch("flash_decode_combine", part_acc.device,
@@ -291,16 +296,16 @@ def flash_attention_cuda(q, k, v, q_positions, kv_positions, *,
                          causal: bool = True, window: int = 0,
                          scale: Optional[float] = None) -> torch.Tensor:
     """Launch the kernel :func:`design` picks (fp32 or bf16 q/k/v of one
-    dtype, ``D == Dv`` in :data:`HEAD_DIMS`)."""
+    dtype, ``(D, Dv)`` in :data:`HEAD_DIMS`)."""
     _check(q, k, v, q_positions, kv_positions)
     B, Sq, H, D = q.shape
-    Skv, K = k.shape[1], k.shape[2]
+    Skv, K, Dv = k.shape[1], k.shape[2], v.shape[-1]
     scale = scale if scale is not None else D ** -0.5
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     qp = q_positions.to(torch.int32).contiguous()
     kp = kv_positions.to(torch.int32).contiguous()
-    kind = design(Sq, D, q.dtype)
-    out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+    kind = design(Sq, D, q.dtype, Dv)
+    out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
     if kind == "flash_decode":
         decode_split(q, k, v, qp, kp, causal=causal, window=window,
                      scale=scale, out=out)
@@ -309,10 +314,10 @@ def flash_attention_cuda(q, k, v, q_positions, kv_positions, *,
                 kp.data_ptr(), out.data_ptr())
         if kind == "flash_prefill":
             build.launch("flash_prefill", q.device, *args, B, Sq, Skv, H, K,
-                         D, int(causal), int(window), float(scale))
+                         D, Dv, int(causal), int(window), float(scale))
         else:
             build.launch("flash_simt", q.device, *args, _DTYPES[q.dtype], B,
-                         Sq, Skv, H, K, D, int(causal), int(window),
+                         Sq, Skv, H, K, D, Dv, int(causal), int(window),
                          float(scale))
     build.LAUNCHES["flash_attention"] += 1
     return out
@@ -320,41 +325,48 @@ def flash_attention_cuda(q, k, v, q_positions, kv_positions, *,
 
 # -- launch specs (what each C launcher does, for the tile lint) ----------
 
-def simt_smem(D: int) -> int:
-    """``fa_smem_bytes<64, D>()``: the q tile, the K and V tiles and the
-    probabilities, fp32, rows padded to ``D + 1``."""
-    return 4 * (Q_TILE * (D + 1) + 2 * KV_TILE * (D + 1)
+def simt_smem(D: int, dv: Optional[int] = None) -> int:
+    """``fa_smem_bytes<64, D, DV>()``: the q tile, the K and V tiles and
+    the probabilities, fp32, rows padded to ``D + 1`` (V: ``Dv + 1``)."""
+    dv = D if dv is None else dv
+    return 4 * (Q_TILE * (D + 1) + KV_TILE * (D + 1) + KV_TILE * (dv + 1)
                 + Q_TILE * (KV_TILE + 1))
 
 
-def decode_smem(D: int, dtype: str) -> int:
-    """``fd_smem_bytes<T, D>()``: the K tile (rows padded by 16 bytes)
-    and the V tile in ``dtype``, then the fp32 scores, ``m``, ``l``,
-    ``alpha``, the rows' and keys' positions and the tile's position range
-    (the q rows sit in registers)."""
-    return (2 * DECODE_TILE * D * _ITEMSIZE[dtype] + 16 * DECODE_TILE
+def decode_smem(D: int, dtype: str, dv: Optional[int] = None) -> int:
+    """``fd_smem_bytes<T, D, DV>()``: the K tile (rows padded by 16
+    bytes) and the V tile in ``dtype``, then the fp32 scores, ``m``,
+    ``l``, ``alpha``, the rows' and keys' positions and the tile's
+    position range (the q rows sit in registers)."""
+    dv = D if dv is None else dv
+    return (DECODE_TILE * (D + dv) * _ITEMSIZE[dtype] + 16 * DECODE_TILE
             + 4 * (DECODE_ROWS * DECODE_TILE + 4 * DECODE_ROWS
                    + DECODE_TILE + 2))
 
 
-def prefill_smem(D: int, Skv: int) -> int:
-    """``fp_smem_bytes(D, Skv)``: the bf16 Q, K and V tiles in 128-byte
-    swizzled 64-column blocks, 1024 bytes to align them, and one int per
-    key tile (run / masked / full)."""
-    return 3 * PREFILL_ROWS * D * 2 + 1024 + 4 * -(-Skv // PREFILL_KEYS)
+def prefill_smem(D: int, Skv: int, dv: Optional[int] = None) -> int:
+    """``fp_smem_bytes(D, DV, Skv)``: the bf16 Q, K (``D`` wide) and V
+    (``Dv`` wide) tiles in 128-byte swizzled 64-column blocks, 1024 bytes
+    to align them, and one int per key tile (run / masked / full)."""
+    dv = D if dv is None else dv
+    return PREFILL_ROWS * (2 * D + dv) * 2 + 1024 \
+        + 4 * -(-Skv // PREFILL_KEYS)
 
 
-def launch_spec(q_shape, k_shape, dtype: str = "float32"
-                ) -> build.LaunchSpec:
+def launch_spec(q_shape, k_shape, dtype: str = "float32",
+                dv: Optional[int] = None) -> build.LaunchSpec:
     """The launch of the kernel :func:`flash_attention_cuda` runs for q
-    ``(B, Sq, H, D)`` and k / v ``(B, Skv, K, D)`` of ``dtype`` (for
-    decode, the split kernel; :func:`combine_launch_spec` is the
-    second)."""
+    ``(B, Sq, H, D)``, k ``(B, Skv, K, D)`` and v ``(B, Skv, K, dv)``
+    (``dv`` default ``D``) of ``dtype`` (for decode, the split kernel;
+    :func:`combine_launch_spec` is the second)."""
     B, Sq, H, D = q_shape
     Skv, K = k_shape[1], k_shape[2]
+    dv = D if dv is None else dv
     G = H // K
-    kind = design(Sq, D, dtype)
+    kind = design(Sq, D, dtype, dv)
     kv = (B, Skv, K, D)
+    vv = (B, Skv, K, dv)
+    out = (B, Sq, H, dv)
     if kind == "flash_decode":
         groups, per_split, splits = decode_plan(B, Sq, H, K, Skv)
         chunk = per_split * DECODE_TILE
@@ -363,18 +375,18 @@ def launch_spec(q_shape, k_shape, dtype: str = "float32"
         return build.LaunchSpec(
             kernel="flash_decode", source=build.source("model_kernels"),
             function="flash_decode_kernel", grid=(splits, K * groups, B),
-            threads=DECODE_THREADS, smem=decode_smem(D, dtype),
+            threads=DECODE_THREADS, smem=decode_smem(D, dtype, dv),
             operands=(
                 build.Operand("q", tuple(q_shape), (1, Sq, rows // Sq, D),
                               dtype),
                 build.Operand("k", kv, (1, chunk, 1, D), dtype),
-                build.Operand("v", kv, (1, chunk, 1, D), dtype),
+                build.Operand("v", vv, (1, chunk, 1, dv), dtype),
                 build.Operand("q_positions", (Sq,), (Sq,), "int32"),
                 build.Operand("kv_positions", (Skv,), (chunk,), "int32"),
                 build.Operand("part_ml", part + (2,),
                               (1, Sq, rows // Sq, 1, 2), "float32"),
-                build.Operand("part_acc", part + (D,),
-                              (1, Sq, rows // Sq, 1, D), "float32")),
+                build.Operand("part_acc", part + (dv,),
+                              (1, Sq, rows // Sq, 1, dv), "float32")),
             accumulator="acc", template={"T": dtype},
             threads_of="kFdThreads",
             constants={"kFdThreads": DECODE_THREADS, "kFdRows": DECODE_ROWS,
@@ -383,23 +395,24 @@ def launch_spec(q_shape, k_shape, dtype: str = "float32"
         else (Q_TILE, KV_TILE)
     operands = (build.Operand("q", tuple(q_shape), (1, rows, 1, D), dtype),
                 build.Operand("k", kv, (1, keys, 1, D), dtype),
-                build.Operand("v", kv, (1, keys, 1, D), dtype),
+                build.Operand("v", vv, (1, keys, 1, dv), dtype),
                 build.Operand("q_positions", (Sq,), (rows,), "int32"),
                 build.Operand("kv_positions", (Skv,), (keys,), "int32"),
-                build.Operand("out", tuple(q_shape), (1, rows, 1, D), dtype))
+                build.Operand("out", out, (1, rows, 1, dv), dtype))
     grid = (-(-Sq // rows), H, B)
     if kind == "flash_prefill":
         return build.LaunchSpec(
             kernel="flash_prefill", source=build.source("attention_kernels"),
             function="flash_prefill_kernel", grid=grid,
-            threads=PREFILL_THREADS, smem=prefill_smem(D, Skv),
+            threads=PREFILL_THREADS, smem=prefill_smem(D, Skv, dv),
             operands=operands, accumulator="o", threads_of="kFpThreads",
             constants={"kFpThreads": PREFILL_THREADS, "kFpRows": rows,
                        "kFpKeys": keys})
     return build.LaunchSpec(
         kernel="flash_simt", source=build.source("model_kernels"),
         function="flash_attention_kernel", grid=grid, threads=THREADS,
-        smem=simt_smem(D), static_smem=4 * (KV_TILE + 2 * (KV_TILE // 32)),
+        smem=simt_smem(D, dv),
+        static_smem=4 * (KV_TILE + 2 * (KV_TILE // 32)),
         operands=operands, accumulator="acc", template={"T": dtype},
         threads_of="kFaThreads",
         constants={"kFaThreads": THREADS, "kBK": KV_TILE})
@@ -411,12 +424,13 @@ def combine_smem(splits: int) -> int:
     return 4 * (splits + 4 * COMBINE_THREADS + 2 * (COMBINE_THREADS // 32))
 
 
-def combine_launch_spec(q_shape, k_shape, dtype: str = "float32"
-                        ) -> build.LaunchSpec:
+def combine_launch_spec(q_shape, k_shape, dtype: str = "float32",
+                        dv: Optional[int] = None) -> build.LaunchSpec:
     """The combine launch of decode: one block per output row ``(b, sq,
-    h)``, its threads over the row's columns (a float4 each) and its
-    splits."""
+    h)``, its threads over the row's ``dv`` columns (a float4 each; ``dv``
+    default ``D``) and its splits."""
     B, Sq, H, D = q_shape
+    D = D if dv is None else dv
     Skv, K = k_shape[1], k_shape[2]
     splits = decode_plan(B, Sq, H, K, Skv)[2]
     rows = B * Sq * H

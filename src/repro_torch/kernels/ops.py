@@ -150,7 +150,11 @@ def kernel_lint_cases():
     at recurrentgemma-2b decode (B 4, 10 heads of 256 on one KV head, the
     2048-slot ring, bf16) and at lm100m decode (B 8, 12 heads of 64 on 4,
     fp32, a 640-slot cache: the 577 slots of the serve leave a ragged
-    last split); the wgmma bf16 prefill at head dims 64 and 256.  WKV6
+    last split); the wgmma bf16 prefill at head dims 64 and 256; and
+    MLA's q / k head dim against its v head dim, deepseek-v2-lite's
+    (192, 128) on all three designs (decode at B 4, 16 heads, a
+    1152-slot cache, bf16) and its smoke config's (24, 16) on the SIMT
+    and decode kernels.  WKV6
     takes 32 steps (two ring slots) of two heads of 64 (a cluster of four
     blocks each) and decode at batch 2; the RG-LRU 64 steps (two ring
     slots) of 128 channels (four blocks) and decode.
@@ -158,6 +162,9 @@ def kernel_lint_cases():
     pods, g, wq = 2, (4, 512), (2, 768, 12, 64)
     rg = ((4, 1, 10, 256), (4, 2048, 1, 256), "bfloat16")
     lm = ((8, 1, 12, 64), (8, 640, 4, 64), "float32")
+    mla = ((4, 1, 16, 192), (4, 1152, 16, 192), "bfloat16", 128)
+    mla_smoke = ((2, 1, 4, 24), (2, 64, 4, 24), "float32", 16)
+    mla_prefill = ((1, 128, 16, 192), (1, 128, 16, 192))
     return [
         ("quantize_int8", _qz.launch_spec("quantize_int8", g)),
         ("dequantize_int8", _qz.launch_spec("dequantize_int8", g)),
@@ -185,6 +192,15 @@ def kernel_lint_cases():
          _fa.launch_spec((1, 128, 4, 64), (1, 128, 2, 64), "bfloat16")),
         ("flash_prefill[D256]",
          _fa.launch_spec((1, 128, 2, 256), (1, 128, 1, 256), "bfloat16")),
+        ("flash_attention[D192/128]",
+         _fa.launch_spec(*mla_prefill, "float32", 128)),
+        ("flash_prefill[D192/128]",
+         _fa.launch_spec(*mla_prefill, "bfloat16", 128)),
+        ("flash_decode[mla]", _fa.launch_spec(*mla)),
+        ("flash_decode_combine[mla]", _fa.combine_launch_spec(*mla)),
+        ("flash_attention[D24/16]",
+         _fa.launch_spec((1, 128, 4, 24), (1, 128, 4, 24), "float32", 16)),
+        ("flash_decode[D24/16]", _fa.launch_spec(*mla_smoke)),
         ("wkv6", _wkv.launch_spec((1, 32, 2, 64), "bfloat16")),
         ("wkv6[decode]", _wkv.launch_spec((2, 1, 2, 64), "bfloat16")),
         ("rglru", _lru.launch_spec((1, 64, 128))),

@@ -39,8 +39,9 @@ pod's too (masked): a process that has truly died would need a
 re-rendezvous, which neither package has.  ``launch.placed_audit``'s
 elastic cases hold the placed resize against the never-resized rounds.
 
-The checkpoint-restart demo (the reference's ``run_demo``) needs the
-qwen3-8b smoke config and ``launch/steps.py``: ROADMAP queue 1 item 7.
+The checkpoint-restart demo (the reference's ``run_demo``) restores onto
+a smaller ``(data, model)`` mesh through tensor-parallel sharding, which
+one card does not have: ROADMAP queue 1 item 8.
 """
 from __future__ import annotations
 
@@ -893,10 +894,12 @@ def run_hermes_shrink_demo(n_pods: int = 4, drop: int = 1, seed: int = 0,
 
 def run_demo(*args, **kwargs) -> dict:
     """The reference's checkpoint-restart demo: restore a qwen3-8b smoke
-    model onto a smaller (data, model) mesh.  Not ported yet."""
+    model onto a smaller (data, model) mesh.  Not ported: the mesh is
+    tensor-parallel sharding (``dist/sharding.py``), which one card does
+    not have."""
     raise NotImplementedError(
-        "the checkpoint-restart demo needs the qwen3-8b smoke config and "
-        "launch/steps.py:build_setup: ROADMAP queue 1 item 7")
+        "the checkpoint-restart demo restores onto a smaller (data, model) "
+        "mesh through dist/sharding.py: ROADMAP queue 1 item 8")
 
 
 def main(argv=None) -> None:

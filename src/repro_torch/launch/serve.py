@@ -1,10 +1,13 @@
 """Batched serving: prefill a prompt batch, then decode greedily (the
 reference's ``launch/serve.py``).
 
-On a card, prefill and decode run attention through the flash-attention
-kernel, the RWKV6 time-mix through the WKV6 kernel and the RG-LRU through
-its kernel (``impl="kernel"``, ``rec_impl="kernel"``); on the CPU the
-same calls take the kernels' plain versions.
+On a card, prefill and decode run attention (GQA and MLA) through the
+flash-attention kernels, the RWKV6 time-mix through the WKV6 kernel and
+the RG-LRU through its kernel (``impl="kernel"``, ``rec_impl="kernel"``);
+on the CPU the same calls take the kernels' plain versions.  The MoE
+block takes ``moe_impl`` (auto: dense at 512 tokens or fewer, else
+sorted).  Parameters are fp32, as in the reference's ``serve``
+(``launch/steps.py`` holds them in bf16 instead).
 
     python -m repro_torch.launch.serve --preset lmtiny --device cpu
     python -m repro_torch.launch.serve --preset recurrentgemma-2b \
@@ -17,7 +20,9 @@ same calls take the kernels' plain versions.
         --prompt-len 2560 --gen 32
 
 ``--preset`` takes lm100m, lmtiny or a ported architecture's smoke
-configuration; ``--arch`` a ported architecture's published one.
+configuration; ``--arch`` a ported architecture's published one (the
+dense qwen3-8b, yi-6b, phi3-mini-3.8b, granite-34b; the MoE
+deepseek-v2-lite-16b and grok-1-314b; rwkv6-3b, recurrentgemma-2b).
 """
 from __future__ import annotations
 
@@ -54,8 +59,8 @@ def prompt_tokens(cfg: ModelConfig, batch: int, prompt_len: int,
 
 def serve(cfg: ModelConfig, *, batch: int, prompt_len: int, gen: int,
           seed: int = 0, device="cuda", impl: str = "kernel",
-          rec_impl: str = "kernel", params: Optional[Dict] = None,
-          keep_logits: bool = False) -> Dict:
+          rec_impl: str = "kernel", moe_impl: str = "auto",
+          params: Optional[Dict] = None, keep_logits: bool = False) -> Dict:
     """Prefill ``batch`` random prompts of ``prompt_len`` tokens, then
     decode ``gen`` tokens each by argmax.  ``params`` (a tree on
     ``device``) replaces the seeded init, which draws on ``device``.
@@ -69,7 +74,7 @@ def serve(cfg: ModelConfig, *, batch: int, prompt_len: int, gen: int,
                        device=dev)
     prompt = torch.from_numpy(prompt_tokens(cfg, batch, prompt_len,
                                             seed)).to(dev)
-    kw = dict(impl=impl, rec_impl=rec_impl)
+    kw = dict(impl=impl, rec_impl=rec_impl, moe_impl=moe_impl)
 
     with torch.no_grad():
         _sync(dev)
@@ -116,7 +121,7 @@ def main(argv=None) -> None:
                             "smoke configuration")
     which.add_argument("--arch", default=None,
                        help="a ported architecture's published "
-                            "configuration (rwkv6-3b, recurrentgemma-2b)")
+                            "configuration (e.g. qwen3-8b, rwkv6-3b)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=32)

@@ -1,0 +1,198 @@
+"""Step builders: train, prefill and decode (the reference's
+``launch/steps.py``).
+
+``make_*_setup`` returns a :class:`StepSetup`: the step function, the
+shapes and dtypes of its arguments (``arg_specs``, the counterpart of the
+reference's ``abstract_args``: built on the ``meta`` device, so nothing is
+allocated), ``init_state(seed)``, which builds the persistent state on the
+setup's device, and ``meta``.
+
+* train: ``step_fn(state, batch) -> (state, loss)``, the state
+  ``{"params", "opt", "step"}``.  With ``cfg.dtype == "bfloat16"`` the
+  parameters are bf16 and the optimizer keeps fp32 master weights;
+  ``parallel.microbatch > 1`` accumulates the gradient over that many
+  slices of the batch, one backward each;
+* prefill: ``step_fn(params, cache, batch) -> (logits, cache)``;
+* decode: ``step_fn(params, cache, tokens, pos) -> (logits, cache)``.
+  Serving holds the parameters in bf16 when ``cfg.dtype == "bfloat16"``
+  (the reference's ``_serve_param_state``) and the cache is
+  ``init_cache``'s, bf16; ``init_state`` returns ``(params, cache)``.
+
+The reference also derives sharding trees for its mesh from the
+parameters' logical axes, and ``abstract_init_lm`` evaluates the init
+without allocating; one card has no mesh to shard over, so neither has a
+counterpart here, and the MoE dispatch takes one token group
+(``_moe_groups`` is 1).  Tokens are int64, the index type of the port's
+embedding.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.config import (
+    ModelConfig, OptimizerConfig, ParallelConfig, ShapeConfig,
+)
+from repro_torch.models import lm as LM
+from repro_torch.optim.optimizers import make_optimizer
+from repro_torch.utils.trees import tree_flatten, tree_map, tree_unflatten
+
+Tree = Any
+META = torch.device("meta")
+
+
+class Spec(NamedTuple):
+    """The shape and dtype of one argument leaf."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
+@dataclasses.dataclass
+class StepSetup:
+    step_fn: Callable
+    arg_specs: Tuple            # a tree of Spec per positional argument
+    init_state: Callable[[int], Any]
+    meta: Dict[str, Any]
+
+
+def specs(tree: Tree) -> Tree:
+    """A tree of :class:`Spec`, a Python int (a step count) as an int32
+    scalar."""
+    return tree_map(lambda x: Spec((), torch.int32) if isinstance(x, int)
+                    else Spec(tuple(x.shape), x.dtype), tree)
+
+
+def _param_dtype(cfg: ModelConfig) -> torch.dtype:
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def _init_params(cfg: ModelConfig, seed: int, dev: torch.device):
+    """The parameters in the step's dtype, drawn on ``dev`` (a card draws
+    its own, so a model of billions never sits on the host)."""
+    return LM.init_lm(cfg, seed, dev, draw_on=None if dev.type != "cuda"
+                      else dev, dtype=_param_dtype(cfg))
+
+
+def _batch_specs(shape: ShapeConfig, targets: bool) -> Dict[str, Spec]:
+    B, S = shape.global_batch, shape.seq_len
+    out = {"tokens": Spec((B, S), torch.int64)}
+    if targets:
+        out["targets"] = Spec((B, S), torch.int64)
+    return out
+
+
+def _leaf_params(params: Tree) -> Tree:
+    """Leaf copies of the parameters that collect gradients."""
+    return tree_map(lambda x: x.detach().requires_grad_(True), params)
+
+
+def make_train_setup(cfg: ModelConfig, shape: ShapeConfig,
+                     parallel: ParallelConfig, opt_cfg: OptimizerConfig, *,
+                     impl: str = "blocked", moe_impl: str = "sorted",
+                     seed: int = 0, device="cuda") -> StepSetup:
+    dev = resolve_device(device)
+    optimizer = make_optimizer(opt_cfg, master_weights=(
+        cfg.dtype == "bfloat16" and cfg.param_dtype == "float32"))
+    mb = max(1, parallel.microbatch)
+
+    def build(seed: int, on: torch.device):
+        params = _init_params(cfg, seed, on)
+        return {"params": params, "opt": optimizer.init(params), "step": 0}
+
+    def train_step(state, batch):
+        params = _leaf_params(state["params"])
+        leaves, _ = tree_flatten(params)
+        kw = dict(impl=impl, moe_impl=moe_impl)
+        if mb <= 1:
+            loss = LM.lm_loss(params, batch, cfg, **kw)
+            grads = torch.autograd.grad(loss, leaves)
+        else:
+            # gradient accumulation: one backward a microbatch, so the
+            # activations held shrink by 1/mb; the loss is the mean
+            split = {k: v.reshape((mb, v.shape[0] // mb) + v.shape[1:])
+                     for k, v in batch.items()}
+            loss, grads = 0.0, None
+            for i in range(mb):
+                li = LM.lm_loss(params, {k: v[i] for k, v in split.items()},
+                                cfg, **kw) / mb
+                gi = torch.autograd.grad(li, leaves)
+                grads = gi if grads is None else tuple(
+                    a + b for a, b in zip(grads, gi))
+                loss = loss + li.detach()
+        _, treedef = tree_flatten(state["params"])
+        with torch.no_grad():
+            new_params, opt = optimizer.apply(
+                state["params"], tree_unflatten(treedef, list(grads)),
+                state["opt"])
+        return ({"params": new_params, "opt": opt,
+                 "step": state["step"] + 1}, loss.detach())
+
+    return StepSetup(
+        step_fn=train_step,
+        arg_specs=(specs(build(seed, META)), _batch_specs(shape, True)),
+        init_state=lambda seed=seed: build(seed, dev),
+        meta={"optimizer": optimizer, "microbatch": mb})
+
+
+def _serve_state(cfg: ModelConfig, shape: ShapeConfig, dev: torch.device,
+                 seed: int):
+    """``(params, cache)``: the parameters in bf16 when the model computes
+    in bf16, and ``init_cache``'s cache of ``seq_len`` slots."""
+    return (_init_params(cfg, seed, dev),
+            LM.init_cache(cfg, shape.global_batch, shape.seq_len,
+                          device=dev))
+
+
+def make_prefill_setup(cfg: ModelConfig, shape: ShapeConfig, *,
+                       impl: str = "blocked", moe_impl: str = "sorted",
+                       seed: int = 0, device="cuda") -> StepSetup:
+    dev = resolve_device(device)
+
+    def prefill(params, cache, batch):
+        with torch.no_grad():
+            return LM.prefill_step(params, cache, batch, cfg, impl=impl,
+                                   moe_impl=moe_impl)
+
+    params, cache = _serve_state(cfg, shape, META, seed)
+    return StepSetup(
+        step_fn=prefill,
+        arg_specs=(specs(params), specs(cache), _batch_specs(shape, False)),
+        init_state=lambda seed=seed: _serve_state(cfg, shape, dev, seed),
+        meta={})
+
+
+def make_decode_setup(cfg: ModelConfig, shape: ShapeConfig, *,
+                      impl: str = "auto", moe_impl: str = "sorted",
+                      seed: int = 0, device="cuda") -> StepSetup:
+    dev = resolve_device(device)
+
+    def decode(params, cache, tokens, pos):
+        with torch.no_grad():
+            return LM.decode_step(params, cache, tokens, int(pos), cfg,
+                                  impl=impl, moe_impl=moe_impl)
+
+    params, cache = _serve_state(cfg, shape, META, seed)
+    return StepSetup(
+        step_fn=decode,
+        arg_specs=(specs(params), specs(cache),
+                   Spec((shape.global_batch, 1), torch.int64),
+                   Spec((), torch.int32)),
+        init_state=lambda seed=seed: _serve_state(cfg, shape, dev, seed),
+        meta={})
+
+
+def build_setup(kind: str, cfg: ModelConfig, shape: ShapeConfig,
+                parallel: Optional[ParallelConfig] = None,
+                opt_cfg: Optional[OptimizerConfig] = None,
+                **kw) -> StepSetup:
+    if kind == "train":
+        return make_train_setup(cfg, shape, parallel or ParallelConfig(),
+                                opt_cfg or OptimizerConfig(), **kw)
+    if kind == "prefill":
+        return make_prefill_setup(cfg, shape, **kw)
+    if kind == "decode":
+        return make_decode_setup(cfg, shape, **kw)
+    raise KeyError(kind)

@@ -67,12 +67,12 @@ def _preset(name: str) -> ModelConfig:
         return ModelConfig(
             name="lm100m", family=FAMILY_DENSE, num_layers=12, d_model=768,
             num_heads=12, num_kv_heads=4, d_ff=2048, vocab_size=32000,
-            qk_norm=True, dtype="float32")
+            qk_norm=True, remat=False, dtype="float32")
     if name == "lmtiny":
         return ModelConfig(
             name="lmtiny", family=FAMILY_DENSE, num_layers=2, d_model=64,
             num_heads=4, num_kv_heads=2, d_ff=128, vocab_size=512,
-            dtype="float32")
+            remat=False, dtype="float32")
     return get_smoke_config(name)
 
 

@@ -1,5 +1,5 @@
-"""GQA attention and its KV caches (the reference's ``models/attention.py``,
-GQA path).
+"""GQA attention, Multi-head Latent Attention (MLA) and their caches (the
+reference's ``models/attention.py``).
 
 ``naive`` materialises the (Sq, Skv) scores, ``blocked`` is the
 flash-style online softmax over KV chunks in plain PyTorch, and ``auto``
@@ -19,6 +19,16 @@ and the projections ``wq (d, H, hd)``, ``wk/wv (d, K, hd)``,
 ``wo (H, hd, d)``.  Decode caches are updated in place (the reference
 returns new arrays): ``decode_attention`` writes the new keys and values
 into the cache it is given and returns that same dict.
+
+MLA (DeepSeek-V2): full-rank queries ``wq (d, H, nope + rope)``; keys and
+values from a ``kv_lora_rank`` latent (``w_dkv``, RMS-normed by
+``kv_norm``, expanded by ``w_uk (r, H, nope)`` and ``w_uv (r, H, vd)``)
+and one RoPE key ``w_kr (d, rope)`` shared by the heads.  Attention runs
+at ``D = nope + rope`` against ``Dv = vd`` with the scale ``D^-0.5``,
+through ``attention_impl``, so ``impl="kernel"`` reaches the flash
+kernels at ``(D, Dv)`` (192 / 128 at deepseek-v2-lite).  Its cache holds
+the latent and the RoPE key per position (``init_mla_cache``), expanded
+to per-head keys and values at every step, as the reference does.
 """
 from __future__ import annotations
 
@@ -226,3 +236,111 @@ def decode_attention(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
                              impl=impl)
     out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
     return out, cache
+
+
+# ---------------------------------------------------------------------------
+# Multi-head Latent Attention (DeepSeek-V2)
+# ---------------------------------------------------------------------------
+
+def init_mla(cfg: ModelConfig, gen: torch.Generator,
+             device) -> Dict[str, torch.Tensor]:
+    """The reference's tree, drawn in its order: ``wq``, ``w_dkv``,
+    ``w_kr``, ``w_uk``, ``w_uv``, ``wo``; ``kv_norm`` ones."""
+    m = cfg.mla
+    d, H = cfg.d_model, cfg.num_heads
+    nope = cfg.resolved_head_dim
+    vd = m.v_head_dim or nope
+    r = m.kv_lora_rank
+    p = {"wq": dense_init(gen, (d, H, nope + m.rope_head_dim), device),
+         "w_dkv": dense_init(gen, (d, r), device),
+         "w_kr": dense_init(gen, (d, m.rope_head_dim), device),
+         "kv_norm": torch.ones((r,), device=device)}
+    p["w_uk"] = dense_init(gen, (r, H, nope), device)
+    p["w_uv"] = dense_init(gen, (r, H, vd), device)
+    p["wo"] = dense_init(gen, (H, vd, d), device)
+    return p
+
+
+def _mla_qkv(p, x, cfg: ModelConfig, positions):
+    """``(q_nope, q_rope, c_kv, k_rope)`` of x ``(B, S, d)``: the queries'
+    two parts (RoPE on the second), the normed latent and the RoPE key."""
+    dt = x.dtype
+    nope = cfg.resolved_head_dim
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    c_kv = rms_norm(x @ p["w_dkv"].to(dt), p["kv_norm"])
+    k_rope = x @ p["w_kr"].to(dt)
+    k_rope = apply_rope(k_rope[:, :, None, :], positions,
+                        cfg.rope_theta)[:, :, 0, :]
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def _mla_expand(p, c_kv, k_rope, dt):
+    """The latent ``(B, S, r)`` and RoPE key ``(B, S, rope)`` expanded to
+    per-head keys ``(B, S, H, nope + rope)`` and values ``(B, S, H,
+    vd)``."""
+    k_nope = torch.einsum("bsr,rhk->bshk", c_kv, p["w_uk"].to(dt))
+    v = torch.einsum("bsr,rhk->bshk", c_kv, p["w_uv"].to(dt))
+    kr = k_rope[:, :, None, :].expand(k_rope.shape[:2] + (k_nope.shape[2],
+                                                          k_rope.shape[-1]))
+    return torch.cat([k_nope, kr], dim=-1), v
+
+
+def _mla_scale(cfg: ModelConfig) -> float:
+    return (cfg.resolved_head_dim + cfg.mla.rope_head_dim) ** -0.5
+
+
+def apply_mla(p, x: torch.Tensor, cfg: ModelConfig, *,
+              positions: torch.Tensor, impl: str = "auto") -> torch.Tensor:
+    """Full-sequence causal MLA.  x: (B, S, d)."""
+    dt = x.dtype
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, x, cfg, positions)
+    k, v = _mla_expand(p, c_kv, k_rope, dt)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    out = attention_impl(q, k, v, causal=True, q_positions=positions,
+                         impl=impl, scale=_mla_scale(cfg))
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dt))
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+                   dtype=torch.bfloat16,
+                   device="cuda") -> Dict[str, torch.Tensor]:
+    """The latent ``c_kv (B, max_len, r)``, the RoPE key ``k_rope (B,
+    max_len, rope)`` and each slot's position (-1 unwritten), on the card
+    unless ``device`` names the CPU."""
+    device = resolve_device(device)
+    m = cfg.mla
+    return {
+        "c_kv": torch.zeros((batch, max_len, m.kv_lora_rank), dtype=dtype,
+                            device=device),
+        "k_rope": torch.zeros((batch, max_len, m.rope_head_dim),
+                              dtype=dtype, device=device),
+        "pos": torch.full((max_len,), -1, dtype=torch.int32, device=device),
+    }
+
+
+def decode_mla(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
+               cfg: ModelConfig, *, pos: int, impl: str = "auto"):
+    """Stateful MLA: x (B, T, d) from absolute position ``pos`` (T > 1 is
+    prefill).  Writes the latent and RoPE key of the T positions into
+    the cache in place, then attends over every slot of it.  Returns
+    ``(out, cache)``."""
+    dt = x.dtype
+    T = x.shape[1]
+    positions = torch.arange(pos, pos + T, dtype=torch.int32,
+                             device=x.device)
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, x, cfg, positions)
+    ckv, ckr, cpos = cache["c_kv"], cache["k_rope"], cache["pos"]
+    if pos + T > ckv.shape[1]:
+        raise ValueError(f"decode_mla: {T} positions from {pos} overrun a "
+                         f"{ckv.shape[1]}-slot cache")
+    ckv[:, pos:pos + T] = c_kv.to(ckv.dtype)
+    ckr[:, pos:pos + T] = k_rope.to(ckr.dtype)
+    cpos[pos:pos + T] = positions
+    k, v = _mla_expand(p, ckv.to(dt), ckr.to(dt), dt)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    out = attention_impl(q, k, v, causal=True, q_positions=positions,
+                         kv_positions=cpos, impl=impl,
+                         scale=_mla_scale(cfg))
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dt)), cache

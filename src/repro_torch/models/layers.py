@@ -28,8 +28,11 @@ def dense_init(gen: torch.Generator, shape: Sequence[int], device,
                scale: Optional[float] = None) -> torch.Tensor:
     """Normal * 1/sqrt(fan_in), with the reference's fan-in rule: a 3-D
     leaf takes ``shape[1]`` (so ``wq (d, H, hd)`` is scaled by 1/sqrt(H)).
-    Drawn from ``gen`` on ``gen``'s device, then moved to ``device``."""
+    Drawn from ``gen`` on ``gen``'s device, then moved to ``device``; on
+    the ``meta`` device, shapes alone (nothing is drawn)."""
     shape = tuple(shape)
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=torch.float32, device="meta")
     fan_in = shape[0] if len(shape) >= 2 else max(shape[0], 1)
     if len(shape) == 3:
         fan_in = shape[1]

@@ -21,50 +21,56 @@ def _children(t):
     return sorted(t.items()) if isinstance(t, dict) else enumerate(t)
 
 
+# The recursions below are module-level functions that take their
+# accumulator as an argument: a nested function that calls itself is a
+# reference cycle, which would keep every leaf it collected alive until
+# the garbage collector runs (gigabytes, for a model's layers).
+
+def _flatten(t, leaves: List[Any]):
+    if isinstance(t, dict):
+        return {k: _flatten(t[k], leaves) for k in sorted(t)}
+    if isinstance(t, list):
+        return [_flatten(x, leaves) for x in t]
+    leaves.append(t)
+    return None
+
+
 def tree_flatten(tree: Tree) -> Tuple[List[Any], Treedef]:
     """Leaves in JAX's depth-first order, plus a structure token."""
     leaves: List[Any] = []
+    treedef = _flatten(tree, leaves)
+    return leaves, treedef
 
-    def rec(t):
-        if isinstance(t, dict):
-            return {k: rec(t[k]) for k in sorted(t)}
-        if isinstance(t, list):
-            return [rec(x) for x in t]
-        leaves.append(t)
-        return None
 
-    return leaves, rec(tree)
+def _unflatten(d, it):
+    if d is None:
+        return next(it)
+    if isinstance(d, list):
+        return [_unflatten(v, it) for v in d]
+    return {k: _unflatten(v, it) for k, v in d.items()}
 
 
 def tree_unflatten(treedef: Treedef, leaves: List[Any]) -> Tree:
     it = iter(leaves)
-
-    def rec(d):
-        if d is None:
-            return next(it)
-        if isinstance(d, list):
-            return [rec(v) for v in d]
-        return {k: rec(v) for k, v in d.items()}
-
-    out = rec(treedef)
+    out = _unflatten(treedef, it)
     if next(it, None) is not None:
         raise ValueError("more leaves than the tree structure holds")
     return out
+
+
+def _up_to(d, t, out: List[Any]) -> None:
+    if d is None:
+        out.append(t)
+    else:
+        for k, v in _children(d):
+            _up_to(v, t[k], out)
 
 
 def flatten_up_to(treedef: Treedef, tree: Tree) -> List[Any]:
     """The subtrees of ``tree`` at the leaf positions of ``treedef`` (e.g.
     one payload dict per parameter leaf), in leaf order."""
     out: List[Any] = []
-
-    def rec(d, t):
-        if d is None:
-            out.append(t)
-        else:
-            for k, v in _children(d):
-                rec(v, t[k])
-
-    rec(treedef, tree)
+    _up_to(treedef, tree, out)
     return out
 
 

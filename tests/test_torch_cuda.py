@@ -586,6 +586,50 @@ def test_flash_attention_kernel_matches_plain(card, case, dtype):
     assert build.LAUNCHES[design(Sq, D, dtype)] >= 1
 
 
+# MLA's head dims, v narrower than q and k: (B, Sq, Skv, H, K, D, Dv,
+# q_start, written), causal, with the scale MLA passes, (nope + rope)^-0.5
+# = D^-0.5.  deepseek-v2-lite's (192, 128): decode at Sq 1 and 16 on its
+# 1057-slot serving cache, prefill with ragged tiles and into a longer
+# cache; its smoke config's (24, 16): decode and prefill.
+MLA_CASES = [
+    (4, 1, 1057, 16, 16, 192, 128, 1024, 1025),
+    (2, 16, 1057, 16, 16, 192, 128, 1000, 1016),
+    (2, 150, 150, 4, 4, 192, 128, 0, None),
+    (1, 100, 160, 2, 2, 192, 128, 0, 100),
+    (2, 1, 40, 4, 4, 24, 16, 30, 31),
+    (2, 37, 37, 4, 4, 24, 16, 0, None),
+    (1, 16, 70, 4, 2, 24, 16, 40, 56),
+]
+
+
+@pytest.mark.parametrize("case", MLA_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_mla_dims_match_plain(card, case, dtype):
+    B, Sq, Skv, H, K, D, Dv, q_start, written = case
+    gen = torch.Generator(device=card).manual_seed(11)
+    q, k, v = (torch.randn(shape, generator=gen, device=card).to(dtype)
+               for shape in ((B, Sq, H, D), (B, Skv, K, D), (B, Skv, K, Dv)))
+    qpos = torch.arange(q_start, q_start + Sq, dtype=torch.int32,
+                        device=card)
+    kvpos = torch.arange(Skv, dtype=torch.int32, device=card)
+    if written is not None:
+        kvpos[written:] = -1
+    kw = dict(causal=True, scale=D ** -0.5)
+    build.reset_launches()
+    got = flash_attention_cuda(q, k, v, qpos, kvpos, **kw)
+    want = flash_attention_plain(q, k, v, qpos, kvpos, **kw)
+    assert got.dtype == dtype and got.shape == (B, Sq, H, Dv)
+    # as test_flash_attention_kernel_matches_plain: fp32 sums in another
+    # order; bf16 one rounding of one fp32 result, one bf16 ulp apart
+    tol = 2e-5 if dtype == torch.float32 else 2 ** -7
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=tol)
+    kind = design(Sq, D, dtype, Dv)
+    assert build.LAUNCHES[kind] == 1
+    if kind == "flash_decode":
+        assert build.LAUNCHES["flash_decode_combine"] == 1
+
+
 # rwkv6-3b decode (4, 1, 40, 64) and a full prefill head count at short T
 # (1, 256, 40, 64); T that are not multiples of the 16-step ring slot (37,
 # 70, 33, 50); decode and prefill at D 16 (a cluster of one) and D 128 (a
@@ -707,6 +751,8 @@ def test_model_kernel_wrappers_check_inputs_and_count_launches(card):
             with pytest.raises(ValueError, match="head dims"):
                 flash_attention_cuda(a[..., :48], b_[..., :48], c[..., :48],
                                      pp, pp)
+            with pytest.raises(ValueError, match="head dims"):
+                flash_attention_cuda(a, b_, c[..., :32], pp, pp)
             with pytest.raises(TypeError):
                 flash_attention_cuda(a.half(), b_.half(), c.half(), pp, pp)
             with pytest.raises(TypeError):

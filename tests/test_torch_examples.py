@@ -2,7 +2,8 @@
 ``examples/`` on the CPU: the two Level-A examples at the parity settings
 of ``tests/study_parity.py`` (their printout and report equal), and
 ``multi_pod_hermes`` (the single trainer, then Hermes at lmtiny) with both
-trainers cut to 16 steps and started from one model."""
+trainers cut to 16 steps and started from one model, and ``serve_decode``
+(the three smoke configs served)."""
 import json
 import re
 
@@ -14,7 +15,7 @@ from repro.models import init_lm as jinit_lm
 
 import study_parity as sp
 from repro_torch.examples import (
-    multi_pod_hermes, quickstart, train_hermes_cluster,
+    multi_pod_hermes, quickstart, serve_decode, train_hermes_cluster,
 )
 
 from torch_parity import jax_noise
@@ -98,3 +99,16 @@ def test_multi_pod_hermes_matches_reference(monkeypatch, capsys):
     heads = [re.sub(r"\n.*", "", t) for t in (want, got)]
     assert heads[0] == heads[1] == \
         "== dense baseline (every-step sync semantics) =="
+
+
+def test_serve_decode_examples_run(capsys):
+    """Both packages' ``serve_decode.py`` on the CPU: the three smoke
+    configs served in the same order (timings differ)."""
+    sp.load_reference("examples/serve_decode.py").main()
+    want = capsys.readouterr().out.splitlines()
+    serve_decode.main(["--device", "cpu"])
+    got = capsys.readouterr().out.splitlines()
+    assert [line.split()[0] for line in got] == \
+        [line.split()[0] for line in want] == \
+        ["qwen3-8b", "rwkv6-3b", "recurrentgemma-2b"]
+    assert all("tok/s" in line for line in got)

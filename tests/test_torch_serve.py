@@ -34,7 +34,7 @@ from repro.models import prefill_step as jprefill_step
 
 from repro_torch import bridge
 from repro_torch.config import (
-    FAMILY_AUDIO, FAMILY_MOE, FAMILY_SSM, FAMILY_VLM, RecurrentConfig,
+    FAMILY_AUDIO, FAMILY_SSM, FAMILY_VLM, RecurrentConfig,
 )
 from repro_torch.configs import get_config
 from repro_torch.launch.serve import prompt_tokens, serve
@@ -285,15 +285,18 @@ def test_port_tree_and_count_match_reference_hybrid():
          for x in tree_flatten(tc)[0]]
 
 
-@pytest.mark.parametrize("family,recurrent", [
-    (FAMILY_MOE, None), (FAMILY_AUDIO, None), (FAMILY_VLM, None),
-    # Hawk, the attention-free RG-LRU stack: the hybrid's blocks without
-    # its pattern
-    (FAMILY_SSM, RecurrentConfig(kind="rglru")),
+@pytest.mark.parametrize("change", [
+    dict(family=FAMILY_AUDIO), dict(family=FAMILY_VLM),
+    # the encoder-decoder and the vision frontend (ROADMAP queue 1 item 7)
+    dict(family=FAMILY_AUDIO, is_encoder_decoder=True,
+         num_encoder_layers=2),
+    dict(family=FAMILY_VLM, frontend="vision", frontend_tokens=4),
+    # an RG-LRU config without a pattern (the reference builds RWKV6
+    # blocks for it)
+    dict(family=FAMILY_SSM, recurrent=RecurrentConfig(kind="rglru")),
 ])
-def test_unported_families_raise(family, recurrent):
-    cfg = dataclasses.replace(tpreset("lmtiny"), family=family,
-                              recurrent=recurrent)
+def test_unported_families_raise(change):
+    cfg = dataclasses.replace(tpreset("lmtiny"), **change)
     cfg.validate()
     params = lm.init_lm(tpreset("lmtiny"), 0, CPU)
     cache = lm.init_cache(tpreset("lmtiny"), 1, 4, device="cpu")

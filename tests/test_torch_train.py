@@ -11,11 +11,13 @@ import torch
 import jax
 
 from repro.config import HermesConfig as JHermesConfig
+from repro.data.synthetic import make_lm_dataset as jmake_lm_dataset
 from repro.config import OptimizerConfig as JOptimizerConfig
 from repro.launch import train as jtrain
 from repro.models import init_lm as jinit_lm
 
 from repro_torch.config import HermesConfig, OptimizerConfig
+from repro_torch.data.synthetic import make_lm_dataset
 from repro_torch.launch import train as ttrain
 
 from torch_parity import jax_noise
@@ -49,6 +51,18 @@ def test_train_hermes_matches_reference_on_lmtiny(compression):
                                rtol=1e-4)
     np.testing.assert_allclose(got["pod_losses"], want["pod_losses"],
                                rtol=1e-4)
+
+
+@pytest.mark.parametrize("n,vocab,seed", [
+    (1, 512, 0), (5000, 512, 1), (3000, 32000, 2),
+    # past one block of drawn doubles
+    (70000, 50, 3)])
+def test_lm_dataset_is_the_reference_stream(n, vocab, seed):
+    """The blocked draws give the reference's per-token loop bit for bit."""
+    got = make_lm_dataset(n, vocab, seed=seed)
+    want = jmake_lm_dataset(n, vocab, seed=seed)
+    assert got.dtype == want.dtype == np.int32
+    np.testing.assert_array_equal(got, want)
 
 
 def test_train_hermes_default_device_needs_a_card():

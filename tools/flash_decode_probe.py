@@ -59,7 +59,7 @@ def main() -> None:
                         "flash_decode", dev, q.data_ptr(), k.data_ptr(),
                         v.data_ptr(), qp.data_ptr(), kp.data_ptr(),
                         scratch[n * D:].data_ptr(), scratch.data_ptr(), None,
-                        fa._DTYPES[dt], B, 1, Skv, H, K, D, groups,
+                        fa._DTYPES[dt], B, 1, Skv, H, K, D, D, groups,
                         per_split, splits, 1, 2048, D ** -0.5)
 
                 row.append(f"{per_split} tiles x {splits} splits "
