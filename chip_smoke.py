@@ -2,8 +2,8 @@
 """Drive the PyTorch port's main paths on one NVIDIA card: the Hermes
 trainer, serving, the Level-A cluster simulator, the single trainer with
 its checkpoints, the paper's studies, the fleet engine, the two-tier
-round with the placed gather, elastic membership, and the model zoo with
-MoE and MLA.
+round with the placed gather, elastic membership, the model zoo with MoE
+and MLA, and the encoder-decoder and the vision frontend.
 
     python3 chip_smoke.py
 
@@ -152,7 +152,28 @@ Phases (any failure raises and the script exits nonzero):
     versions; (c) qwen3-8b served at full width through ``launch.serve``
     (36 ``flash_prefill`` launches); (d) the bf16 train setup with fp32
     master weights at dsv2-smoke, 8 steps reducing the loss;
-15. a ``kernels`` JSON line, the ``nvidia-smi`` line, and the result line.
+15. the encoder-decoder and the vision frontend: (a) flash attention at
+    seamless-m4t-large-v2's non-causal bf16 encoder prefill (D 64, B 4,
+    1024 x 1024, 16 heads on 16) and its cross decode (Sq 1 over 1024
+    encoder keys), and at llava-next-34b's G 7, D 128 (56 heads on 8)
+    prefill (B 2, 1024 queries, and the serve's 6144 timed alone) and
+    decode (Sq 1 over a 6176-slot cache), each against its plain version
+    and timed beside SDPA with the same mask (``flash_attention[encdec]``
+    and ``[vlm]`` in the ``kernels`` line); (b) seamless-m4t-large-v2 at
+    full width and depth through ``launch.serve`` (1,632,253,952 fp32
+    parameters drawn on the card, bf16 compute, batch 4, 1024 frames, 32
+    new tokens), with the launch counters zeroed just before and read
+    just after (24 ``flash_prefill``, 1584 decode and 1584 combine), then
+    every encoder block and every decoder block at the BOS step held
+    against the plain attention on the same input; (c) llava-next-34b at
+    full width, 16 of its 60 layers, through the prefill and decode
+    setups (bf16 parameters drawn on the card, batch 2, 2880 patch
+    embeddings + 3264 tokens, 32 new tokens into a 6176-slot cache; 16
+    ``flash_prefill``, 512 decode and 512 combine; the whole process's
+    peak held to 40 GB), the first and last layers' attention held to
+    fp64; (d) the bf16 train setup at seamless-smoke and llava-smoke, 8
+    steps each reducing the loss;
+16. a ``kernels`` JSON line, the ``nvidia-smi`` line, and the result line.
 
 It needs the repository's ``src/`` beside it and imports neither JAX nor
 the JAX package.
@@ -2158,15 +2179,115 @@ def elastic(torch, dev, results) -> None:
     log(f"[13] phase wall {time.perf_counter() - t_phase:.1f} s")
 
 
+def by_kv_head(torch, fn, q, k, v, *args, **kw):
+    """``fn(q, k, v, *args, **kw)`` one KV head at a time (KV head j's keys
+    and values with its query heads ``[G j, G j + G)``), the outputs
+    joined on the head axis: for shapes whose scores over all heads at
+    once would not fit the card (llava's 6144-query prefill, B 2: 17 GB
+    of fp32 scores over its 56 heads, 2.1 GB over one KV head's 7)."""
+    G = q.shape[2] // k.shape[2]
+    return torch.cat([fn(q[:, :, j * G:(j + 1) * G], k[:, :, j:j + 1],
+                         v[:, :, j:j + 1], *args, **kw)
+                      for j in range(k.shape[2])], dim=2)
+
+
+def flash_case(torch, dev, gen, label, B, Sq, H, K, D, Dv, q0, kvpos, dt,
+               causal=True):
+    """One flash attention case on the design the wrapper picks: q ``(B, Sq,
+    H, D)`` from position ``q0`` over k / v ``(B, Skv, K, D / Dv)`` at
+    ``kvpos`` (-1 unwritten), random N(0, 1) in ``dt``; held against the
+    plain version (one KV head at a time where its fp32 scores over all
+    heads pass 4 GiB), then timed (``device_ms``, the wall of
+    back-to-back calls) beside the plain version, called as it was held,
+    and one SDPA call with the same boolean mask; returns the ``kernels``
+    entry."""
+    from repro_torch.kernels.flash_attention import (
+        design, flash_attention_cuda, flash_attention_plain, visible)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    bf16 = torch.bfloat16
+    Skv = kvpos.numel()
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dt)
+               for shape in ((B, Sq, H, D), (B, Skv, K, D), (B, Skv, K, Dv)))
+    qpos = torch.arange(q0, q0 + Sq, dtype=torch.int32, device=dev)
+    kw = dict(causal=causal, scale=D ** -0.5)
+    kind = design(Sq, D, dt, Dv)
+    got = flash_attention_cuda(q, k, v, qpos, kvpos, **kw)
+    torch.cuda.synchronize()
+
+    def plain():
+        if B * H * Sq * Skv * 4 <= 2 ** 32:
+            return flash_attention_plain(q, k, v, qpos, kvpos, **kw)
+        return by_kv_head(torch, flash_attention_plain, q, k, v, qpos,
+                          kvpos, **kw)
+    want = plain()
+    gap = (got.float() - want.float()).abs()
+    err = float(gap.max())
+    # as phase 6: fp32 sums in another order (2e-5 is ~100 fp32 ulps of
+    # these means of N(0, 1) values); bf16 one rounding of one fp32
+    # result on each side, one bf16 ulp apart
+    tol = 2e-5 + (2 ** -7 * want.float().abs() if dt == bf16 else 0)
+    if bool((gap > tol).any()):
+        raise AssertionError(f"flash {label} [{kind}]: max abs err "
+                             f"{err} against its plain version")
+    del want, gap
+    torch.cuda.empty_cache()
+    plain_ms = time_ms(torch, plain, reps=3, warmup=1)
+    if got.shape != (B, Sq, H, Dv) or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"flash {label} [{kind}]: shape "
+                             f"{tuple(got.shape)} or not finite")
+    # without a causal or window term the mask is one row: broadcast it
+    mask = visible(qpos, kvpos, causal=causal, window=0).expand(Sq, Skv)
+    pairs = int(mask.sum())
+    flops = 2 * B * H * pairs * (D + Dv)
+    # the keys and values this run's data needs: the slots some query sees
+    # (seamless's self decode: 33 written of 1057)
+    seen = int(mask.any(0).sum())
+    moved = (q.numel() + got.numel() + B * seen * K * (D + Dv)) \
+        * q.element_size() + (Sq + Skv) * 4
+    dev_ms = device_ms(torch, lambda: flash_attention_cuda(
+        q, k, v, qpos, kvpos, **kw))
+    wall_ms = time_ms(torch, lambda: flash_attention_cuda(
+        q, k, v, qpos, kvpos, **kw), reps=20)
+    # SDPA wants the heads first and, for GQA, each KV head repeated
+    # G times (``enable_gqa`` where the build takes it)
+    G = H // K
+    qt = q.transpose(1, 2)
+    kt, vt = (t.repeat_interleave(G, dim=2).transpose(1, 2) if G > 1
+              else t.transpose(1, 2) for t in (k, v))
+    try:
+        lib = sdpa(qt, kt, vt, attn_mask=mask, scale=D ** -0.5)
+        lib_err = float((lib.transpose(1, 2).float() - got.float())
+                        .abs().max())
+        del lib
+        lib_ms = device_ms(torch, lambda: sdpa(qt, kt, vt, attn_mask=mask,
+                                               scale=D ** -0.5))
+    except RuntimeError as e:  # a yardstick only: the port never calls it
+        lib_err, lib_ms = None, None
+        log(f"      SDPA at D {D} / Dv {Dv}: {e}")
+    entry = kernel_entry("flash_attention", err, dev_ms, plain_ms, flops,
+                         moved, (dt,), lib_ms)
+    entry.update(design=kind, wall_ms=wall_ms, dims=[D, Dv],
+                 shape=[B, Sq, Skv, H, K], causal=causal,
+                 source=ATTENTION_SOURCE if kind == "flash_prefill"
+                 else MODEL_SOURCE)
+    log(f"    flash {label:18s} D {D}/Dv {Dv} G {G} [{kind}] err "
+        f"{err:.2e}  kernel {dev_ms:8.4f} ms (wall {wall_ms:.4f})  plain "
+        f"{plain_ms:8.4f} ms  bound "
+        f"{entry['bound_ms']:.4f} ms ({entry['bound_by']}; "
+        f"{flops / 1e9:.3f} GFLOP, {moved / 1e6:.2f} MB, {pairs:,} visible "
+        f"pairs)  {entry['bound_ms'] / dev_ms:6.1%} of the bound  SDPA "
+        f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'} (gap to the "
+        f"kernel {'n/a' if lib_err is None else f'{lib_err:.1e}'})")
+    del q, k, v, got, mask, qt, kt, vt
+    return entry
+
+
 def mla_flash(torch, dev, results) -> None:
     """Phase 14a: flash attention at MLA's head dims, D (nope + rope)
     against Dv (v): deepseek-v2-lite's (192, 128) on each design at its
     serving shapes (B 4, 16 heads, a 1057-slot cache: prompt 1024 + 32 new
     tokens + 1), dsv2-smoke's (24, 16) on the SIMT and decode kernels;
     each against its plain version, timed beside SDPA and the bound."""
-    from repro_torch.kernels.flash_attention import (
-        design, flash_attention_cuda, flash_attention_plain, visible)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
     gen = torch.Generator(device=dev).manual_seed(14)
     i32 = dict(dtype=torch.int32, device=dev)
     f32, bf16 = torch.float32, torch.bfloat16
@@ -2195,63 +2316,8 @@ def mla_flash(torch, dev, results) -> None:
         "plain version")
     timed = {}
     for label, B, Sq, H, D, Dv, q0, kvpos, dt in cases:
-        Skv = kvpos.numel()
-        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dt)
-                   for shape in ((B, Sq, H, D), (B, Skv, H, D),
-                                 (B, Skv, H, Dv)))
-        qpos = torch.arange(q0, q0 + Sq, **i32)
-        kw = dict(causal=True, scale=D ** -0.5)
-        kind = design(Sq, D, dt, Dv)
-        got = flash_attention_cuda(q, k, v, qpos, kvpos, **kw)
-        want = flash_attention_plain(q, k, v, qpos, kvpos, **kw)
-        torch.cuda.synchronize()
-        gap = (got.float() - want.float()).abs()
-        err = float(gap.max())
-        # as phase 6: fp32 sums in another order (2e-5 is ~100 fp32 ulps
-        # of these means of N(0, 1) values); bf16 one rounding of one
-        # fp32 result on each side, one bf16 ulp apart
-        tol = 2e-5 + (2 ** -7 * want.float().abs() if dt == bf16 else 0)
-        if got.shape != (B, Sq, H, Dv) or \
-                not bool(torch.isfinite(got).all()) or \
-                bool((gap > tol).any()):
-            raise AssertionError(f"flash {label} [{kind}]: max abs err {err} "
-                                 f"against its plain version")
-        mask = visible(qpos, kvpos, causal=True, window=0)
-        pairs = int(mask.sum())
-        flops = 2 * B * H * pairs * (D + Dv)
-        moved = (q.numel() + k.numel() + v.numel() + got.numel()) \
-            * q.element_size() + (Sq + Skv) * 4
-        dev_ms = device_ms(torch, lambda: flash_attention_cuda(
-            q, k, v, qpos, kvpos, **kw))
-        wall_ms = time_ms(torch, lambda: flash_attention_cuda(
-            q, k, v, qpos, kvpos, **kw), reps=20)
-        plain_ms = time_ms(torch, lambda: flash_attention_plain(
-            q, k, v, qpos, kvpos, **kw), reps=3, warmup=1)
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        try:
-            lib_err = float((sdpa(qt, kt, vt, attn_mask=mask, scale=D ** -0.5)
-                             .transpose(1, 2).float() - want.float())
-                            .abs().max())
-            lib_ms = device_ms(torch, lambda: sdpa(
-                qt, kt, vt, attn_mask=mask, scale=D ** -0.5))
-        except RuntimeError as e:  # a yardstick only: the port never calls it
-            lib_err, lib_ms = None, None
-            log(f"      SDPA at D {D} / Dv {Dv}: {e}")
-        entry = kernel_entry("flash_attention", err, dev_ms, plain_ms, flops,
-                             moved, (dt,), lib_ms)
-        entry.update(design=kind, wall_ms=wall_ms, dims=[D, Dv],
-                     source=ATTENTION_SOURCE if kind == "flash_prefill"
-                     else MODEL_SOURCE)
-        timed[label] = entry
-        log(f"    flash {label:18s} D {D}/Dv {Dv} [{kind}] err {err:.2e}  "
-            f"kernel {dev_ms:8.4f} ms (wall {wall_ms:.4f})  plain "
-            f"{plain_ms:8.4f} ms  bound {entry['bound_ms']:.4f} ms "
-            f"({entry['bound_by']}; {flops / 1e9:.3f} GFLOP, "
-            f"{moved / 1e6:.2f} MB, {pairs:,} visible pairs)  "
-            f"{entry['bound_ms'] / dev_ms:6.1%} of the bound  SDPA "
-            f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'} (err "
-            f"{'n/a' if lib_err is None else f'{lib_err:.1e}'})")
-        del q, k, v, got, want, gap, mask, qt, kt, vt
+        timed[label] = flash_case(torch, dev, gen, label, B, Sq, H, H, D, Dv,
+                                  q0, kvpos, dt)
     torch.cuda.empty_cache()
     keys = ("design", "max_abs_err", "ms", "wall_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "source")
@@ -2472,6 +2538,353 @@ def mla_and_zoo(torch, dev, results) -> None:
     mla_serve(torch, dev, results)
     zoo_paths(torch, dev)
     log(f"[14] phase wall {time.perf_counter() - t_phase:.1f} s")
+
+
+def encdec_vlm_flash(torch, dev, results) -> None:
+    """Phase 15a: flash attention at the encoder-decoder's and the vision
+    model's serving shapes, each against its plain version (the 6144-query
+    prefill one KV head at a time) and timed beside SDPA with the same
+    mask and the bound: seamless-m4t's non-causal encoder prefill (bf16, D
+    64, B 4, 1024 x 1024, 16 heads on 16), its cross decode (Sq 1 over the
+    1024 encoder keys, non-causal) and its self-attention decode at the
+    serve's last step (Sq 1 at position 32 over the 1057-slot cache, 33
+    written); llava-next-34b's G 7 at D 128 (56 heads on 8) in prefill (B
+    2, 1024 queries; and the serve's 6144) and in decode (Sq 1 over a
+    6176-slot cache, 6145 written)."""
+    gen = torch.Generator(device=dev).manual_seed(15)
+    bf16 = torch.bfloat16
+
+    def written(n, upto):
+        kvpos = torch.arange(n, dtype=torch.int32, device=dev)
+        kvpos[upto:] = -1
+        return kvpos
+
+    # (label, B, Sq, H, K, D, first query position, KV positions, causal)
+    cases = [("encoder prefill", 4, 1024, 16, 16, 64, 0, written(1024, 1024),
+              False),
+             ("cross decode", 4, 1, 16, 16, 64, 1, written(1024, 1024),
+              False),
+             ("self decode", 4, 1, 16, 16, 64, 32, written(1057, 33), True),
+             ("vlm prefill", 2, 1024, 56, 8, 128, 0, written(1024, 1024),
+              True),
+             ("vlm prefill 6144", 2, 6144, 56, 8, 128, 0,
+              written(6144, 6144), True),
+             ("vlm decode", 2, 1, 56, 8, 128, 6144, written(6176, 6145),
+              True)]
+    log("[15a] flash attention at the encoder-decoder's and the vision "
+        "model's shapes against the plain version")
+    timed = {}
+    for label, B, Sq, H, K, D, q0, kvpos, causal in cases:
+        timed[label] = flash_case(torch, dev, gen, label, B, Sq, H, K, D, D,
+                                  q0, kvpos, bf16, causal=causal)
+        torch.cuda.empty_cache()
+    keys = ("design", "max_abs_err", "ms", "wall_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "source", "shape", "causal")
+    # rows 8d / 8e: the prefill on top, the rest beneath it
+    for name, top, subs in (
+            ("flash_attention[encdec]", "encoder prefill",
+             (("decode", "cross decode"), ("self_decode", "self decode"))),
+            ("flash_attention[vlm]", "vlm prefill",
+             (("prefill_6144", "vlm prefill 6144"),
+              ("decode", "vlm decode")))):
+        entry = dict(timed[top], name=name)
+        for sub, label in subs:
+            entry[sub] = {key: timed[label][key] for key in keys}
+        results[name] = entry
+
+
+def flash_launches(build):
+    return {k: build.LAUNCHES[k] for k in
+            ("flash_attention", "flash_prefill", "flash_simt",
+             "flash_decode", "flash_decode_combine")}
+
+
+def encdec_blockwise(torch, dev, cfg, params, frames) -> None:
+    """seamless-m4t-large-v2 in bf16, block by block: each encoder block,
+    then each decoder block at the BOS step, runs through the kernels
+    (``impl="kernel"``) and through the model's plain attention (``naive``)
+    on the same input, the kernel path's output of the block before; the
+    decoder's cross keys and values are the kernel path's encoder output.
+    The end-to-end gap is not held: the random-init 24 + 24-layer stack
+    turns a one-ulp difference into other values (on a CPU at d 64-256,
+    24 + 24 layers, even in fp32)."""
+    from repro_torch.models import attention as A
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+
+    def rel(a, b):
+        return float((a.float() - b.float()).abs().max()
+                     / b.float().abs().max().clamp(min=1e-30))
+
+    B, P = frames.shape[:2]
+    bf16 = torch.bfloat16
+    # bf16 activations: the attention outputs of the two paths are one
+    # rounding of fp32 values apart (one bf16 ulp, 2^-8 of a value), and a
+    # block carries that through its residual sum and MLP: 2^-6 of the
+    # block's largest output, the same of the largest logit
+    tol = 2.0 ** -6
+    worst = {"encoder": 0.0, "decoder": 0.0}
+    with torch.no_grad():
+        x = lm._with_positions(frames.to(bf16))
+        pos = torch.arange(P, device=dev)
+        for lp in lm._unstack(params["encoder"], cfg.num_encoder_layers):
+            outs = [lm.apply_block(lp, x, cfg, kind="dense", positions=pos,
+                                   impl=impl, causal=False)[0]
+                    for impl in ("kernel", "naive")]
+            worst["encoder"] = max(worst["encoder"], rel(*outs))
+            x = outs[0]
+        enc_out = x
+        y = L.embed(params["embedding"], torch.zeros(
+            (B, 1), dtype=torch.int64, device=dev), bf16)
+        y = y + L.sinusoidal_at(torch.zeros(1, dtype=torch.int32,
+                                            device=dev), cfg.d_model).to(bf16)
+        pos0 = torch.zeros(1, dtype=torch.int64, device=dev)
+        for li, _, lp in lm._layers(params, cfg):
+            cross = lm._cross_kv(lp["cross"], enc_out)
+            outs = []
+            for impl in ("kernel", "naive"):
+                c = A.init_kv_cache(cfg, B, 2, dtype=bf16, device=dev)
+                outs.append(lm.apply_block(
+                    lp, y, cfg, kind="dense", positions=pos0, impl=impl,
+                    cache=c, pos=0, cross_kv=cross)[0])
+            worst["decoder"] = max(worst["decoder"], rel(*outs))
+            y = outs[0]
+        logits = [L.unembed(params["embedding"],
+                            L.apply_norm(params["final_norm"], o))
+                  for o in outs]
+        worst["logits"] = rel(*logits)
+    log(f"[15b] block by block, kernels against the plain attention on the "
+        f"same input, bf16: largest gap of an encoder block's output "
+        f"{worst['encoder']:.3g}, of a decoder block's at the BOS step "
+        f"{worst['decoder']:.3g}, of the BOS logits from the last block "
+        f"{worst['logits']:.3g}, each relative to its largest magnitude "
+        f"(tolerance {tol:g})")
+    if max(worst.values()) > tol:
+        raise AssertionError(f"seamless block by block: {worst}")
+
+
+def seamless_serve(torch, dev, results) -> None:
+    """Phase 15b: seamless-m4t-large-v2 at full width and depth (24
+    encoder and 24 decoder layers) through ``launch.serve``: fp32
+    parameters drawn on the card, bf16 compute, batch 4, 1024 frames, 32
+    greedy tokens, with the launch counters zeroed just before and read
+    just after (24 non-causal ``flash_prefill``; BOS and 32 steps of 24
+    self and 24 cross decode calls); then held block by block."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.launch.serve import prompt_frames, serve
+    from repro_torch.models.lm import init_lm
+    from repro_torch.utils.trees import tree_leaves
+
+    cfg = get_config("seamless-m4t-large-v2")
+    B, P, G = 4, 1024, 32
+    t0 = time.perf_counter()
+    params = init_lm(cfg, 0, dev, draw_on=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n = sum(x.numel() for x in tree_leaves(params))
+    if n != cfg.param_count() or n != 1_632_253_952:
+        raise AssertionError(f"seamless: {n} parameters, config says "
+                             f"{cfg.param_count()}")
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    out = serve(cfg, batch=B, prompt_len=P, gen=G, device=dev,
+                params=params, keep_logits=True)
+    launches = flash_launches(build)
+    Le, Ld = cfg.num_encoder_layers, cfg.num_layers
+    calls = 2 * Ld * (1 + G)
+    want = {"flash_attention": Le + calls, "flash_prefill": Le,
+            "flash_simt": 0, "flash_decode": calls,
+            "flash_decode_combine": calls}
+    finite = bool(torch.isfinite(out["prefill_logits"].float()).all()) and \
+        bool(torch.isfinite(out["decode_logits"].float()).all())
+    log(f"[15b] {cfg.name} ({n:,} fp32 parameters drawn on the card in "
+        f"{init_s:.3f} s, bf16 compute), B {B}, {P} frames, {G} new "
+        f"tokens: prefill {out['prefill_s']:.3f} s, decode "
+        f"{out['decode_tok_per_s']:.1f} tok/s ({out['decode_s']:.3f} s), "
+        f"peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB, launches "
+        f"{launches} (want {want}), finite {finite}, tokens "
+        f"{out['tokens'][0, :8].tolist()}")
+    if launches != want or not finite or out["tokens"].shape != (B, G + 1):
+        raise AssertionError(f"seamless serve: launches {launches}, want "
+                             f"{want}, finite {finite}")
+    results["flash_attention[encdec]"]["launches"] = \
+        launches["flash_attention"]
+    results["flash_attention[encdec]"]["launches_by_design"] = launches
+    del out
+    frames = torch.from_numpy(prompt_frames(cfg, B, P, 0)).to(dev)
+    encdec_blockwise(torch, dev, cfg, params, frames)
+    del params, frames
+    torch.cuda.empty_cache()
+
+
+def llava_serve(torch, dev, results) -> None:
+    """Phase 15c: llava-next-34b at full width, 16 of its 60 layers (all 60
+    take 68.8 GB in bf16, over this script's 40 GB ceiling), through
+    ``launch.steps``' prefill and decode setups: bf16 parameters drawn on
+    the card, batch 2, seq 6144 by the reference's ``input_specs`` rule
+    (2880 patch embeddings + 3264 tokens), then 32 greedy tokens into a
+    6176-slot cache, with the launch counters zeroed just before and read
+    just after (16 ``flash_prefill``, 16 x 32 decode and combine); the
+    first and last layers' attention held as phase 14b holds MLA's."""
+    from dataclasses import replace
+    from repro_torch.config import ShapeConfig
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_cuda, flash_attention_plain)
+    from repro_torch.launch import steps
+    from repro_torch.models import attention as A
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+    from repro_torch.utils.trees import tree_leaves, tree_map
+
+    full = get_config("llava-next-34b")
+    cfg = replace(full, num_layers=16)
+    B, S, G = 2, 6144, 32
+    spec = steps.make_prefill_setup(cfg, ShapeConfig("p", S, B, "prefill"),
+                                    device=dev).arg_specs[2]
+    shape = ShapeConfig("serve", S + G, B, "prefill")
+    kw = dict(impl="kernel", seed=0, device=dev)
+    pre = steps.make_prefill_setup(cfg, shape, **kw)
+    dec = steps.make_decode_setup(cfg, replace(shape, kind="decode"), **kw)
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, cache = pre.init_state(0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = tree_leaves(params)
+    n = sum(x.numel() for x in leaves)
+    if n != cfg.param_count() or {x.dtype for x in leaves} != \
+            {torch.bfloat16}:
+        raise AssertionError(f"llava: {n} parameters, config says "
+                             f"{cfg.param_count()}")
+    g = torch.Generator(device=dev).manual_seed(16)
+    F = spec["frontend_embeds"].shape[1]
+    batch = {"frontend_embeds": torch.randn(
+        spec["frontend_embeds"].shape, generator=g, device=dev).to(
+            torch.bfloat16),
+        "tokens": torch.randint(0, cfg.vocab_size, spec["tokens"].shape,
+                                generator=g, device=dev)}
+    build.reset_launches()
+    t0 = time.perf_counter()
+    logits, cache = pre.step_fn(params, cache, batch)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    first = logits
+    tok = torch.argmax(logits[:, -1:], dim=-1)
+    out = [tok]
+    t0 = time.perf_counter()
+    for i in range(G):
+        logits, cache = dec.step_fn(params, cache, tok, S + i)
+        tok = torch.argmax(logits[:, -1:], dim=-1)
+        out.append(tok)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    launches = flash_launches(build)
+    peak = torch.cuda.max_memory_allocated()
+    Lyr = cfg.num_layers
+    want = {"flash_attention": Lyr * (1 + G), "flash_prefill": Lyr,
+            "flash_simt": 0, "flash_decode": Lyr * G,
+            "flash_decode_combine": Lyr * G}
+    finite = bool(torch.isfinite(first.float()).all()) and \
+        bool(torch.isfinite(logits.float()).all())
+    log(f"[15c] {cfg.name}, {Lyr} of {full.num_layers} layers at full width "
+        f"({n:,} bf16 parameters drawn on the card in {init_s:.3f} s; all "
+        f"{full.num_layers}: {full.param_count():,}), B {B}, {F} patch "
+        f"embeddings + {S - F} tokens, {G} new tokens: prefill "
+        f"{prefill_s:.3f} s, decode {B * G / decode_s:.1f} tok/s "
+        f"({decode_s:.3f} s), peak {peak / 1e9:.2f} GB (of it "
+        f"{held / 1e9:.2f} GB that earlier phases hold), launches "
+        f"{launches} (want {want}), finite {finite}, tokens "
+        f"{torch.cat(out, dim=1)[0, :8].tolist()}")
+    if not finite or peak > 40e9 or launches != want or F != 2880:
+        raise AssertionError("llava-next-34b serve at full width")
+    results["flash_attention[vlm]"]["launches"] = launches["flash_attention"]
+    results["flash_attention[vlm]"]["launches_by_design"] = launches
+
+    # the first and the last layer's attention, kernel (flash_prefill, G 7)
+    # against its plain version, fed one input: the normed embeddings of
+    # all 6144 positions (2880 patch embeddings, then the tokens), through
+    # each layer's projections and RoPE.  The plain version and the fp64
+    # yardstick run one KV head at a time (over all heads their scores
+    # would take 17 and 34 GB).  Held as phase 14b: each side against the
+    # fp64 attention of the same bf16 q, k, v, the kernel within twice
+    # the plain version's distance plus one bf16 rounding of the output
+    x = lm._embed_inputs(params, batch, cfg)
+    pos = torch.arange(S, dtype=torch.int32, device=dev)
+    for li in (0, Lyr - 1):
+        lp = tree_map(lambda t: t[li], params["layers"])
+        q, k, v = A._project_qkv(lp["mixer"], L.apply_norm(lp["norm1"], x),
+                                 cfg, pos)
+        got = flash_attention_cuda(q, k, v, pos, pos)
+        ref = by_kv_head(torch, flash_attention_plain, q, k, v, pos, pos)
+        torch.cuda.empty_cache()
+        exact = by_kv_head(torch, lambda *a: attention_fp64(torch, *a, 0),
+                           q, k, v, pos, pos)
+        torch.cuda.empty_cache()
+        gap = float((got.float() - ref.float()).abs().max())
+        k64 = float((got.double() - exact).abs().max())
+        p64 = float((ref.double() - exact).abs().max())
+        top = float(exact.abs().max())
+        ok = bool(torch.isfinite(got).all()) and \
+            k64 <= 2 * p64 + 2 ** -8 * top
+        log(f"[15c] layer {li} attention (G 7, all {S} positions): "
+            f"kernel vs plain max abs err {gap:.3e}; from fp64: kernel "
+            f"{k64:.3e}, plain {p64:.3e} (max |out| {top:.3g}), held {ok}")
+        if not ok:
+            raise AssertionError(f"llava layer {li} attention differs")
+        del q, k, v, got, ref, exact
+    del params, cache, logits, first, x, leaves, batch
+    torch.cuda.empty_cache()
+
+
+def encdec_vlm_train(torch) -> None:
+    """Phase 15d: ``launch.steps``' train setup at seamless-smoke and
+    llava-smoke in bf16 with fp32 master weights, 8 AdamW steps on one
+    batch drawn by the setup's own specs (frames; patch embeddings and
+    tokens by the ``input_specs`` rule)."""
+    from repro_torch.config import OptimizerConfig, ParallelConfig, ShapeConfig
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import steps
+
+    dev = torch.device("cuda", 0)
+    for arch in ("seamless-m4t-large-v2", "llava-next-34b"):
+        cfg = get_smoke_config(arch)
+        setup = steps.make_train_setup(
+            cfg, ShapeConfig("train", 32, 4, "train"), ParallelConfig(),
+            OptimizerConfig(name="adamw", lr=3e-3), device=dev)
+        g = torch.Generator(device=dev).manual_seed(17)
+        batch = {k: (torch.randint(0, cfg.vocab_size, s.shape, generator=g,
+                                   device=dev) if k in ("tokens", "targets")
+                     else torch.randn(s.shape, generator=g,
+                                      device=dev).to(s.dtype))
+                 for k, s in setup.arg_specs[1].items()}
+        state = setup.init_state(0)
+        losses = []
+        for _ in range(8):
+            state, loss = setup.step_fn(state, batch)
+            losses.append(float(loss))
+        log(f"[15d] train setup at {cfg.name}, batch "
+            f"{ {k: tuple(v.shape) for k, v in batch.items()} }: 8 steps, "
+            f"losses {[round(x, 4) for x in losses]}")
+        if not (all(math.isfinite(x) for x in losses)
+                and losses[-1] < losses[0]):
+            raise AssertionError(f"{cfg.name}: the train setup does not "
+                                 f"reduce the loss")
+
+
+def encdec_and_vlm(torch, dev, results) -> None:
+    """Phase 15: the encoder-decoder and the vision model."""
+    t_phase = time.perf_counter()
+    encdec_vlm_flash(torch, dev, results)
+    seamless_serve(torch, dev, results)
+    llava_serve(torch, dev, results)
+    encdec_vlm_train(torch)
+    log(f"[15] phase wall {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -2826,14 +3239,15 @@ def main() -> int:
                        (11, lambda: fleet_engine(torch, dev, results)),
                        (12, lambda: two_tier(torch, dev, results)),
                        (13, lambda: elastic(torch, dev, results)),
-                       (14, lambda: mla_and_zoo(torch, dev, results))):
+                       (14, lambda: mla_and_zoo(torch, dev, results)),
+                       (15, lambda: encdec_and_vlm(torch, dev, results))):
         gc.collect()
         log(f"--- phase {phase} starts at {time.perf_counter() - t_start:.1f}"
             f" s, {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
         run()
     log(f"--- all phases done at {time.perf_counter() - t_start:.1f} s")
 
-    # ---- 15. result lines -------------------------------------------------
+    # ---- 16. result lines -------------------------------------------------
     print(json.dumps({"kernels": list(results.values())}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

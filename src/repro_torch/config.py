@@ -1,6 +1,7 @@
 """Run configuration: the reference's ``ModelConfig`` for the ported paths
-(the dense stacks, MoE and MLA, the attention-free RWKV6 LM and the
-RecurrentGemma hybrid), ``ShapeConfig`` and the part of
+(the dense stacks, MoE and MLA, the attention-free RWKV6 LM, the
+RecurrentGemma hybrid, the encoder-decoder and the vision frontend),
+``ShapeConfig`` and the part of
 ``ParallelConfig`` that the step builders read, plus ``HermesConfig``
 (the gate, the wire, the allocator and elastic membership) and
 ``OptimizerConfig``.
@@ -77,17 +78,20 @@ class RecurrentConfig:
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """A decoder LM: the dense stack (GQA or MQA attention, or MLA with
+    """An LM: the dense stack (GQA or MQA attention, or MLA with
     ``mla``; a SwiGLU or GeLU MLP, or the MoE block with ``moe``; RMSNorm
-    or layernorm), the RWKV6 stack (layernorm, time-mix, channel-mix) or
+    or layernorm), the RWKV6 stack (layernorm, time-mix, channel-mix),
     the RecurrentGemma hybrid (RG-LRU and local-attention blocks, GeLU
-    MLP).  Parameters are fp32 (``param_dtype``); activations run in
-    ``dtype``.  ``remat`` recomputes each layer's activations in the
-    training backward.  The encoder-decoder and the modality frontends
-    (``is_encoder_decoder``, ``frontend``) are carried so that their
-    configs validate, and the model raises on them.  The reference's
-    ``tp_pad_heads`` pads query heads for tensor parallelism, which one
-    card does not have, and is left out."""
+    MLP), or with ``is_encoder_decoder`` a bidirectional encoder of
+    ``num_encoder_layers`` dense blocks and a causal decoder of
+    ``num_layers`` blocks with cross-attention.  ``frontend`` (vision,
+    audio) is a stub: the model takes pre-computed embeddings, a vision
+    model's prepended to its tokens', an audio encoder-decoder's as the
+    encoder's input.  Parameters are fp32 (``param_dtype``); activations
+    run in ``dtype``.  ``remat`` recomputes each layer's activations in
+    the training backward.  The reference's ``tp_pad_heads`` pads query
+    heads for tensor parallelism, which one card does not have, and is
+    left out."""
 
     name: str
     family: str
@@ -156,7 +160,8 @@ class ModelConfig:
     def param_count(self) -> int:
         """The exact parameter count of the port's (and the reference's)
         tree; the reference's own ``param_count`` approximates RWKV6, MoE
-        and MLA."""
+        and MLA, and leaves out the decoder's cross-attention and part of
+        the norms."""
         d, L, hd, f = self.d_model, self.num_layers, self.resolved_head_dim, \
             self.d_ff
         H = self.num_heads
@@ -201,6 +206,11 @@ class ModelConfig:
             per_layer = time_mix + channel_mix + 2 * norm
         else:
             per_layer = attn + mlp + 2 * norm
+        if self.is_encoder_decoder:
+            # encoder blocks as dense ones; each decoder block adds the
+            # cross-attention (wq, wk, wv, wo) and its norm ``norm_x``
+            return (emb + self.num_encoder_layers * per_layer
+                    + L * (per_layer + attn + norm) + norm)
         return emb + L * per_layer + norm
 
 

@@ -21,6 +21,8 @@ _REGISTRY: Dict[str, str] = {
     "grok-1-314b": "grok1_314b",
     "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
     "recurrentgemma-2b": "recurrentgemma_2b",
+    "seamless-m4t-large-v2": "seamless_m4t_large_v2",
+    "llava-next-34b": "llava_next_34b",
 }
 
 

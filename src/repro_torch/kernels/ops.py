@@ -154,7 +154,12 @@ def kernel_lint_cases():
     MLA's q / k head dim against its v head dim, deepseek-v2-lite's
     (192, 128) on all three designs (decode at B 4, 16 heads, a
     1152-slot cache, bf16) and its smoke config's (24, 16) on the SIMT
-    and decode kernels.  WKV6
+    and decode kernels; the encoder-decoder's (seamless-m4t-large-v2)
+    encoder prefill (16 heads of 64 on 16 KV heads) and cross decode (B 4
+    over 1152 encoder keys, where the serve's 1024 leave a ragged last
+    split), and llava-next-34b's G 7 (56 heads of 128 on 8) in prefill
+    and in decode over a 6144-slot cache (the serve's 6176: ragged), bf16.
+    WKV6
     takes 32 steps (two ring slots) of two heads of 64 (a cluster of four
     blocks each) and decode at batch 2; the RG-LRU 64 steps (two ring
     slots) of 128 channels (four blocks) and decode.
@@ -165,6 +170,8 @@ def kernel_lint_cases():
     mla = ((4, 1, 16, 192), (4, 1152, 16, 192), "bfloat16", 128)
     mla_smoke = ((2, 1, 4, 24), (2, 64, 4, 24), "float32", 16)
     mla_prefill = ((1, 128, 16, 192), (1, 128, 16, 192))
+    cross = ((4, 1, 16, 64), (4, 1152, 16, 64), "bfloat16")
+    g7 = ((2, 1, 56, 128), (2, 6144, 8, 128), "bfloat16")
     return [
         ("quantize_int8", _qz.launch_spec("quantize_int8", g)),
         ("dequantize_int8", _qz.launch_spec("dequantize_int8", g)),
@@ -201,6 +208,14 @@ def kernel_lint_cases():
         ("flash_attention[D24/16]",
          _fa.launch_spec((1, 128, 4, 24), (1, 128, 4, 24), "float32", 16)),
         ("flash_decode[D24/16]", _fa.launch_spec(*mla_smoke)),
+        ("flash_prefill[encoder]",
+         _fa.launch_spec((1, 128, 16, 64), (1, 128, 16, 64), "bfloat16")),
+        ("flash_decode[cross]", _fa.launch_spec(*cross)),
+        ("flash_decode_combine[cross]", _fa.combine_launch_spec(*cross)),
+        ("flash_prefill[G7]",
+         _fa.launch_spec((1, 128, 56, 128), (1, 128, 8, 128), "bfloat16")),
+        ("flash_decode[G7]", _fa.launch_spec(*g7)),
+        ("flash_decode_combine[G7]", _fa.combine_launch_spec(*g7)),
         ("wkv6", _wkv.launch_spec((1, 32, 2, 64), "bfloat16")),
         ("wkv6[decode]", _wkv.launch_spec((2, 1, 2, 64), "bfloat16")),
         ("rglru", _lru.launch_spec((1, 64, 128))),

@@ -7,7 +7,12 @@ the RG-LRU through its kernel (``impl="kernel"``, ``rec_impl="kernel"``);
 on the CPU the same calls take the kernels' plain versions.  The MoE
 block takes ``moe_impl`` (auto: dense at 512 tokens or fewer, else
 sorted).  Parameters are fp32, as in the reference's ``serve``
-(``launch/steps.py`` holds them in bf16 instead).
+(``launch/steps.py`` holds them in bf16 instead).  The encoder-decoder's
+prompt is ``prompt_len`` frames of its frontend's embeddings (normal
+draws of ``default_rng(seed)``, as the reference's): the prefill encodes
+them and decodes BOS at position 0, and decode goes on from position 1.
+A vision model is served from tokens alone, as the reference's ``serve``
+does (``launch/steps.py``'s prefill takes its patch embeddings).
 
     python -m repro_torch.launch.serve --preset lmtiny --device cpu
     python -m repro_torch.launch.serve --preset recurrentgemma-2b \
@@ -18,11 +23,17 @@ sorted).  Parameters are fp32, as in the reference's ``serve``
         --prompt-len 256 --gen 32
     python -m repro_torch.launch.serve --arch recurrentgemma-2b --batch 4 \
         --prompt-len 2560 --gen 32
+    python -m repro_torch.launch.serve --preset seamless-m4t-large-v2 \
+        --device cpu
+    python -m repro_torch.launch.serve --arch seamless-m4t-large-v2 \
+        --batch 4 --prompt-len 1024 --gen 32
 
 ``--preset`` takes lm100m, lmtiny or a ported architecture's smoke
 configuration; ``--arch`` a ported architecture's published one (the
 dense qwen3-8b, yi-6b, phi3-mini-3.8b, granite-34b; the MoE
-deepseek-v2-lite-16b and grok-1-314b; rwkv6-3b, recurrentgemma-2b).
+deepseek-v2-lite-16b and grok-1-314b; rwkv6-3b, recurrentgemma-2b; the
+encoder-decoder seamless-m4t-large-v2 and the vision model
+llava-next-34b).
 """
 from __future__ import annotations
 
@@ -57,31 +68,47 @@ def prompt_tokens(cfg: ModelConfig, batch: int, prompt_len: int,
     return rng.integers(0, cfg.vocab_size, (batch, prompt_len))
 
 
+def prompt_frames(cfg: ModelConfig, batch: int, prompt_len: int,
+                  seed: int) -> np.ndarray:
+    """The encoder-decoder's prompt, as the reference's: ``(batch,
+    prompt_len, d_model)`` normal draws of ``default_rng(seed)``, fp32."""
+    rng = np.random.default_rng(seed)
+    return rng.normal(size=(batch, prompt_len, cfg.d_model)) \
+        .astype(np.float32)
+
+
 def serve(cfg: ModelConfig, *, batch: int, prompt_len: int, gen: int,
           seed: int = 0, device="cuda", impl: str = "kernel",
           rec_impl: str = "kernel", moe_impl: str = "auto",
           params: Optional[Dict] = None, keep_logits: bool = False) -> Dict:
-    """Prefill ``batch`` random prompts of ``prompt_len`` tokens, then
-    decode ``gen`` tokens each by argmax.  ``params`` (a tree on
-    ``device``) replaces the seeded init, which draws on ``device``.
+    """Prefill ``batch`` random prompts of ``prompt_len`` tokens (the
+    encoder-decoder: frames), then decode ``gen`` tokens each by argmax.
+    ``params`` (a tree on ``device``) replaces the seeded init, which
+    draws on ``device``.
     With ``keep_logits`` the result also holds the prefill logits, the
     first decode step's logits and every generated token (tensors)."""
     dev = resolve_device(device)
     if params is None:
         params = init_lm(cfg, seed, dev, draw_on=dev)
     max_len = prompt_len + gen + 1
-    cache = init_cache(cfg, batch, max_len, dtype=compute_dtype(cfg),
-                       device=dev)
-    prompt = torch.from_numpy(prompt_tokens(cfg, batch, prompt_len,
-                                            seed)).to(dev)
+    encdec = cfg.is_encoder_decoder
+    cache = init_cache(cfg, batch, max_len,
+                       enc_len=prompt_len if encdec else 0,
+                       dtype=compute_dtype(cfg), device=dev)
+    if encdec:
+        prompt = {"frames": torch.from_numpy(prompt_frames(
+            cfg, batch, prompt_len, seed)).to(dev)}
+    else:
+        prompt = {"tokens": torch.from_numpy(prompt_tokens(
+            cfg, batch, prompt_len, seed)).to(dev)}
+    start = 1 if encdec else prompt_len
     kw = dict(impl=impl, rec_impl=rec_impl, moe_impl=moe_impl)
 
     with torch.no_grad():
         _sync(dev)
         t0 = time.perf_counter()
         with torch.profiler.record_function("serve/prefill"):
-            logits, cache = prefill_step(params, cache, {"tokens": prompt},
-                                         cfg, **kw)
+            logits, cache = prefill_step(params, cache, prompt, cfg, **kw)
             _sync(dev)
         t_prefill = time.perf_counter() - t0
         first = logits
@@ -92,7 +119,7 @@ def serve(cfg: ModelConfig, *, batch: int, prompt_len: int, gen: int,
         with torch.profiler.record_function("serve/decode"):
             for i in range(gen):
                 logits, cache = decode_step(params, cache, tok,
-                                            prompt_len + i, cfg, **kw)
+                                            start + i, cfg, **kw)
                 if i == 0:
                     first_decode = logits
                 tok = torch.argmax(logits[:, -1:], dim=-1)

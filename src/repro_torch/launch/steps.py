@@ -18,6 +18,13 @@ setup's device, and ``meta``.
   (the reference's ``_serve_param_state``) and the cache is
   ``init_cache``'s, bf16; ``init_state`` returns ``(params, cache)``.
 
+The batch is the reference's ``input_specs``: ``tokens`` (and
+``targets`` to train) of ``(B, S)``; the encoder-decoder adds ``frames
+(B, S, d)`` in the compute dtype, and its cache holds the cross keys and
+values of ``S`` encoder positions to prefill, ``min(4096, S)`` to
+decode; a vision model takes ``F = min(frontend_tokens, S // 2) or S //
+8`` positions of ``frontend_embeds (B, F, d)`` and ``S - F`` tokens.
+
 The reference also derives sharding trees for its mesh from the
 parameters' logical axes, and ``abstract_init_lm`` evaluates the init
 without allocating; one card has no mesh to shard over, so neither has a
@@ -37,6 +44,7 @@ from repro_torch.config import (
     ModelConfig, OptimizerConfig, ParallelConfig, ShapeConfig,
 )
 from repro_torch.models import lm as LM
+from repro_torch.models.layers import compute_dtype
 from repro_torch.optim.optimizers import make_optimizer
 from repro_torch.utils.trees import tree_flatten, tree_map, tree_unflatten
 
@@ -76,9 +84,20 @@ def _init_params(cfg: ModelConfig, seed: int, dev: torch.device):
                       else dev, dtype=_param_dtype(cfg))
 
 
-def _batch_specs(shape: ShapeConfig, targets: bool) -> Dict[str, Spec]:
+def _batch_specs(cfg: ModelConfig, shape: ShapeConfig,
+                 targets: bool) -> Dict[str, Spec]:
+    """The reference's ``input_specs`` for a train or prefill batch (its
+    ``targets`` only with ``targets``)."""
     B, S = shape.global_batch, shape.seq_len
-    out = {"tokens": Spec((B, S), torch.int64)}
+    dt = compute_dtype(cfg)
+    out = {}
+    if cfg.is_encoder_decoder:
+        out["frames"] = Spec((B, S, cfg.d_model), dt)
+    elif cfg.frontend != "none":
+        F = min(cfg.frontend_tokens, S // 2) or S // 8
+        out["frontend_embeds"] = Spec((B, F, cfg.d_model), dt)
+        S -= F
+    out["tokens"] = Spec((B, S), torch.int64)
     if targets:
         out["targets"] = Spec((B, S), torch.int64)
     return out
@@ -132,17 +151,20 @@ def make_train_setup(cfg: ModelConfig, shape: ShapeConfig,
 
     return StepSetup(
         step_fn=train_step,
-        arg_specs=(specs(build(seed, META)), _batch_specs(shape, True)),
+        arg_specs=(specs(build(seed, META)),
+                   _batch_specs(cfg, shape, True)),
         init_state=lambda seed=seed: build(seed, dev),
         meta={"optimizer": optimizer, "microbatch": mb})
 
 
 def _serve_state(cfg: ModelConfig, shape: ShapeConfig, dev: torch.device,
-                 seed: int):
+                 seed: int, enc_len: int):
     """``(params, cache)``: the parameters in bf16 when the model computes
-    in bf16, and ``init_cache``'s cache of ``seq_len`` slots."""
+    in bf16, and ``init_cache``'s cache of ``seq_len`` slots (and
+    ``enc_len`` cross positions for the encoder-decoder)."""
     return (_init_params(cfg, seed, dev),
             LM.init_cache(cfg, shape.global_batch, shape.seq_len,
+                          enc_len=enc_len if cfg.is_encoder_decoder else 0,
                           device=dev))
 
 
@@ -156,11 +178,14 @@ def make_prefill_setup(cfg: ModelConfig, shape: ShapeConfig, *,
             return LM.prefill_step(params, cache, batch, cfg, impl=impl,
                                    moe_impl=moe_impl)
 
-    params, cache = _serve_state(cfg, shape, META, seed)
+    enc_len = shape.seq_len
+    params, cache = _serve_state(cfg, shape, META, seed, enc_len)
     return StepSetup(
         step_fn=prefill,
-        arg_specs=(specs(params), specs(cache), _batch_specs(shape, False)),
-        init_state=lambda seed=seed: _serve_state(cfg, shape, dev, seed),
+        arg_specs=(specs(params), specs(cache),
+                   _batch_specs(cfg, shape, False)),
+        init_state=lambda seed=seed: _serve_state(cfg, shape, dev, seed,
+                                                  enc_len),
         meta={})
 
 
@@ -174,13 +199,15 @@ def make_decode_setup(cfg: ModelConfig, shape: ShapeConfig, *,
             return LM.decode_step(params, cache, tokens, int(pos), cfg,
                                   impl=impl, moe_impl=moe_impl)
 
-    params, cache = _serve_state(cfg, shape, META, seed)
+    enc_len = min(4096, shape.seq_len)
+    params, cache = _serve_state(cfg, shape, META, seed, enc_len)
     return StepSetup(
         step_fn=decode,
         arg_specs=(specs(params), specs(cache),
                    Spec((shape.global_batch, 1), torch.int64),
                    Spec((), torch.int32)),
-        init_state=lambda seed=seed: _serve_state(cfg, shape, dev, seed),
+        init_state=lambda seed=seed: _serve_state(cfg, shape, dev, seed,
+                                                  enc_len),
         meta={})
 
 

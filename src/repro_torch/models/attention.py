@@ -20,6 +20,11 @@ and the projections ``wq (d, H, hd)``, ``wk/wv (d, K, hd)``,
 returns new arrays): ``decode_attention`` writes the new keys and values
 into the cache it is given and returns that same dict.
 
+Cross-attention (the encoder-decoder's decoder): ``apply_attention(...,
+kv=(k, v))`` projects only q from x and attends, not causally, over the
+given keys and values (the encoder's, ``kv_positions`` ``0..Skv-1``), in
+the forward and in decode alike.
+
 MLA (DeepSeek-V2): full-rank queries ``wq (d, H, nope + rope)``; keys and
 values from a ``kv_lora_rank`` latent (``w_dkv``, RMS-normed by
 ``kv_norm``, expanded by ``w_uk (r, H, nope)`` and ``w_uv (r, H, vd)``)
@@ -159,25 +164,34 @@ def init_attention(cfg: ModelConfig, gen: torch.Generator,
     return p
 
 
-def _project_qkv(p, x, cfg: ModelConfig, positions):
-    dt = x.dtype
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(dt))
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(dt))
+def _project(p, name, x, cfg: ModelConfig, positions):
+    """One of q (``wq``) or k (``wk``) with its qk-norm and RoPE, or v."""
+    t = torch.einsum("bsd,dhk->bshk", x, p[name].to(x.dtype))
+    if name == "wv":
+        return t
     if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"])
-        k = rms_norm(k, p["k_norm"])
+        t = rms_norm(t, p["q_norm" if name == "wq" else "k_norm"])
     if cfg.use_rope:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
-    return q, k, v
+        t = apply_rope(t, positions, cfg.rope_theta)
+    return t
+
+
+def _project_qkv(p, x, cfg: ModelConfig, positions):
+    return tuple(_project(p, name, x, cfg, positions)
+                 for name in ("wq", "wk", "wv"))
 
 
 def apply_attention(p, x: torch.Tensor, cfg: ModelConfig, *,
                     positions: torch.Tensor, causal: bool = True,
-                    window: int = 0, impl: str = "auto") -> torch.Tensor:
-    """Full-sequence self-attention.  x: (B, S, d)."""
-    q, k, v = _project_qkv(p, x, cfg, positions)
+                    window: int = 0, impl: str = "auto",
+                    kv=None) -> torch.Tensor:
+    """Full-sequence attention.  x: (B, S, d).  With ``kv`` (the encoder's
+    keys and values, ``(B, Senc, K, hd)`` each) it is cross-attention:
+    only q comes from x, and no key is masked."""
+    if kv is None:
+        q, k, v = _project_qkv(p, x, cfg, positions)
+    else:
+        q, (k, v), causal = _project(p, "wq", x, cfg, positions), kv, False
     out = attention_impl(q, k, v, causal=causal, window=window,
                          q_positions=positions, impl=impl)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))

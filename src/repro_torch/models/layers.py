@@ -1,5 +1,6 @@
 """Layer primitives (the reference's ``models/layers.py``): norms, the
-SwiGLU and GeLU MLPs, RoPE, embedding / unembedding, ``dense_init``.
+SwiGLU and GeLU MLPs, RoPE, the encoder-decoder's sinusoidal positions,
+embedding / unembedding, ``dense_init``.
 
 Parameters are plain dicts of fp32 tensors in the reference's layout, e.g.
 ``mlp.wi (d, f)`` and ``embedding.head (d, V)``, never ``nn.Linear``'s
@@ -114,6 +115,36 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     sin = torch.sin(angles)[:, None, :].to(x.dtype)
     x1, x2 = torch.chunk(x, 2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+def sinusoidal_positions(seq_len: int, dim: int) -> np.ndarray:
+    """The full-sequence table ``(seq_len, dim)``, built in numpy exactly as
+    the reference builds it (its encoder input and decoder forward):
+    sines in the even columns, cosines in the odd."""
+    pos = np.arange(seq_len, dtype=np.float32)[:, None]
+    div = np.exp(np.arange(0, dim, 2, dtype=np.float32)
+                 * (-np.log(10000.0) / dim))
+    table = np.zeros((seq_len, dim), dtype=np.float32)
+    table[:, 0::2] = np.sin(pos * div)
+    table[:, 1::2] = np.cos(pos * div)
+    return table
+
+
+def sinusoidal_at(positions: torch.Tensor, dim: int) -> torch.Tensor:
+    """The same embedding at positions ``(T,)`` -> ``(T, dim)``, computed
+    in torch fp32 on the positions' device (the reference's decode-time
+    ``sinusoidal_at``, which computes in jnp fp32 rather than reading
+    the numpy table)."""
+    log_base = torch.log(torch.tensor(10000.0, dtype=torch.float32))
+    div = torch.exp(torch.arange(0, dim, 2, dtype=torch.float32,
+                                 device=positions.device)
+                    * (-log_base.to(positions.device) / dim))
+    ang = positions.to(torch.float32)[:, None] * div
+    out = torch.zeros((positions.shape[0], dim), dtype=torch.float32,
+                      device=positions.device)
+    out[:, 0::2] = torch.sin(ang)
+    out[:, 1::2] = torch.cos(ang)
+    return out
 
 
 def embed(p: Params, tokens: torch.Tensor, dtype: torch.dtype

@@ -37,6 +37,8 @@ from repro_torch.models import lm
 from repro_torch.models import rglru as G
 from repro_torch.models import rwkv as R
 
+from torch_parity import CHILD_ENV
+
 SRC = Path(__file__).resolve().parents[1] / "src"
 CPU = torch.device("cpu")
 
@@ -602,7 +604,7 @@ def test_round_loop_fetches_only_at_logs_and_after(monkeypatch):
 
 def test_analyze_self_test_cli_on_cpu(tmp_path):
     out = tmp_path / "lint.json"
-    env = dict(os.environ, PYTHONPATH=str(SRC))
+    env = dict(os.environ, PYTHONPATH=str(SRC), **CHILD_ENV)
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.analyze", "--self-test",
          "--device", "cpu", "--out", str(out)], env=env, capture_output=True,

@@ -557,6 +557,18 @@ ATTENTION_CASES = [
     (2, 150, 150, 10, 1, 256, True, 48, 0, None),
     (1, 150, 200, 4, 1, 64, True, 100, 0, 150),   # into a longer cache
     (2, 37, 37, 4, 2, 128, False, 0, 0, None),
+    # the encoder-decoder (seamless-m4t-large-v2, D 64, 16 heads on 16):
+    # the encoder's non-causal prefill at a ragged Sq, the cross-attention
+    # of a decoder prefill over the encoder's keys, and the cross decode,
+    # Sq 1 and 16, over 1024 encoder keys (every split runs)
+    (2, 150, 150, 16, 16, 64, False, 0, 0, None),
+    (2, 37, 150, 16, 16, 64, False, 0, 0, None),
+    (4, 1, 1024, 16, 16, 64, False, 0, 0, None),
+    (2, 16, 1024, 16, 16, 64, False, 0, 5, None),
+    # llava-next-34b's GQA, G 7 at D 128: prefill, and decode into a cache
+    # with unwritten slots past the query
+    (1, 150, 150, 14, 2, 128, True, 0, 0, None),
+    (2, 1, 700, 14, 2, 128, True, 0, 600, 601),
 ]
 
 
@@ -801,6 +813,35 @@ def test_serve_on_card_runs_the_kernels(card, preset):
         {k: n for k, n in want.items() if n}
     assert out["tokens"].shape == (2, 7)
     assert bool(torch.isfinite(out["prefill_logits"].float()).all())
+
+
+def test_encdec_serve_on_card_runs_the_kernels(card):
+    """seamless-smoke served on the card (fp32: the kernels held to the
+    CPU's plain versions): the encoder's 2 non-causal prefill launches
+    (D 16 takes the SIMT kernel), then BOS and 6 decode steps, each with
+    2 self and 2 cross decode calls; the BOS logits and the tokens those
+    of the same serve on the CPU."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.lm import init_lm
+    from repro_torch.utils.trees import tree_map
+    cfg = dataclasses.replace(get_smoke_config("seamless-m4t-large-v2"),
+                              dtype="float32")
+    params = init_lm(cfg, 3, torch.device("cpu"))
+    build.reset_launches()
+    out = serve(cfg, batch=2, prompt_len=40, gen=6, keep_logits=True,
+                params=tree_map(lambda t: t.to(card), params))
+    calls = 7 * 2 * 2
+    assert {k: v for k, v in build.LAUNCHES.items() if v} == {
+        "flash_attention": 2 + calls, "flash_simt": 2,
+        "flash_decode": calls, "flash_decode_combine": calls}
+    ref = serve(cfg, batch=2, prompt_len=40, gen=6, keep_logits=True,
+                params=params, device="cpu")
+    # fp32 on both sides, sums in other orders through 4 blocks
+    torch.testing.assert_close(out["prefill_logits"].cpu(),
+                               ref["prefill_logits"], rtol=1e-4, atol=1e-4)
+    assert out["tokens"].cpu().tolist() == ref["tokens"].tolist()
 
 
 @pytest.mark.parametrize("shape,tile", [((64, 250), (8, 100)),

@@ -42,6 +42,8 @@ from repro_torch.launch.train import _preset as tpreset
 from repro_torch.models import lm
 from repro_torch.utils.trees import tree_flatten
 
+from torch_parity import CHILD_ENV
+
 CPU = torch.device("cpu")
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -287,10 +289,6 @@ def test_port_tree_and_count_match_reference_hybrid():
 
 @pytest.mark.parametrize("change", [
     dict(family=FAMILY_AUDIO), dict(family=FAMILY_VLM),
-    # the encoder-decoder and the vision frontend (ROADMAP queue 1 item 7)
-    dict(family=FAMILY_AUDIO, is_encoder_decoder=True,
-         num_encoder_layers=2),
-    dict(family=FAMILY_VLM, frontend="vision", frontend_tokens=4),
     # an RG-LRU config without a pattern (the reference builds RWKV6
     # blocks for it)
     dict(family=FAMILY_SSM, recurrent=RecurrentConfig(kind="rglru")),
@@ -327,7 +325,7 @@ def test_serve_cli_prints_json():
          "lmtiny", "--device", "cpu", "--batch", "2", "--prompt-len", "8",
          "--gen", "4"],
         cwd=ROOT, capture_output=True, text=True, timeout=300,
-        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src"), **CHILD_ENV})
     assert res.returncode == 0, res.stderr
     out = json.loads(res.stdout)
     assert {"prefill_s", "decode_s", "decode_tok_per_s",

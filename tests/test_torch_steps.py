@@ -33,6 +33,8 @@ from repro_torch.launch import steps
 from repro_torch.models import lm
 from repro_torch.optim.optimizers import make_optimizer
 
+from torch_parity import CHILD_ENV
+
 CPU = torch.device("cpu")
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -268,7 +270,7 @@ def test_prefill_and_decode_setups_match_reference(arch):
 
 
 def test_train_cli_runs_deepseek_smoke():
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), **CHILD_ENV)
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.train", "--preset",
          "deepseek-v2-lite-16b", "--hermes", "--device", "cpu", "--steps",

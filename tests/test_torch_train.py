@@ -20,13 +20,16 @@ from repro_torch.config import HermesConfig, OptimizerConfig
 from repro_torch.data.synthetic import make_lm_dataset
 from repro_torch.launch import train as ttrain
 
-from torch_parity import jax_noise
+from torch_parity import CHILD_ENV, TORCH_THREADS, jax_noise
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 
 
 @pytest.mark.parametrize("compression", ["none", "int4"])
 def test_train_hermes_matches_reference_on_lmtiny(compression):
+    # the cap ``torch_parity`` sets at import holds in this process (an
+    # xdist worker too): torch's pool does not compete with XLA's
+    assert torch.get_num_threads() == TORCH_THREADS
     seed = 0
     run = dict(steps=8, batch=4, seq=32, pods=3, log_every=10 ** 6, seed=seed)
     hkw = dict(alpha=-0.8, beta=0.1, lam=2, eta=1.0, compression=compression)
@@ -84,7 +87,7 @@ def test_port_imports_neither_jax_nor_the_reference():
         "n.startswith('jax.') or n == 'repro' or n.startswith('repro.'))\n"
         "assert not bad, bad\n"
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n")
-    env = dict(os.environ, PYTHONPATH=str(SRC))
+    env = dict(os.environ, PYTHONPATH=str(SRC), **CHILD_ENV)
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr

@@ -27,12 +27,15 @@ from repro_torch.utils.trees import tree_map
 CPU = torch.device("cpu")
 NEW = ["qwen3-8b", "yi-6b", "phi3-mini-3.8b", "granite-34b", "grok-1-314b",
        "deepseek-v2-lite-16b"]
-PORTED = NEW + ["rwkv6-3b", "recurrentgemma-2b"]
+PORTED = NEW + ["rwkv6-3b", "recurrentgemma-2b", "seamless-m4t-large-v2",
+                "llava-next-34b"]
 # parameters of the published configs, counted from the reference's
 # jax.eval_shape(init_lm) leaves
 COUNTS = {"deepseek-v2-lite-16b": 16_210_324_992, "qwen3-8b": 8_190_735_360,
           "yi-6b": 6_061_035_520, "phi3-mini-3.8b": 3_821_079_552,
-          "granite-34b": 33_963_454_464, "grok-1-314b": 316_489_340_928}
+          "granite-34b": 33_963_454_464, "grok-1-314b": 316_489_340_928,
+          "seamless-m4t-large-v2": 1_632_253_952,
+          "llava-next-34b": 34_388_917_248}
 
 
 def _paths(tree, prefix=""):

@@ -1,8 +1,31 @@
 """Helpers shared by the port's parity tests: numpy <-> torch, and the
-reference's int4 rounding noise for injection into the port."""
+reference's int4 rounding noise for injection into the port.
+
+Importing this module caps torch's CPU threads at one (intra-op, and
+inter-op where no parallel work has started yet).  Under ``pytest -p
+xdist -n N`` every worker collects every test module, and most of the
+port's test modules import this one, so the cap holds in every worker.
+Without it each worker's torch pool competes with the others and with
+XLA's for the same cores: an lmtiny trainer parity case ran 2.6x slower
+at the default thread counts on an 8-core host with nothing else
+running, and the slowest cases of a 6-worker run took 2-4x their
+single-worker times.  Helpers that set one thread around a run and
+restore the count afterwards therefore restore one.  A test that starts
+one of the port's entry points as a child process passes
+:data:`CHILD_ENV` in its environment."""
 import numpy as np
 import torch
 import jax
+
+TORCH_THREADS = 1
+# for the port's command-line entry points that a test runs as a child
+# process: the same cap, read by torch there at start
+CHILD_ENV = {"OMP_NUM_THREADS": str(TORCH_THREADS)}
+torch.set_num_threads(TORCH_THREADS)
+try:
+    torch.set_num_interop_threads(TORCH_THREADS)
+except RuntimeError:    # set already, or inter-op work has started
+    pass
 
 
 def to_torch(a) -> torch.Tensor:
