@@ -490,7 +490,7 @@ def serving_kernels(torch, dev, results) -> None:
         gap = (got.float() - want.float()).abs()
         err = float(gap.max())
         # fp32 on both sides: the softmax sums over <= 2048 keys in another
-        # order and the kernel rescales once per 64-key tile; outputs are
+        # order and the kernel rescales once per key tile; outputs are
         # means of N(0, 1) values, so 2e-5 absolute is ~100 fp32 ulps.
         # bf16: both round such an fp32 result to bf16, so they may sit
         # one bf16 ulp (at most 2^-7 of the value) apart

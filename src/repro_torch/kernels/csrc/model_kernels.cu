@@ -46,262 +46,461 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(
 // Flash attention, SIMT (replaces src/repro/kernels/flash_attention.py:106,
 // flash_attention, grid (B, Hq, nq, nk) with the KV axis sequential), for
 // the shapes the other two designs do not take: prefill (Sq > 16) in fp32
-// at every head dim, and in bf16 at head dims 16 and 32.
+// at every head dim, and in bf16 at head dims 16, 24 and 32.
 //
-// One block per (q tile of 64 rows, query head h, batch b); the block
-// walks the KV axis in tiles of 64 keys held in shared memory, carrying the
-// online softmax (row max m, row sum l, output accumulator) in registers.
-// Query head h reads KV head h / G for any G (12 / 4 = 3 at lm100m).  The
-// 256 threads form 16 row groups x 16 columns: a thread holds 4 rows of
-// the 64-key score tile (keys tx, tx+16, tx+32, tx+48) and D/16 columns of
-// the output; a row's max and sum are reduced over its 16 lanes with
-// shuffles.  Shared rows are padded to D+1 floats, so the 16 lanes of a row
-// group read 16 banks.
+// Contract.  Query head h reads KV head h / G for any G (12 / 4 = 3 at
+// lm100m).  Masks come from the positions, element by element (kv_pos >=
+// 0, causal kv_pos <= q_pos, window q_pos - kv_pos < window), as in the
+// reference's naive_attention; the TPU kernel's wrapper drops the
+// positions, which is wrong in decode.  Masked scores are -1e30 and the row
+// sum is floored at 1e-30, so a masked tile behaves as in the TPU kernel.
+// v has a head dim Dv of its own, as in the TPU kernel: the scores run over
+// D, the V tile, the accumulator and the output over Dv (MLA: D = nope +
+// rope = 192 against Dv 128 at deepseek-v2-lite, 24 / 16 at its smoke
+// config; every other model D == Dv).
 //
-// Masks come from the positions, element by element (kv_pos >= 0, causal
-// kv_pos <= q_pos, window q_pos - kv_pos < window), as in the reference's
-// naive_attention; the TPU kernel's wrapper drops the positions, which is
-// wrong in decode.  A KV tile is skipped, loads included, only when its
-// position range shows every pair masked: no written slot, or (causal) its
-// least position after the tile's last query, or (window) the tile's
-// nearest key already out of the window.  The TPU kernel's index-based
-// skip holds only for contiguous positions.  Masked scores are -1e30 and
-// the row sum is floored at 1e-30, so a masked tile behaves as in the TPU
-// kernel.  The scale multiplies q once, before q k^T.
+// Bound: operations, 2 (D + Dv) FLOPs a visible pair at the fp32 FFMA peak
+// (67 TFLOP/s).  TF32 stays off, and 3xTF32 would break the chain below, so
+// no tensor core.  lm100m prefill (B 8, 12 heads of 64 on 4, Sq 512 into a
+// 577-slot cache) 3.23 GFLOP a layer, 0.048 ms, against 34.6 MB (0.010 ms
+// at 3.35 TB/s); MLA fp32 prefill (B 4, Sq 1024 into 1057 slots, 16 heads
+// of 192 / 128) 21.5 GFLOP, 0.321 ms; recurrentgemma-2b fp32 prefill (B 4,
+// 2560 tokens, 10 query heads of 256 on one KV head, window 2048) 128.9
+// GFLOP, 1.92 ms.
 //
-// Bound: at lm100m prefill (B 8, 12 heads of 64, Sq 512 against a 577-slot
-// cache) the 131,328 visible pairs per head cost 4*D FLOPs each, 3.23
-// GFLOP a layer, 48 us at the 67 TFLOP/s fp32 peak, against 34.6 MB
-// (10 us at 3.35 TB/s) of q, k, v and out: operations bound it.  At
-// recurrentgemma-2b in fp32 (10 query heads of 256 on one KV head, window
-// 2048, prefill over 2560 tokens) 128.9 GFLOP a layer, 1.92 ms at the fp32
-// peak: operations.  D 256 takes 214,016 bytes of shared memory, so one
-// block fits an SM.  TF32 stays off for fp32, so the tensor cores are not
-// used here.
+// Each score's q.k is ONE fmaf chain over d = 0..D-1, on q already scaled,
+// in the order of cuBLAS's fp32 GEMM, so the plain path's scores match bit
+// for bit: four interleaved partial sums sit nearer fp64 on random inputs,
+// but move recurrentgemma-2b's random-init fp32 prefill blocks (scores in
+// the thousands) 2e-4 from the plain path, past chip_smoke.py's 1e-5 block
+// check.
 //
-// v has a head dim Dv of its own, as in the TPU kernel (its v block and
-// scratch are Dv wide): the scores run over D, the V tile, the accumulator
-// and the output are Dv wide.  MLA (deepseek-v2-lite) takes D = nope + rope
-// = 192 against Dv 128, its smoke config 24 against 16; every other model
-// D == Dv.
+// One block of kFaThreads per (query head h, batch b, q tile of kFaRows
+// rows; twice both where noted below) walks the KV axis in tiles of
+// kFaKeys keys, carrying the online softmax (row max m, row sum l, output
+// accumulator) in registers.
+// - Products, register-blocked.  The threads form row groups of kFaLanes
+//   lanes, four to a warp; a thread holds 4 rows x 4 keys of the score
+//   tile (keys tx, tx + 8, ...) and the same 4 rows x Dv / 8 columns of the
+//   output, in runs of four contiguous columns.  It reads its q rows and K
+//   keys as 16-byte loads of four successive d and runs the four FMAs of
+//   each (row, key) pair in the order d .. d+3: the chain is unchanged,
+//   and a shared load feeds 16 FMAs, four times what a scalar load of a
+//   4 x 4 tile would.  P.V the same way: P read four keys at a time, V four
+//   columns a load, keys c = 0 .. kFaKeys - 1 in order.  Rows are padded
+//   to D + 4 (Dv + 4, keys + 4) values, an odd number of 16-byte units, so
+//   the eight 16-byte reads of a wavefront fall on distinct banks; the
+//   lanes of a warp that share a row or a key read it once.  A row group's
+//   P rows are its own warp's, so P needs no block barrier.
+// - Copies, asynchronous and double-buffered.  K and V tiles land in a
+//   two-stage ring by cp.async (16 bytes a copy in fp32; bf16 is staged as
+//   bf16, 8 bytes a copy, and widened as it is read), zeros past Skv, so
+//   tile t + 1 arrives while tile t is in the products; one barrier a
+//   tile.  Before the walk the block reads every slot's position once and
+//   flags each KV tile: skipped, loads included, when its position range
+//   shows every pair masked (no written slot, or, causal, its least
+//   position after the q tile's last query, or, window, its latest
+//   position already out of the first query's window); masked element by
+//   element when some pair may be; neither when every pair is visible
+//   (most tiles).  The TPU kernel's index-based skip holds only for
+//   contiguous positions.
+// - Occupancy and order.  32-key tiles keep the ring small enough that
+//   three blocks share an SM at D 64 (61,440 bytes) and two at D 128
+//   (110,592).  Where one block would hold an SM alone, a block takes
+//   twice the rows on twice the threads if that still fits: 128 rows on
+//   256 threads at 192 / 128 (202,768 bytes), eight warps an SM; D 256
+//   (208,896 at 64 rows, under the 232,448 a block may take) keeps four.
+//   The q tiles with the most keys (the causal diagonal's last rows)
+//   launch first, so the last wave is not one long block.
 // ---------------------------------------------------------------------------
 
-constexpr int kFaThreads = 256;
-constexpr int kBK = 64;
+constexpr int kFaThreads = 128;
+constexpr int kFaRows = 64;   // query rows of a block
+constexpr int kFaKeys = 32;   // keys of a KV tile
+constexpr int kFaLanes = 8;   // lanes of a row group
+constexpr int kFaBlocks = 3;  // blocks an SM at most (170 registers a thread)
 constexpr float kNegInf = -1e30f;
 
-template <int BQ, int D, int DV>
-constexpr int fa_smem_bytes() {
-  return (BQ * (D + 1) + kBK * (D + 1) + kBK * (DV + 1) + BQ * (kBK + 1)) *
-         static_cast<int>(sizeof(float));
+// the q tile of `rows` rows and their probabilities in fp32, the
+// two-stage K and V ring in T, then a byte per KV tile (its flag), rounded
+// up to 16 bytes
+template <typename T, int D, int DV>
+constexpr int fa_smem_bytes(int rows, int ntiles) {
+  return rows * (D + 4 + kFaKeys + 4) * 4 +
+         2 * kFaKeys * (D + 4 + DV + 4) * static_cast<int>(sizeof(T)) +
+         (ntiles + 15) / 16 * 16;
 }
 
-template <typename T, int BQ, int D, int DV>
-__global__ void __launch_bounds__(kFaThreads)
+// a block's query rows: 2 * kFaRows (on 2 * kFaThreads threads) where a
+// block of kFaRows rows would have its SM to itself and the taller one
+// still fits (fp32 at MLA's D 192 / Dv 128: eight warps an SM, not four),
+// else kFaRows
+template <typename T, int D, int DV>
+constexpr int fa_rows() {
+  return 2 * (fa_smem_bytes<T, D, DV>(kFaRows, 1024) + 1024) > 233472 &&
+                 fa_smem_bytes<T, D, DV>(2 * kFaRows, 1024) <= 232448
+             ? 2 * kFaRows
+             : kFaRows;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int n = valid ? 16 : 0;  // 0: fill the 16 bytes with zeros
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(n)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int n = valid ? 8 : 0;  // 0: fill the 8 bytes with zeros
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d),
+               "l"(src), "r"(n)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// four consecutive values of T into shared memory by one cp.async (zeros
+// when !valid)
+__device__ __forceinline__ void fa_copy4(float* dst, const float* src,
+                                         bool valid) {
+  cp_async16(dst, src, valid);
+}
+__device__ __forceinline__ void fa_copy4(__nv_bfloat16* dst,
+                                         const __nv_bfloat16* src,
+                                         bool valid) {
+  cp_async8(dst, src, valid);
+}
+
+// rows s0 .. s0 + BK - 1 of a K or V tile (C chunks of four values a row,
+// rows `stride` values apart from `src`) into shared rows LD values apart,
+// zeros past Skv; thread tid takes chunks tid, tid + NT, ...
+template <int NT, int BK, int C, int LD, typename T>
+__device__ __forceinline__ void fa_copy_tile(T* dst, const T* src,
+                                             size_t stride, int s0, int Skv,
+                                             int tid) {
+#pragma unroll 4
+  for (int r = 0; r < (BK * C + NT - 1) / NT; ++r) {
+    const int idx = tid + r * NT;
+    if ((BK * C) % NT == 0 || idx < BK * C) {
+      const int c = idx / C, x = 4 * (idx % C), s = s0 + c;
+      fa_copy4(dst + c * LD + x, s < Skv ? src + s * stride + x : src,
+               s < Skv);
+    }
+  }
+}
+
+// N (2 or 4) consecutive values of T as floats, in one load
+template <int N>
+__device__ __forceinline__ void fa_load(const float* p, float* x) {
+  if constexpr (N == 4) {
+    const float4 w = *reinterpret_cast<const float4*>(p);
+    x[0] = w.x;
+    x[1] = w.y;
+    x[2] = w.z;
+    x[3] = w.w;
+  } else {
+    const float2 w = *reinterpret_cast<const float2*>(p);
+    x[0] = w.x;
+    x[1] = w.y;
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void fa_load(const __nv_bfloat16* p, float* x) {
+  if constexpr (N == 4) {
+    const uint2 w = *reinterpret_cast<const uint2*>(p);
+    x[0] = __uint_as_float(w.x << 16);
+    x[1] = __uint_as_float(w.x & 0xffff0000u);
+    x[2] = __uint_as_float(w.y << 16);
+    x[3] = __uint_as_float(w.y & 0xffff0000u);
+  } else {
+    const unsigned w = *reinterpret_cast<const unsigned*>(p);
+    x[0] = __uint_as_float(w << 16);
+    x[1] = __uint_as_float(w & 0xffff0000u);
+  }
+}
+
+// N consecutive floats stored as T (one 16-byte store for 4 floats)
+template <int N, typename T>
+__device__ __forceinline__ void fa_store(T* p, const float* x) {
+  if constexpr (N == 4 && sizeof(T) == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) p[i] = from_f32<T>(x[i]);
+  }
+}
+
+template <typename T, int D, int DV, int BQ, int MINB>
+__global__ void __launch_bounds__(kFaThreads * BQ / kFaRows, MINB)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, const int* __restrict__ qpos,
                        const int* __restrict__ kvpos, T* __restrict__ out,
                        int Sq, int Skv, int H, int K, int G, int causal,
                        int window, float scale) {
-  constexpr int RM = BQ / 16;   // rows per thread
-  constexpr int CN = kBK / 16;  // score columns per thread
-  constexpr int DN = DV / 16;   // output columns per thread
-  constexpr int LD = D + 1;
-  constexpr int LDV = DV + 1;
-  constexpr int LP = kBK + 1;
-  extern __shared__ float smem[];
-  float* Qs = smem;              // BQ x LD, already scaled
-  float* Ks = Qs + BQ * LD;      // kBK x LD
-  float* Vs = Ks + kBK * LD;     // kBK x LDV
-  float* Ps = Vs + kBK * LDV;    // BQ x LP
-  __shared__ int kp_s[kBK];
-  __shared__ int red_lo[kBK / 32], red_hi[kBK / 32];
+  constexpr int NT = kFaThreads * BQ / kFaRows;
+  constexpr int BK = kFaKeys;
+  constexpr int KL = kFaLanes;
+  constexpr int TM = BQ * KL / NT;           // rows a thread
+  constexpr int TN = BK / KL;                // keys a thread
+  constexpr int DN = DV / KL;                // output columns a thread
+  constexpr int VW = DN < 4 ? 2 : 4;         // columns a vector load
+  constexpr int LDQ = D + 4;
+  constexpr int LDK = D + 4;
+  constexpr int LDV = DV + 4;
+  constexpr int LDP = BK + 4;
+  static_assert(D % 4 == 0 && DN % VW == 0, "flash_simt head dims");
+  extern __shared__ __align__(16) float fa_smem[];
+  float* Qs = fa_smem;                          // BQ x LDQ, already scaled
+  float* Ps = Qs + BQ * LDQ;                    // BQ x LDP
+  T* Ks = reinterpret_cast<T*>(Ps + BQ * LDP);  // 2 x BK x LDK
+  T* Vs = Ks + 2 * BK * LDK;                    // 2 x BK x LDV
+  unsigned char* flags =                        // a byte per KV tile
+      reinterpret_cast<unsigned char*>(Vs + 2 * BK * LDV);
 
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int kh = h / G;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int tx = tid % KL, ty = tid / KL;
+  const int nq = (Sq + BQ - 1) / BQ;
+  const int q0 = (nq - 1 - static_cast<int>(blockIdx.z)) * BQ;
+  const int h = blockIdx.x, b = blockIdx.y, kh = h / G;
 
-  // the q tile's position range, and each of this thread's rows' position
-  // (a padded row past Sq takes the tile's last position; it is not stored)
+  // the q tile's position range (every warp reads it), and each of this
+  // thread's rows' position (a padded row past Sq takes the tile's last
+  // position; it is not stored)
   int qlo = INT_MAX, qhi = INT_MIN;
-  for (int r = 0; r < BQ && q0 + r < Sq; ++r) {
+  for (int r = lane; r < BQ && q0 + r < Sq; r += 32) {
     const int p = qpos[q0 + r];
     qlo = min(qlo, p);
     qhi = max(qhi, p);
   }
-  int myq[RM];
+  qlo = __reduce_min_sync(0xffffffffu, qlo);
+  qhi = __reduce_max_sync(0xffffffffu, qhi);
+  int myq[TM];
 #pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int s = q0 + ty * RM + i;
+  for (int i = 0; i < TM; ++i) {
+    const int s = q0 + ty * TM + i;
     myq[i] = s < Sq ? qpos[s] : qpos[min(q0 + BQ, Sq) - 1];
   }
 
-  for (int idx = tid; idx < BQ * D; idx += kFaThreads) {
-    const int r = idx / D, d = idx % D, s = q0 + r;
-    float val = 0.f;
-    if (s < Sq) {
-      val = to_f32(q[((static_cast<size_t>(b) * Sq + s) * H + h) * D + d]) *
-            scale;
+  // each KV tile's pairs against the q tile's position range, from every
+  // slot's position: 0 none visible (the tile is skipped, loads included),
+  // 1 some (masked element by element), 2 all (no mask)
+  const int ntiles = (Skv + BK - 1) / BK;
+  for (int t = tid / 32; t < ntiles; t += NT / 32) {
+    int lo = INT_MAX, hi = -1;
+    bool unwritten = false;
+    for (int c = lane; c < BK; c += 32) {
+      const int s = t * BK + c;
+      const int p = s < Skv ? kvpos[s] : -1;
+      if (p >= 0) lo = min(lo, p);
+      hi = max(hi, p);
+      unwritten = unwritten || p < 0;
     }
-    Qs[r * LD + d] = val;
+    lo = __reduce_min_sync(0xffffffffu, lo);
+    hi = __reduce_max_sync(0xffffffffu, hi);
+    unwritten = __any_sync(0xffffffffu, unwritten);
+    bool run = hi >= 0, all = !unwritten;
+    if (causal) {
+      run = run && lo <= qhi;
+      all = all && hi <= qlo;
+    }
+    if (window > 0) {
+      run = run && qlo - hi < window;
+      all = all && qhi - lo < window;
+    }
+    if (lane == 0) flags[t] = run ? (all ? 2 : 1) : 0;
   }
 
-  float m[RM], l[RM], acc[RM][DN];
+  const T* kb = k + (static_cast<size_t>(b) * Skv * K + kh) * D;
+  const T* vb = v + (static_cast<size_t>(b) * Skv * K + kh) * DV;
+  // tile t's K and V rows into ring stage `stage`, zeros past Skv
+  auto copy_tile = [&](int t, int stage) {
+    fa_copy_tile<NT, BK, D / 4, LDK>(Ks + stage * BK * LDK, kb,
+                                     static_cast<size_t>(K) * D, t * BK, Skv,
+                                     tid);
+    fa_copy_tile<NT, BK, DV / 4, LDV>(Vs + stage * BK * LDV, vb,
+                                      static_cast<size_t>(K) * DV, t * BK,
+                                      Skv, tid);
+    cp_async_commit();
+  };
+  auto next_run = [&](int t) {
+    while (t < ntiles && flags[t] == 0) ++t;
+    return t;
+  };
+
+  for (int idx = tid; idx < BQ * (D / 4); idx += NT) {
+    const int r = idx / (D / 4), c = 4 * (idx % (D / 4)), s = q0 + r;
+    float x[4] = {0.f, 0.f, 0.f, 0.f};
+    if (s < Sq) {
+      fa_load<4>(q + ((static_cast<size_t>(b) * Sq + s) * H + h) * D + c, x);
 #pragma unroll
-  for (int i = 0; i < RM; ++i) {
+      for (int e = 0; e < 4; ++e) x[e] *= scale;
+    }
+    *reinterpret_cast<float4*>(Qs + r * LDQ + c) =
+        make_float4(x[0], x[1], x[2], x[3]);
+  }
+  __syncthreads();  // the tile flags are whole
+  int t = next_run(0);
+  if (t < ntiles) copy_tile(t, 0);
+
+  float m[TM], l[TM], acc[TM][DN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
     m[i] = kNegInf;
     l[i] = 0.f;
 #pragma unroll
     for (int j = 0; j < DN; ++j) acc[i][j] = 0.f;
   }
 
-  for (int k0 = 0; k0 < Skv; k0 += kBK) {
-    __syncthreads();  // the previous tile's readers are done
-    if (tid < kBK) {
-      const int s = k0 + tid;
-      const int p = s < Skv ? kvpos[s] : -1;
-      kp_s[tid] = p;
-      const int lo = __reduce_min_sync(0xffffffffu, p >= 0 ? p : INT_MAX);
-      const int hi = __reduce_max_sync(0xffffffffu, p);
-      if ((tid & 31) == 0) {
-        red_lo[tid >> 5] = lo;
-        red_hi[tid >> 5] = hi;
-      }
-    }
+  for (int stage = 0; t < ntiles; stage ^= 1) {
+    cp_async_wait<0>();
+    // tile t (and the q tile) landed; every reader of the other stage and
+    // of P is done with the last tile
     __syncthreads();
-    int lo = red_lo[0], hi = red_hi[0];
-#pragma unroll
-    for (int w = 1; w < kBK / 32; ++w) {
-      lo = min(lo, red_lo[w]);
-      hi = max(hi, red_hi[w]);
-    }
-    bool run = hi >= 0;
-    if (causal) run = run && lo <= qhi;
-    if (window > 0) run = run && qlo - hi < window;
-    if (!run) continue;  // uniform over the block
+    const bool masked = flags[t] == 1;
+    const int n = next_run(t + 1);
+    if (n < ntiles) copy_tile(n, stage ^ 1);
+    const T* ks = Ks + stage * BK * LDK;
+    const T* vs = Vs + stage * BK * LDV;
 
-    // K and V in one pass at D == Dv, in a pass each otherwise: on the
-    // H100 one pass is 7-20% faster at D == Dv (lm100m, recurrentgemma-2b)
-    // and 1.7x slower at MLA's 192 / 128 (PERF.md rows 8 and 8c)
-    if constexpr (D == DV) {
-      for (int idx = tid; idx < kBK * D; idx += kFaThreads) {
-        const int c = idx / D, d = idx % D, s = k0 + c;
-        const size_t row = (static_cast<size_t>(b) * Skv + s) * K + kh;
-        Ks[c * LD + d] = s < Skv ? to_f32(k[row * D + d]) : 0.f;
-        Vs[c * LDV + d] = s < Skv ? to_f32(v[row * DV + d]) : 0.f;
-      }
-    } else {
-      for (int idx = tid; idx < kBK * D; idx += kFaThreads) {
-        const int c = idx / D, d = idx % D, s = k0 + c;
-        Ks[c * LD + d] =
-            s < Skv ? to_f32(k[((static_cast<size_t>(b) * Skv + s) * K + kh) *
-                                   D + d])
-                    : 0.f;
-      }
-      for (int idx = tid; idx < kBK * DV; idx += kFaThreads) {
-        const int c = idx / DV, d = idx % DV, s = k0 + c;
-        Vs[c * LDV + d] =
-            s < Skv ? to_f32(v[((static_cast<size_t>(b) * Skv + s) * K + kh) *
-                                   DV + d])
-                    : 0.f;
-      }
-    }
-    __syncthreads();
-
-    // q.k as one FMA chain over d, in the order of cuBLAS's fp32 GEMM, so
-    // the plain path's scores match bit for bit: four interleaved partial
-    // sums sit nearer fp64 on random inputs, but move recurrentgemma-2b's
-    // random-init fp32 prefill blocks (scores in the thousands) 2e-4 from
-    // the plain path, past chip_smoke.py's 1e-5 block check
-    float sc[RM][CN];
+    float sc[TM][TN];
 #pragma unroll
-    for (int i = 0; i < RM; ++i)
+    for (int i = 0; i < TM; ++i)
 #pragma unroll
-      for (int j = 0; j < CN; ++j) sc[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float kd[CN];
+      for (int j = 0; j < TN; ++j) sc[i][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < D; d += 4) {
+      float kd[TN][4];
 #pragma unroll
-      for (int j = 0; j < CN; ++j) kd[j] = Ks[(tx + 16 * j) * LD + d];
+      for (int j = 0; j < TN; ++j)
+        fa_load<4>(ks + (tx + KL * j) * LDK + d, kd[j]);
 #pragma unroll
-      for (int i = 0; i < RM; ++i) {
-        const float qd = Qs[(ty * RM + i) * LD + d];
+      for (int i = 0; i < TM; ++i) {
+        float qd[4];
+        fa_load<4>(Qs + (ty * TM + i) * LDQ + d, qd);
 #pragma unroll
-        for (int j = 0; j < CN; ++j) sc[i][j] = fmaf(qd, kd[j], sc[i][j]);
+        for (int j = 0; j < TN; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            sc[i][j] = fmaf(qd[e], kd[j][e], sc[i][j]);
       }
     }
 
+    if (masked) {  // uniform over the block
+      int kp[TN];
 #pragma unroll
-    for (int i = 0; i < RM; ++i) {
+      for (int j = 0; j < TN; ++j) {
+        const int s = t * BK + tx + KL * j;
+        kp[j] = s < Skv ? kvpos[s] : -1;
+      }
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) {
+          bool vis = kp[j] >= 0;
+          if (causal) vis = vis && kp[j] <= myq[i];
+          if (window > 0) vis = vis && myq[i] - kp[j] < window;
+          if (!vis) sc[i][j] = kNegInf;
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
       float mx = kNegInf;
 #pragma unroll
-      for (int j = 0; j < CN; ++j) {
-        const int p = kp_s[tx + 16 * j];
-        bool vis = p >= 0;
-        if (causal) vis = vis && p <= myq[i];
-        if (window > 0) vis = vis && myq[i] - p < window;
-        if (!vis) sc[i][j] = kNegInf;
-        mx = fmaxf(mx, sc[i][j]);
-      }
+      for (int j = 0; j < TN; ++j) mx = fmaxf(mx, sc[i][j]);
 #pragma unroll
-      for (int off = 8; off >= 1; off >>= 1)
+      for (int off = KL / 2; off >= 1; off >>= 1)
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
       const float m_new = fmaxf(m[i], mx);
       const float alpha = expf(m[i] - m_new);
       float rs = 0.f;
 #pragma unroll
-      for (int j = 0; j < CN; ++j) {
+      for (int j = 0; j < TN; ++j) {
         const float p = expf(sc[i][j] - m_new);
         rs += p;
-        Ps[(ty * RM + i) * LP + tx + 16 * j] = p;
+        Ps[(ty * TM + i) * LDP + tx + KL * j] = p;
       }
 #pragma unroll
-      for (int off = 8; off >= 1; off >>= 1)
+      for (int off = KL / 2; off >= 1; off >>= 1)
         rs += __shfl_xor_sync(0xffffffffu, rs, off);
       l[i] = l[i] * alpha + rs;
       m[i] = m_new;
 #pragma unroll
       for (int j = 0; j < DN; ++j) acc[i][j] *= alpha;
     }
-    __syncthreads();
+    // a row group's P rows are its own warp's: no other warp reads them
+    __syncwarp();
 
-#pragma unroll 4
-    for (int c = 0; c < kBK; ++c) {
-      float vc[DN];
+#pragma unroll 2
+    for (int c = 0; c < BK; c += 4) {
+      float pc[TM][4];
 #pragma unroll
-      for (int j = 0; j < DN; ++j) vc[j] = Vs[c * LDV + tx + 16 * j];
+      for (int i = 0; i < TM; ++i)
+        fa_load<4>(Ps + (ty * TM + i) * LDP + c, pc[i]);
 #pragma unroll
-      for (int i = 0; i < RM; ++i) {
-        const float p = Ps[(ty * RM + i) * LP + c];
+      for (int e = 0; e < 4; ++e) {
+        float vc[DN];
 #pragma unroll
-        for (int j = 0; j < DN; ++j) acc[i][j] = fmaf(p, vc[j], acc[i][j]);
+        for (int u = 0; u < DN / VW; ++u)
+          fa_load<VW>(vs + (c + e) * LDV + VW * (tx + KL * u), vc + VW * u);
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int j = 0; j < DN; ++j)
+            acc[i][j] = fmaf(pc[i][e], vc[j], acc[i][j]);
       }
     }
+    t = n;
   }
 
 #pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int s = q0 + ty * RM + i;
+  for (int i = 0; i < TM; ++i) {
+    const int s = q0 + ty * TM + i;
     if (s >= Sq) continue;
     const float denom = fmaxf(l[i], 1e-30f);
     T* o = out + ((static_cast<size_t>(b) * Sq + s) * H + h) * DV;
 #pragma unroll
-    for (int j = 0; j < DN; ++j) o[tx + 16 * j] = from_f32<T>(acc[i][j] / denom);
+    for (int u = 0; u < DN / VW; ++u) {
+      float y[VW];
+#pragma unroll
+      for (int w = 0; w < VW; ++w) y[w] = acc[i][VW * u + w] / denom;
+      fa_store<VW>(o + VW * (tx + KL * u), y);
+    }
   }
 }
 
-template <typename T, int BQ, int D, int DV>
+template <typename T, int D, int DV>
 int flash_launch(const void* q, const void* k, const void* v,
                  const void* qpos, const void* kvpos, void* out, int B,
                  int Sq, int Skv, int H, int K, int causal, int window,
                  float scale, cudaStream_t stream) {
-  constexpr int bytes = fa_smem_bytes<BQ, D, DV>();
-  auto kern = flash_attention_kernel<T, BQ, D, DV>;
+  constexpr int rows = fa_rows<T, D, DV>();
+  // as many blocks an SM as their shared memory allows with the flags of
+  // 1024 KV tiles (228 KB an SM, 1 KB of it reserved a block), at most
+  // kFaBlocks; the register cap follows
+  constexpr int fit =
+      233472 / (fa_smem_bytes<T, D, DV>(rows, 1024) + 1024);
+  constexpr int blocks = fit < kFaBlocks ? fit : kFaBlocks;
+  auto kern = flash_attention_kernel<T, D, DV, rows, blocks>;
+  const int bytes =
+      fa_smem_bytes<T, D, DV>(rows, (Skv + kFaKeys - 1) / kFaKeys);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  kern<<<grid, kFaThreads, bytes, stream>>>(
+  // q tiles on the slowest axis, in reverse: the most keys first
+  dim3 grid(H, B, (Sq + rows - 1) / rows);
+  kern<<<grid, kFaThreads * rows / kFaRows, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(qpos),
       static_cast<const int*>(kvpos), static_cast<T*>(out), Sq, Skv, H, K,
@@ -320,11 +519,10 @@ int flash_by_dim(const void* q, const void* k, const void* v,
                  const void* qpos, const void* kvpos, void* out, int B,
                  int Sq, int Skv, int H, int K, int D, int Dv, int causal,
                  int window, float scale, cudaStream_t stream) {
-#define FA_CASE(DIM, DIMV)                                                   \
-  if (D == DIM && Dv == DIMV)                                                \
-    return flash_launch<T, 64, DIM, DIMV>(q, k, v, qpos, kvpos, out, B, Sq,  \
-                                          Skv, H, K, causal, window, scale,  \
-                                          stream);
+#define FA_CASE(DIM, DIMV)                                                  \
+  if (D == DIM && Dv == DIMV)                                               \
+    return flash_launch<T, DIM, DIMV>(q, k, v, qpos, kvpos, out, B, Sq, Skv, \
+                                      H, K, causal, window, scale, stream);
   FA_DIMS(FA_CASE)
 #undef FA_CASE
   return static_cast<int>(cudaErrorInvalidValue);
@@ -406,24 +604,6 @@ __host__ __device__ constexpr int fd_lanes(int n) {
   return n >= 32 ? 32 : n > 16 ? 32 : n > 8 ? 16 : n > 4 ? 8 : n > 2 ? 4
                                                                 : n > 1 ? 2
                                                                         : 1;
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = valid ? 16 : 0;  // 0: fill the 16 bytes with zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(n)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // 16 bytes of T (4 floats or 8 bf16) as floats

@@ -50,9 +50,11 @@ _ITEMSIZE = {"float32": 4, "bfloat16": 2}
 # (D, Dv): q / k head dim, v head dim (FA_DIMS of csrc/model_kernels.cu)
 HEAD_DIMS = ((16, 16), (32, 32), (64, 64), (128, 128), (256, 256),
              (24, 16), (192, 128))
-THREADS = 256   # kFaThreads of csrc/model_kernels.cu (SIMT)
-KV_TILE = 64    # kBK: keys the SIMT block stages per step
-Q_TILE = 64     # query rows of a SIMT block
+# the SIMT kernel (kFa* of csrc/model_kernels.cu)
+THREADS = 128   # kFaThreads
+Q_TILE = 64     # kFaRows: query rows of a block (twice: simt_rows)
+KV_TILE = 32    # kFaKeys: keys of a K / V tile
+LANES = 8       # kFaLanes: lanes of a row group
 
 # the split-KV decode kernel (kFd* of csrc/model_kernels.cu)
 DECODE_MAX_SQ = 16      # query rows per head that still count as decode
@@ -325,12 +327,30 @@ def flash_attention_cuda(q, k, v, q_positions, kv_positions, *,
 
 # -- launch specs (what each C launcher does, for the tile lint) ----------
 
-def simt_smem(D: int, dv: Optional[int] = None) -> int:
-    """``fa_smem_bytes<64, D, DV>()``: the q tile, the K and V tiles and
-    the probabilities, fp32, rows padded to ``D + 1`` (V: ``Dv + 1``)."""
+def simt_smem(D: int, Skv: int, dtype: str = "float32",
+              dv: Optional[int] = None, rows: Optional[int] = None) -> int:
+    """``fa_smem_bytes<T, D, DV>(rows, ntiles)``: the q tile (``rows``,
+    default :func:`simt_rows`) and its probabilities in fp32, the
+    two-stage K and V ring in ``dtype`` (rows padded by four values), then
+    a byte per KV tile, rounded up to 16."""
     dv = D if dv is None else dv
-    return 4 * (Q_TILE * (D + 1) + KV_TILE * (D + 1) + KV_TILE * (dv + 1)
-                + Q_TILE * (KV_TILE + 1))
+    rows = simt_rows(D, dtype, dv) if rows is None else rows
+    ntiles = -(-Skv // KV_TILE)
+    return 4 * rows * (D + 4 + KV_TILE + 4) \
+        + 2 * KV_TILE * (D + 4 + dv + 4) * _ITEMSIZE[dtype] \
+        + -(-ntiles // 16) * 16
+
+
+def simt_rows(D: int, dtype: str = "float32",
+              dv: Optional[int] = None) -> int:
+    """``fa_rows<T, D, DV>()``: a SIMT block's query rows, ``2 * Q_TILE``
+    (on ``2 * THREADS`` threads) where a block of ``Q_TILE`` rows would
+    have its SM to itself and the taller one still fits (fp32 at MLA's
+    192 / 128), else ``Q_TILE``."""
+    narrow = simt_smem(D, 1024 * KV_TILE, dtype, dv, Q_TILE)
+    tall = simt_smem(D, 1024 * KV_TILE, dtype, dv, 2 * Q_TILE)
+    return 2 * Q_TILE if 2 * (narrow + 1024) > 233472 and tall <= 232448 \
+        else Q_TILE
 
 
 def decode_smem(D: int, dtype: str, dv: Optional[int] = None) -> int:
@@ -392,30 +412,31 @@ def launch_spec(q_shape, k_shape, dtype: str = "float32",
             constants={"kFdThreads": DECODE_THREADS, "kFdRows": DECODE_ROWS,
                        "kFdTile": DECODE_TILE})
     rows, keys = (PREFILL_ROWS, PREFILL_KEYS) if kind == "flash_prefill" \
-        else (Q_TILE, KV_TILE)
+        else (simt_rows(D, dtype, dv), KV_TILE)
     operands = (build.Operand("q", tuple(q_shape), (1, rows, 1, D), dtype),
                 build.Operand("k", kv, (1, keys, 1, D), dtype),
                 build.Operand("v", vv, (1, keys, 1, dv), dtype),
                 build.Operand("q_positions", (Sq,), (rows,), "int32"),
                 build.Operand("kv_positions", (Skv,), (keys,), "int32"),
                 build.Operand("out", out, (1, rows, 1, dv), dtype))
-    grid = (-(-Sq // rows), H, B)
     if kind == "flash_prefill":
         return build.LaunchSpec(
             kernel="flash_prefill", source=build.source("attention_kernels"),
-            function="flash_prefill_kernel", grid=grid,
+            function="flash_prefill_kernel", grid=(-(-Sq // rows), H, B),
             threads=PREFILL_THREADS, smem=prefill_smem(D, Skv, dv),
             operands=operands, accumulator="o", threads_of="kFpThreads",
             constants={"kFpThreads": PREFILL_THREADS, "kFpRows": rows,
                        "kFpKeys": keys})
+    # the q tiles on the grid's slowest axis (launched in reverse: the
+    # most keys first)
     return build.LaunchSpec(
         kernel="flash_simt", source=build.source("model_kernels"),
-        function="flash_attention_kernel", grid=grid, threads=THREADS,
-        smem=simt_smem(D, dv),
-        static_smem=4 * (KV_TILE + 2 * (KV_TILE // 32)),
+        function="flash_attention_kernel", grid=(H, B, -(-Sq // rows)),
+        threads=THREADS * rows // Q_TILE, smem=simt_smem(D, Skv, dtype, dv),
         operands=operands, accumulator="acc", template={"T": dtype},
-        threads_of="kFaThreads",
-        constants={"kFaThreads": THREADS, "kBK": KV_TILE})
+        threads_of=f"kFaThreads * {rows // Q_TILE}",
+        constants={"kFaThreads": THREADS, "kFaRows": Q_TILE,
+                   "kFaKeys": keys, "kFaLanes": LANES})
 
 
 def combine_smem(splits: int) -> int:

@@ -320,8 +320,13 @@ def _case(label):
 
 
 @pytest.mark.parametrize("label,change", [
-    ("flash_attention[D64]", {"threads": 128}),
-    ("flash_attention[D64]", {"constants": {"kFaThreads": 256, "kBK": 32}}),
+    ("flash_attention[D64]", {"threads": 256}),
+    ("flash_attention[D64]", {"constants": {"kFaThreads": 128,
+                                            "kFaRows": 64, "kFaKeys": 64,
+                                            "kFaLanes": 8}}),
+    ("flash_attention[D256]", {"constants": {"kFaThreads": 128,
+                                             "kFaRows": 128, "kFaKeys": 32,
+                                             "kFaLanes": 8}}),
     ("flash_decode[rg]", {"threads": 256}),
     ("flash_decode[rg]", {"constants": {"kFdThreads": 128, "kFdRows": 16,
                                         "kFdTile": 64}}),
@@ -373,15 +378,42 @@ def test_every_ported_kernel_lints_clean(label):
     assert analyze([KernelTileLint()], launches=[spec], label=label).ok
 
 
+@pytest.mark.parametrize("dims,dtype", [
+    *((dims, "float32") for dims in fa.HEAD_DIMS),
+    *((dims, "bfloat16") for dims in fa.HEAD_DIMS if dims[0] < 64)])
+def test_simt_launch_spec_lints_clean_and_fits(dims, dtype):
+    """Every launch of the SIMT kernel (fp32 prefill at each pair of head
+    dims, bf16 prefill below D 64) lints clean against the source's
+    constants and fits the 232,448 bytes of shared memory a block may
+    take, at recurrentgemma-2b's 2560 keys; the fp32 head dims up to 128
+    leave room for two blocks an SM."""
+    D, Dv = dims
+    spec = fa.launch_spec((4, 512, 10, D), (4, 2560, 2, D), dtype, Dv)
+    assert spec.kernel == "flash_simt"
+    assert analyze([KernelTileLint()], launches=[spec],
+                   label=f"flash_simt[{D}/{Dv} {dtype}]").ok
+    assert spec.smem <= 232448
+    if dtype == "float32" and D <= 128:
+        assert 2 * (spec.smem + 1024) <= 233472
+
+
 def test_lint_cases_cover_every_kernel_and_repeat_their_launchers():
     kernels = {spec.kernel for _, spec in ops.kernel_lint_cases()}
     assert kernels | {"tile_copy"} | set(build.WRAPPERS) == \
         set(build.LAUNCHES)
-    # fa_smem_bytes<64, 256>() (csrc/model_kernels.cu): the SIMT kernel
-    # keeps fp32 prefill, its 64-row tiles at every Sq
-    assert _case("flash_attention[D256]").smem == 214016
+    # fa_smem_bytes<float, 256, 256>(4) (csrc/model_kernels.cu): the SIMT
+    # kernel keeps fp32 prefill, its 64-row q tile, its 32-key K and V ring
+    # in two stages and a flag a KV tile; its q tiles on the grid's
+    # slowest axis
+    assert _case("flash_attention[D256]").smem == \
+        4 * 64 * (260 + 36) + 2 * 32 * 520 * 4 + 16
     assert fa.launch_spec((2, 20, 10, 256), (2, 20, 1, 256)).grid == \
-        (1, 10, 2)
+        (10, 2, 1)
+    # twice the rows (and threads) only where a 64-row block would hold its
+    # SM alone and the taller one fits: fp32 at MLA's 192 / 128
+    assert [fa.simt_rows(D, "float32", dv) for D, dv in fa.HEAD_DIMS] == \
+        [64, 64, 64, 64, 64, 64, 128]
+    assert _case("flash_attention[D192/128]").threads == 256
     # decode: one block per (split, KV head x row group, batch); 64 splits
     # of one 32-key tile at recurrentgemma-2b (4 x 64 = 256 blocks), 10
     # of two at lm100m's 577 slots (8 x 4 x 10 = 320); fd_smem_bytes<T, D>

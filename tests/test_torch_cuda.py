@@ -642,6 +642,32 @@ def test_flash_attention_mla_dims_match_plain(card, case, dtype):
         assert build.LAUNCHES["flash_decode_combine"] == 1
 
 
+# fp32 prefill on scores in the thousands, as recurrentgemma-2b's random
+# init gives (q, k ~ N(0, 45^2): q.k / sqrt(D) ~ N(0, 2025^2)).  Near ties
+# between two keys make the output follow a score's last bits, so the
+# kernel holds the plain version to 1e-5 of the largest output only if each
+# q.k is one FMA chain over d in order, as cuBLAS's fp32 GEMM computes the
+# plain path's scores: the same kernel with the four FMAs of each 16-byte
+# load in the order d + 3 .. d reads ~1e-4.
+@pytest.mark.parametrize("dims", [(64, 64), (192, 128), (256, 256)])
+@pytest.mark.parametrize("window", [0, 128])
+def test_flash_simt_large_scores_match_plain(card, dims, window):
+    D, Dv = dims
+    B, S, H, K = 1, 300, 4, 2
+    gen = torch.Generator(device=card).manual_seed(19)
+    q, k = (45 * torch.randn(shape, generator=gen, device=card)
+            for shape in ((B, S, H, D), (B, S, K, D)))
+    v = torch.randn((B, S, K, Dv), generator=gen, device=card)
+    pos = torch.arange(S, dtype=torch.int32, device=card)
+    kw = dict(causal=True, window=window)
+    build.reset_launches()
+    got = flash_attention_cuda(q, k, v, pos, pos, **kw)
+    want = flash_attention_plain(q, k, v, pos, pos, **kw)
+    assert build.LAUNCHES["flash_simt"] == 1
+    gap = float((got - want).abs().max()) / float(want.abs().max())
+    assert gap <= 1e-5, gap
+
+
 # rwkv6-3b decode (4, 1, 40, 64) and a full prefill head count at short T
 # (1, 256, 40, 64); T that are not multiples of the 16-step ring slot (37,
 # 70, 33, 50); decode and prefill at D 16 (a cluster of one) and D 128 (a
