@@ -3,7 +3,8 @@
 trainer, serving, the Level-A cluster simulator, the single trainer with
 its checkpoints, the paper's studies, the fleet engine, the two-tier
 round with the placed gather, elastic membership, the model zoo with MoE
-and MLA, and the encoder-decoder and the vision frontend.
+and MLA, the encoder-decoder and the vision frontend, and the audits of
+the Hermes wire.
 
     python3 chip_smoke.py
 
@@ -53,7 +54,8 @@ Phases (any failure raises and the script exits nonzero):
    parameters, prompt and first token (held at lm100m, and at rwkv6-3b
    and recurrentgemma-2b in an fp32 run of the same model, beside the
    bf16 gap);
-8. the static analyzer, ``repro_torch.launch.analyze --self-test`` on
+8. the static analyzer's lint, host-sync guard and fixtures
+   (``repro_torch.launch.analyze``; its round targets are phase 16) on
    the card, with the launch counters zeroed just before and read just
    after: every ported kernel's launch spec and the pack constants lint
    clean, ``train_hermes``'s loop passes the host-sync guard, and each
@@ -173,7 +175,25 @@ Phases (any failure raises and the script exits nonzero):
     peak held to 40 GB), the first and last layers' attention held to
     fp64; (d) the bf16 train setup at seamless-smoke and llava-smoke, 8
     steps each reducing the loss;
-16. a ``kernels`` JSON line, the ``nvidia-smi`` line, and the result line.
+16. the audits of the Hermes wire: (a) the analyzer's round targets
+    (``launch.analyze``) on two gloo ranks of this card, one pod a rank:
+    the open round ships exactly the billed wire and the closed one only
+    the gate exchange, the dispatch carries the gather and the commit no
+    collective, ``topk`` and ``prob`` admission at participation 0.5 keep
+    the specs, qwen3-8b's smoke train step issues no collective, and the
+    fp32-hoist fixture raises ``fp32-model-crossing``; (b)
+    ``launch.hermes_dryrun`` at qwen3-8b: the four formats' bills at full
+    width and depth on meta tensors, then the round at full width with 1
+    of its 36 layers, in bf16, every format, placed on two gloo ranks of
+    this card against the unplaced run (bitwise), each rank's gathers the
+    bill of the tree that ran, the closed rounds only the gate exchange,
+    with the launch counters zeroed just before and read just after (this
+    process's and the ranks'), the peak (the unplaced run's, and the two
+    ranks' summed) held to 40 GB; (c) the bf16 merges at that tree and 2
+    pods, bitwise their plain versions, timed on the card's clock beside
+    their bound (``dequant_merge_packed[qwen3-8b bf16]`` and the others in
+    the ``kernels`` line);
+17. a ``kernels`` JSON line, the ``nvidia-smi`` line, and the result line.
 
 It needs the repository's ``src/`` beside it and imports neither JAX nor
 the JAX package.
@@ -991,9 +1011,13 @@ def analyzer(torch, dev, results) -> None:
     from repro_torch.models.lm import init_lm
     from repro_torch.utils.trees import tree_map
 
-    log("[8] python -m repro_torch.launch.analyze --self-test, on the card")
+    log("[8] the analyzer's lint, host-sync guard and fixtures, on the card "
+        "(its round targets: phase 16)")
     build.reset_launches()
-    record = analyze.main(["--self-test", "--device", str(dev)])
+    reports = analyze.check_round_loop_source() + analyze.check_kernels()
+    record = {"ok": all(r.ok for r in reports),
+              "targets": [r.to_json() for r in reports],
+              "self_test": analyze.run_selftests(dev)}
     launches = {k: v for k, v in build.LAUNCHES.items() if v}
     fixtures = {f["fixture"]: f for f in record["self_test"]}
     labels = [t["label"] for t in record["targets"]]
@@ -2887,6 +2911,157 @@ def encdec_and_vlm(torch, dev, results) -> None:
     log(f"[15] phase wall {time.perf_counter() - t_phase:.1f} s")
 
 
+def wire_audits(torch, dev, results) -> None:
+    """Phase 16: the audits of the Hermes wire on the card: the analyzer's
+    round targets on two gloo ranks, ``launch.hermes_dryrun`` (a) and (b)
+    at qwen3-8b, and the bf16 merges timed at its tree."""
+    from repro_torch.dist import wire
+    from repro_torch.kernels import build, ref
+    from repro_torch.kernels.dequant_merge import (
+        dequant_merge_group_cuda, dequant_merge_packed_group_cuda)
+    from repro_torch.kernels.loss_weighted_update import (
+        loss_weighted_update_cuda)
+    from repro_torch.launch import analyze, hermes_dryrun
+    from repro_torch.launch.placed_audit import _config
+    from repro_torch.models.lm import init_lm
+    from repro_torch.utils.trees import tree_flatten
+
+    # (a) the round targets: the open and closed round, the async halves,
+    # admission and the train step, each rank's collectives held to the rule
+    t0 = time.perf_counter()
+    per_rank = analyze.run_round_targets(device=dev)
+    reports = (analyze.check_hermes_round(per_rank)
+               + analyze.check_async_halves(per_rank)
+               + analyze.check_admission(per_rank)
+               + analyze.check_train_step(per_rank))
+    hoist = analyze.selftest_fp32_hoist(per_rank)
+    log(f"[16] analyzer round targets on {analyze.N_PODS} gloo ranks of the "
+        f"card: {', '.join(r.label for r in reports)} clean; the fp32-hoist "
+        f"fixture raised {hoist['classes']}; {analyze.DONATION}; "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # (b) hermes_dryrun: the full-depth bills on meta tensors, then the
+    # round at full width executed on two ranks, launches counted
+    arch, layers = "qwen3-8b", 1
+    t0 = time.perf_counter()
+    bills = hermes_dryrun.full_width_bills(arch)
+    log(f"    {arch} bills at full depth ({bills['parameters']:,} "
+        f"parameters, bf16): " + ", ".join(
+            f"{f} {b['billed_bytes']:,} B ({b['bytes_per_element']:.4f} "
+            f"B/elt)" for f, b in bills["formats"].items())
+        + f"; block_axis hint drift {bills['block_axis_hint_drift']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    build.reset_launches()
+    run = hermes_dryrun.executed(arch, layers=layers, device=dev)
+    parent = {k: v for k, v in build.LAUNCHES.items() if v}
+    launches = {k: parent.get(k, 0) + run["rank_launches"].get(k, 0)
+                for k in set(parent) | set(run["rank_launches"])}
+    peak = run["peak_bytes"]
+    for fmt, e in run["formats"].items():
+        flat = e["flat"]["collectives"]["flat_round"]
+        closed = e["closed"]["collectives"]
+        log(f"    {fmt:4s} open round: {flat['gather_bytes']:,} B gathered "
+            f"a rank in {flat['cross_pod_collectives']} collectives = the "
+            f"bill of the tree that ran ({e['shipped_bill']:,}; "
+            f"payload_bytes {e['payload_bytes']:,}), "
+            f"{e['bytes_per_element']:.4f} B/elt, control "
+            f"{flat['control_bytes']} B; closed rounds "
+            f"{[c['control_bytes'] for c in closed.values()]} B of gate "
+            f"exchange only; placed == unplaced bitwise")
+    log(f"    executed: {run['cut']}, {run['parameters']:,} parameters, "
+        f"{run['seconds']:.1f} s (unplaced {run['unplaced_seconds']:.1f}); "
+        f"launches (this process + the ranks) {launches}; peak "
+        f"{peak['unplaced'] / 1e9:.2f} GB unplaced, ranks "
+        f"{[round(r / 1e9, 2) for r in peak['ranks']]} GB, the phase "
+        f"{peak['phase'] / 1e9:.2f} GB; {time.perf_counter() - t0:.1f} s")
+    if peak["phase"] > 40e9:
+        raise AssertionError(f"the wire audit's peak {peak} over 40 GB")
+    for name in ("dequant_merge_packed", "dequant_merge",
+                 "loss_weighted_update"):
+        if launches.get(name, 0) < 1:
+            raise AssertionError(f"the qwen3-8b rounds never launched {name}")
+
+    # (c) the bf16 merges at the same tree, two pods, gates open: each
+    # held bitwise to its plain version and timed on the card's clock
+    job = {"preset": arch, "layers": layers}
+    g_leaves = tree_flatten(init_lm(_config(job), 0, dev, draw_on=dev,
+                                    dtype=torch.bfloat16))[0]
+    n_pods = 2
+    gen = torch.Generator(device=dev).manual_seed(16)
+    deltas = [1e-3 * torch.randn((n_pods,) + tuple(g.shape), generator=gen,
+                                 device=dev, dtype=torch.bfloat16)
+              for g in g_leaves]
+    axes = [wire.block_axis(d.shape) for d in deltas]
+    w2 = torch.tensor([1 / 3.1, 1 / 3.2], device=dev)
+    w1 = torch.tensor(1 / 3.4, device=dev)
+    denom = w1 + w2.sum()
+    push = torch.tensor(True, device=dev)
+    n = sum(g.numel() for g in g_leaves)
+    for name, fmt in (("dequant_merge_packed", "int4"),
+                      ("dequant_merge", "int8"),
+                      ("loss_weighted_update", "none")):
+        if fmt == "none":
+            pods = [(g[None] + d) for g, d in zip(g_leaves, deltas)]
+            ins = g_leaves + pods
+            kern = lambda: [loss_weighted_update_cuda(  # noqa: E731
+                g, p, w1, w2, denom, push) for g, p in zip(g_leaves, pods)]
+            plain = lambda: [ref.loss_weighted_update_ref(  # noqa: E731
+                g, p, w1, w2, denom, push) for g, p in zip(g_leaves, pods)]
+            flops = 2 + 2 * n_pods
+        else:
+            pays = wire.get_format(fmt).encode_group(
+                deltas, [(0, i) for i in range(len(deltas))],
+                wire.GeneratorNoise(16, dev))
+            key = "q_packed" if fmt == "int4" else "q"
+            leaves = [(g, p[key], p["scales"], ax)
+                      for g, p, ax in zip(g_leaves, pays, axes)]
+            ins = g_leaves + [t for p in pays for t in p.values()]
+            group = (dequant_merge_packed_group_cuda if fmt == "int4"
+                     else dequant_merge_group_cuda)
+            oracle = (ref.dequant_merge_packed_ref if fmt == "int4"
+                      else ref.dequant_merge_ref)
+            kern = lambda: group(leaves, w2, denom, push)  # noqa: E731
+            plain = lambda: [oracle(  # noqa: E731
+                g, q, sc, w2, denom, push, axis=ax)
+                for g, q, sc, ax in leaves]
+            flops = 2 + 3 * n_pods
+        got = kern()
+        err = 0.0
+        for a, b in zip(got, plain()):
+            if not torch.equal(a, b):
+                raise AssertionError(f"bf16 {name} differs from its plain "
+                                     f"version at {tuple(a.shape)}")
+        moved = nbytes(ins) + nbytes(got)
+        del got
+        bound_ms, bound_by = bound(n * flops, moved, {t.dtype for t in ins})
+        build.reset_launches()
+        kern()
+        per_pass = build.LAUNCHES[name]
+        ms = device_ms(torch, kern, reps=5)
+        plain_ms = time_ms(torch, plain, reps=2, warmup=1)
+        label = f"{name}[{arch} bf16]"
+        results[label] = {
+            "name": label, "route": "cuda", "source": WIRE_SOURCE,
+            "replaces": REPLACES[name], "launches": launches[name],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "launches_per_pass": per_pass}
+        log(f"    {label}: equal=True  kernel {ms:.3f} ms ({per_pass} "
+            f"launches a pass)  plain {plain_ms:.3f} ms  bound "
+            f"{bound_ms:.3f} ms ({bound_by}; {moved / 1e9:.3f} GB)  "
+            f"{bound_ms / ms:5.1%} of the bound; {launches[name]} launches "
+            f"on the rounds above")
+        del kern, plain, ins
+        if fmt == "none":
+            del pods
+        else:
+            del pays, leaves
+        torch.cuda.empty_cache()
+    del g_leaves, deltas
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3240,14 +3415,15 @@ def main() -> int:
                        (12, lambda: two_tier(torch, dev, results)),
                        (13, lambda: elastic(torch, dev, results)),
                        (14, lambda: mla_and_zoo(torch, dev, results)),
-                       (15, lambda: encdec_and_vlm(torch, dev, results))):
+                       (15, lambda: encdec_and_vlm(torch, dev, results)),
+                       (16, lambda: wire_audits(torch, dev, results))):
         gc.collect()
         log(f"--- phase {phase} starts at {time.perf_counter() - t_start:.1f}"
             f" s, {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
         run()
     log(f"--- all phases done at {time.perf_counter() - t_start:.1f} s")
 
-    # ---- 16. result lines -------------------------------------------------
+    # ---- 17. result lines -------------------------------------------------
     print(json.dumps({"kernels": list(results.values())}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

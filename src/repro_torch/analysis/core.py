@@ -7,9 +7,9 @@ raises :class:`AnalysisError` (an ``AssertionError``, so pytest and the
 audit callers treat it like an inline assert) listing every violation.
 The reference's rules read lowered HLO; eager PyTorch has none, so a
 target carries the kernels' launch specs (``kernels/build.py:
-LaunchSpec``) in its place, beside the python callable whose source the
-AST rules read.  Nothing here launches a kernel or imports a device
-runtime.
+LaunchSpec``) and the collectives a rank issued in its place, beside the
+python callable whose source the AST rules read.  Nothing here launches
+a kernel or imports a device runtime.
 
 Adding a rule::
 
@@ -54,12 +54,15 @@ class AnalysisError(AssertionError):
 @dataclasses.dataclass
 class Target:
     """What a rule sees: the python callable (``fn``, with
-    ``example_args``) for the AST rules, and the kernel launch specs
-    (``launches``) for the tile lint."""
+    ``example_args``) for the AST rules, the kernel launch specs
+    (``launches``) for the tile lint, and the collectives one rank
+    issued (``collectives``: ``analysis.collectives.records``) for the
+    collective-placement rule."""
     fn: Optional[Callable] = None
     example_args: Tuple = ()
     label: str = "<target>"
     launches: Tuple[Any, ...] = ()
+    collectives: Tuple[Dict[str, Any], ...] = ()
 
 
 class Rule:
@@ -109,17 +112,20 @@ class Report:
 
 def analyze(rules: Sequence[Rule], *, fn: Optional[Callable] = None,
             example_args: Tuple = (), launches: Sequence[Any] = (),
+            collectives: Sequence[Dict[str, Any]] = (),
             label: Optional[str] = None, fail: bool = True) -> Report:
     """Run ``rules`` over one target; the analyzer's one entry point.
 
     ``fn``/``example_args`` feed the rules that read source, ``launches``
-    (launch specs) the tile lint.  With ``fail=True`` (default) any
+    (launch specs) the tile lint, ``collectives`` (counted records) the
+    collective placement.  With ``fail=True`` (default) any
     violation raises :class:`AnalysisError` naming every violation class;
     ``fail=False`` returns the :class:`Report` for callers that
     aggregate."""
     target = Target(fn=fn, example_args=tuple(example_args),
                     label=label or getattr(fn, "__name__", "<target>"),
-                    launches=tuple(launches))
+                    launches=tuple(launches),
+                    collectives=tuple(collectives))
     violations: List[Violation] = []
     for rule in rules:
         violations.extend(rule.check(target))

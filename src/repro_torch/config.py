@@ -236,10 +236,14 @@ class ParallelConfig:
     ``microbatch`` (0: no gradient accumulation) alone; ``zero1`` and
     ``fsdp`` shard optimizer state and parameters over a data axis, which
     one card does not have, and are carried with the reference's
-    defaults and ignored."""
+    defaults.  ``launch/mesh.py:arch_rules`` reads ``fsdp``,
+    ``sequence_parallel`` and ``expert_parallel`` into the rule table of a
+    production mesh's shape."""
 
     fsdp: bool = False
     zero1: bool = True
+    sequence_parallel: bool = True  # shard layer-boundary activations on seq
+    expert_parallel: bool = True  # shard MoE experts over the model axis
     microbatch: int = 0
 
 

@@ -21,12 +21,11 @@ plain versions.
 """
 from __future__ import annotations
 
-import functools
 from typing import Any, Optional, Tuple
 
 import torch
 
-from repro_torch.dist.wire import NoiseFn, get_format, payload_nbytes
+from repro_torch.dist.wire import NoiseFn, get_format
 from repro_torch.kernels import ops
 from repro_torch.utils.trees import (
     flatten_up_to, tree_flatten, tree_map, tree_unflatten,
@@ -89,27 +88,23 @@ def compress_tree(tree: Tree, mode: str, error: Optional[Tree] = None, *,
     return rec, err
 
 
-@functools.lru_cache(maxsize=None)
-def _leaf_bytes(mode: str, shape: Tuple[int, ...]) -> int:
-    """The bytes of one encoded fp32 leaf of ``shape``, measured from what
-    the format's ``encode`` emits for a CPU tensor of zeros."""
-    payload = get_format(mode).encode(torch.zeros(shape), key=(0, 0))
-    return payload_nbytes(payload)
-
-
 def payload_bytes(tree: Tree, mode: str, *, param_axes=None,
                   rules=None) -> int:
     """Wire bytes for one push of ``tree`` under ``mode``, *measured* per
     leaf from the format's encoded payload (block padding, scales and the
-    int4 nibble packing included) and memoised per shape.  Leaf dtypes
-    are ignored: the wire format is billed, not the in-memory dtype.
+    int4 nibble packing included; ``WireFormat.payload_bytes``, on
+    ``meta`` tensors).  Leaf dtypes are ignored: the wire format is
+    billed as for fp32 leaves, not the in-memory dtype (``none`` ships a
+    leaf's own dtype, so a bf16 tree's ``none`` wire is half its bill).
 
-    The reference's ``param_axes`` / ``rules`` sharding hint needs the
-    port of ``dist/sharding.py`` (ROADMAP queue 1 item 8) and raises."""
-    if param_axes is not None or rules is not None:
-        raise NotImplementedError(
-            "payload_bytes: the param_axes/rules block_axis hint needs "
-            "dist/sharding.py, not ported yet (ROADMAP queue 1 item 8)")
-    get_format(mode)  # an unknown mode raises even for an empty tree
-    return sum(_leaf_bytes(mode, tuple(int(n) for n in x.shape))
-               for x in tree_flatten(tree)[0])
+    ``param_axes`` (a tree of ``tree``'s structure, one logical-axes
+    tuple a leaf: ``models.lm.param_axes``) and ``rules`` forward
+    ``block_axis``' sharding hint leaf by leaf; the memo is keyed on the
+    resolved blocked axis."""
+    fmt = get_format(mode)  # an unknown mode raises even for an empty tree
+    leaves, treedef = tree_flatten(tree)
+    if param_axes is None:
+        return sum(fmt.payload_bytes(x.shape) for x in leaves)
+    axes = flatten_up_to(treedef, param_axes)
+    return sum(fmt.payload_bytes(x.shape, axes=a, rules=rules)
+               for x, a in zip(leaves, axes))

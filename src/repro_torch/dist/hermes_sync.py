@@ -322,6 +322,16 @@ def _encode_push(pod_params, gates, w_global, compression, error,
             _new_error(mine, residual, error, track_error, treedef))
 
 
+def _recv(g, p, fmt, n_pods):
+    """The pods' reconstructed models ``g[None] + decode(p)``, summed into
+    the decoded array when the decode made a new one (a whole pod-stacked
+    temporary less at a vocabulary table; the same sum)."""
+    d = fmt.decode(p, (n_pods,) + tuple(g.shape), g.dtype)
+    if any(d.data_ptr() == a.data_ptr() for a in p.values()):
+        return g[None] + d
+    return d.add_(g[None])
+
+
 def _merge_payloads(w_global, payloads, w1, w2, denom, any_push, compression,
                     use_kernel, n_pods):
     """The receiver half: merge the shipped payloads into ``w_global``
@@ -348,7 +358,7 @@ def _merge_payloads(w_global, payloads, w1, w2, denom, any_push, compression,
     for i, (g, p) in enumerate(zip(g_leaves, pays)):
         if merged[i] is not None:
             continue
-        recv = g[None] + fmt.decode(p, (n_pods,) + tuple(g.shape), g.dtype)
+        recv = _recv(g, p, fmt, n_pods)
         if fmt.fused_merge_group is not None:  # blocked on the pod axis
             merged[i] = _merge_leaf(g, recv, w1, w2, denom, any_push)
         else:

@@ -70,10 +70,42 @@ def norm_shape(shape) -> Tuple[int, ...]:
     return s if s else (1,)
 
 
-def block_axis(shape: Sequence[int]) -> int:
+def _shard_factor(rule, mesh) -> int:
+    """Devices ``rule`` splits one axis over (1 unsharded or with no
+    mesh); ``mesh`` a ``dist.sharding.MeshShape``."""
+    if rule is None or mesh is None:
+        return 1
+    members = (rule,) if isinstance(rule, str) else tuple(rule)
+    f = 1
+    for m in members:
+        f *= mesh.axis_size(m)
+    return f
+
+
+def block_axis(shape: Sequence[int], *,
+               axes: Optional[Sequence[Optional[str]]] = None,
+               rules=None) -> int:
     """The axis the absmax blocks tile: the rightmost whole-block axis,
-    else the last.  Deterministic in the shape alone."""
+    else the last.  Deterministic in the shape alone, so encode and
+    decode need no side channel, and they take this shape-only path.
+
+    ``axes`` (the leaf's logical axes, ``models.lm.param_axes``) and
+    ``rules`` (a ``dist.sharding.AxisRules`` with a mesh shape) are the
+    reference's advisory sharding hint: the rightmost whole-block axis
+    whose per-shard slice is still whole blocks is preferred over one
+    sharded out of alignment; with no such axis the shape-only rule
+    holds.  Placement planning and the dry-run audit read it (the audit
+    holds every leaf of an architecture to no drift between the two)."""
     s = norm_shape(shape)
+    if axes is not None and rules is not None:
+        axs = list(axes) + [None] * (len(s) - len(axes))
+        for ax in range(len(s) - 1, -1, -1):
+            if s[ax] % BLOCK != 0:
+                continue
+            f = _shard_factor(rules.rules.get(axs[ax]) if axs[ax] else None,
+                              rules.mesh)
+            if s[ax] % f == 0 and (s[ax] // f) % BLOCK == 0:
+                return ax
     for ax in range(len(s) - 1, -1, -1):
         if s[ax] % BLOCK == 0:
             return ax
@@ -158,6 +190,27 @@ class WireFormat:
         return [self.decode(p, s, dt)
                 for p, s, dt in zip(payloads, shapes, dtypes)]
 
+    def _encode_at(self, x: torch.Tensor, ax: int) -> Payload:
+        """The billing twin of ``encode`` with the blocked axis forced to
+        ``ax``; a format with no blocked layout ignores it."""
+        return self.encode(x, key=(0, 0), noise=_zero_noise)
+
+    def payload_bytes(self, shape, *, axes=None, rules=None) -> int:
+        """Wire bytes of one fp32 leaf of ``shape``, *measured* from what
+        the format emits for a ``meta`` tensor of that shape (block
+        padding, scales and nibble packing included; nothing allocated).
+        ``axes`` / ``rules`` are :func:`block_axis`'s hint, and the memo
+        is keyed on the resolved blocked axis, so a hint that moves the
+        axis re-measures instead of returning the shape-only bill."""
+        s = norm_shape(shape)
+        ax = block_axis(s, axes=axes, rules=rules)
+        cache = self.__dict__.setdefault("_measured_bytes", {})
+        got = cache.get((s, ax))
+        if got is None:
+            got = cache[(s, ax)] = payload_nbytes(self._encode_at(
+                torch.empty(s, dtype=torch.float32, device="meta"), ax))
+        return got
+
 
 class NoneFormat(WireFormat):
     """fp32 leaves verbatim: 4 bytes/element."""
@@ -195,12 +248,15 @@ class BlockedIntFormat(WireFormat):
     qmax: int = 127
 
     def _round(self, y: torch.Tensor, key, noise) -> torch.Tensor:
-        return torch.round(y)
+        """Round ``y`` (the scaled blocks) in place."""
+        return y.round_()
 
-    def _quantize(self, x: torch.Tensor, key, noise):
-        """Whole-block quantization: (q_padded, scales, s, ax, d, nb)."""
+    def _quantize(self, x: torch.Tensor, key, noise,
+                  ax: Optional[int] = None):
+        """Whole-block quantization along ``ax`` (default
+        :func:`block_axis`): (q_padded, scales, s, ax, d, nb)."""
         s = norm_shape(x.shape)
-        ax = block_axis(s)
+        ax = block_axis(s) if ax is None else ax
         d = s[ax]
         nb = -(-d // BLOCK)
         xb = ref.pad_axis(x.reshape(s).to(torch.float32), ax, nb * BLOCK)
@@ -209,8 +265,13 @@ class BlockedIntFormat(WireFormat):
         qmax = torch.tensor(float(self.qmax), device=x.device)
         scale = torch.amax(torch.abs(xb), dim=ax + 1, keepdim=True) / qmax
         scale = torch.clamp(scale, min=1e-12)
-        q = torch.clamp(self._round(xb / scale, key, noise),
-                        -float(self.qmax), float(self.qmax))
+        # in place from here on (bitwise the out-of-place ops): at a
+        # vocabulary table the widened leaf's temporaries are the encode's
+        # peak memory
+        y = xb / scale
+        del xb
+        q = self._round(y, key, noise).clamp_(-float(self.qmax),
+                                              float(self.qmax))
         return (q.to(torch.int8).reshape(s[:ax] + (nb * BLOCK,) + s[ax + 1:]),
                 scale.reshape(s[:ax] + (nb,) + s[ax + 1:]), s, ax, d, nb)
 
@@ -233,7 +294,10 @@ class Int8Format(BlockedIntFormat):
     name = "int8"
 
     def encode(self, x, *, key=None, noise=None):
-        q, scale, s, ax, d, nb = self._quantize(x, key, noise)
+        return self._encode_at(x, None, key, noise)
+
+    def _encode_at(self, x, ax, key=(0, 0), noise=None):
+        q, scale, s, ax, d, nb = self._quantize(x, key, noise, ax)
         return {"q": q.narrow(ax, 0, d).contiguous(), "scales": scale}
 
     def fused_merge_group(self, gs, payloads, w2, denom, any_push):
@@ -261,12 +325,15 @@ class Int4Format(BlockedIntFormat):
             noise = GeneratorNoise(0, y.device)
         u = torch.as_tensor(noise(round_step, leaf, tuple(y.shape)),
                             dtype=torch.float32, device=y.device)
-        return torch.floor(y + u)
+        return y.add_(u).floor_()
 
-    def encode_group(self, xs, keys, noise=None):
+    def encode_group(self, xs, keys, noise=None, axes=None):
         """Quantize every leaf (leaf ``i``'s noise under ``keys[i]``, in
-        order), then pack them all in one grouped call, tails included."""
-        qs = [self._quantize(x, key, noise) for x, key in zip(xs, keys)]
+        order; blocked on ``axes[i]`` when given), then pack them all in
+        one grouped call, tails included."""
+        axes = [None] * len(xs) if axes is None else axes
+        qs = [self._quantize(x, key, noise, ax)
+              for x, key, ax in zip(xs, keys, axes)]
         packed = ops.pack_int4_group([(q, d, ax)
                                       for q, _, _, ax, d, _ in qs])
         return [{"q_packed": p, "scales": scale}
@@ -274,6 +341,9 @@ class Int4Format(BlockedIntFormat):
 
     def encode(self, x, *, key=None, noise=None):
         return self.encode_group([x], [key], noise)[0]
+
+    def _encode_at(self, x, ax):
+        return self.encode_group([x], [(0, 0)], _zero_noise, [ax])[0]
 
     def unpack_group(self, payloads: Sequence[Payload], shapes
                      ) -> List[torch.Tensor]:
@@ -457,6 +527,35 @@ def control_operand_spec(rows: int) -> Tuple[str, Tuple[int, ...], int]:
     (the reference's ``control_bytes``): each rank gathers its pods' loss
     and gate bit as ``rows`` fp32 pairs, whether or not the round opens."""
     return ("float32", (int(rows), 2), 8 * int(rows))
+
+
+def classify_round_collectives(records: List[Dict], specs, *,
+                               control_bytes: Optional[int] = None,
+                               n_pods: int = 2,
+                               n_clusters: Optional[int] = None,
+                               cluster_records: Optional[List[Dict]] = None,
+                               cluster_specs=None) -> Dict:
+    """Match a round's pod-crossing collective operands against the
+    expected wire specs (:func:`wire_operand_specs`); the classification
+    itself is ``analysis.collectives.classify_collectives``, where the
+    collective-placement rule reuses it.  With ``n_clusters`` (two-tier
+    rounds), ``records`` is the pod-crossing set and ``cluster_records``
+    its cluster-crossing subset: the rest is classified against ``specs``
+    (the fast tier) and ``cluster_records`` against ``cluster_specs``
+    (:func:`cluster_wire_operand_specs`), under a ``"cluster"`` key."""
+    from repro_torch.analysis.collectives import classify_collectives
+    if n_clusters is None or cluster_records is None:
+        return classify_collectives(records, specs,
+                                    control_bytes=control_bytes,
+                                    n_pods=n_pods)
+    cluster_ids = {id(r) for r in cluster_records}
+    intra = [r for r in records if id(r) not in cluster_ids]
+    out = classify_collectives(intra, specs, control_bytes=control_bytes,
+                               n_pods=n_pods)
+    out["cluster"] = classify_collectives(
+        cluster_records, list(cluster_specs or ()),
+        control_bytes=control_bytes, n_pods=n_pods)
+    return out
 
 
 _REGISTRY: Dict[str, WireFormat] = {}

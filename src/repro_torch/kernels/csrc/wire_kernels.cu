@@ -23,9 +23,15 @@
 // The floating-point kernels use __fmul_rn / __fadd_rn / __fdiv_rn, which
 // nvcc never contracts into an FMA, so each equals its plain PyTorch
 // version (one rounding per operation, pods accumulated in order) bit for
-// bit.
+// bit.  The three merges take g (and the fp32 merge its pods) in fp32,
+// bf16 or fp16, as the reference's kernels take any float leaf: each
+// element is widened to fp32 on load, merged in fp32, and rounded once to
+// g's dtype on store, as the plain version's final .to(g.dtype) does.
 
 #include <cstdint>
+#include <cstring>
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -50,6 +56,58 @@ __device__ __forceinline__ int8_t nibble_join(int lo, int hi) {
 
 __device__ __forceinline__ int nibble_lo(int p) { return ((p & 0xF) ^ 8) - 8; }
 __device__ __forceinline__ int nibble_hi(int p) { return p >> 4; }  // arithmetic
+
+// ---- the merges' leaf dtypes ---------------------------------------------
+//
+// A merge leaf is fp32, bf16 or fp16 (the launchers' dtype codes 0, 1, 2):
+// widen on load, round to nearest even once on store.
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ float widen(__half x) { return __half2float(x); }
+
+template <typename T> __device__ __forceinline__ T narrow(float x);
+template <> __device__ __forceinline__ float narrow<float>(float x) {
+  return x;
+}
+template <> __device__ __forceinline__ __nv_bfloat16
+narrow<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+template <> __device__ __forceinline__ __half narrow<__half>(float x) {
+  return __float2half_rn(x);
+}
+
+// Four consecutive elements of T, 4 * sizeof(T)-byte aligned: one float4
+// or one 8-byte access, widened to (or rounded from) fp32.
+template <typename T>
+__device__ __forceinline__ void load4(const T* p, float v[4]) {
+  if constexpr (sizeof(T) == 4) {
+    const float4 x = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+  } else {
+    const uint2 x = __ldg(reinterpret_cast<const uint2*>(p));
+    T h[4];
+    memcpy(h, &x, sizeof(x));
+#pragma unroll
+    for (int k = 0; k < 4; ++k) v[k] = widen(h[k]);
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void store4(T* p, const float v[4]) {
+  if constexpr (sizeof(T) == 4) {
+    __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+  } else {
+    T h[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) h[k] = narrow<T>(v[k]);
+    uint2 x;
+    memcpy(&x, h, sizeof(x));
+    __stcs(reinterpret_cast<uint2*>(p), x);
+  }
+}
 
 // ---- the int4 pack and unpack -------------------------------------------
 //
@@ -332,8 +390,8 @@ constexpr int kPodChunk = 4;           // pods whose payload loads together
 constexpr int kLeafFields = 13;        // int64 fields of a leaf descriptor
 
 struct MergeLeaf {
-  const float* g;
-  float* out;
+  const void* g;     // the launch's leaf dtype T, as out
+  void* out;
   const int8_t* q;
   const float* scales;
   long long outer, d, inner, nb;
@@ -351,19 +409,20 @@ struct MergeGroup {
   int has_cols;      // a leaf has column tiles: scales staged in shared memory
 };
 
-// A leaf's sizes in the launch's index type.
-template <typename I>
+// A leaf's sizes in the launch's index type, g and out as T.
+template <typename T, typename I>
 struct LeafView {
-  const float* g;
-  float* out;
+  const T* g;
+  T* out;
   const int8_t* q;
   const float* scales;
   I outer, d, inner, nb, prow, pod_q, pod_s;
   int htail;
   bool vec;
   __device__ explicit LeafView(const MergeLeaf& L)
-      : g(L.g), out(L.out), q(L.q), scales(L.scales), outer((I)L.outer),
-        d((I)L.d), inner((I)L.inner), nb((I)L.nb), prow((I)L.prow),
+      : g(static_cast<const T*>(L.g)), out(static_cast<T*>(L.out)), q(L.q),
+        scales(L.scales), outer((I)L.outer), d((I)L.d), inner((I)L.inner),
+        nb((I)L.nb), prow((I)L.prow),
         pod_q((I)(L.outer * L.prow * L.inner)),
         pod_s((I)(L.outer * L.nb * L.inner)), htail(L.htail),
         vec(L.vec != 0) {}
@@ -384,22 +443,22 @@ __device__ __forceinline__ int word_hi(unsigned w, int m) {
 // contiguous axis (e for row tiles, i for column tiles) and the four 128
 // rows further.  col_sc: the slot's columns of the staged scales (column
 // tiles), pod p's at col_sc[p * kColWidth].
-template <bool kPacked, bool kCol, typename I>
-__device__ __forceinline__ void merge_slot(const LeafView<I>& L, I o, I b,
+template <bool kPacked, bool kCol, typename T, typename I>
+__device__ __forceinline__ void merge_slot(const LeafView<T, I>& L, I o, I b,
                                            int k, I i, const float* col_sc,
                                            const float* w2, int n_pods,
                                            float denom, bool push) {
   if (L.vec && (b + 1) * kBlock <= L.d) {
     const I ga = (o * L.d + b * kBlock + k) * L.inner + i;
     const I gb = ga + kHalf * L.inner;
-    const float4 a4 = __ldg(reinterpret_cast<const float4*>(L.g + ga));
-    const float4 b4 = __ldg(reinterpret_cast<const float4*>(L.g + gb));
-    if (!push) {
-      __stcs(reinterpret_cast<float4*>(L.out + ga), a4);
-      __stcs(reinterpret_cast<float4*>(L.out + gb), b4);
+    float acc[8];
+    load4(L.g + ga, acc);
+    load4(L.g + gb, acc + 4);
+    if (!push) {  // g as it was: its widening rounds back exactly
+      store4(L.out + ga, acc);
+      store4(L.out + gb, acc + 4);
       return;
     }
-    float acc[8] = {a4.x, a4.y, a4.z, a4.w, b4.x, b4.y, b4.z, b4.w};
 #pragma unroll
     for (int m = 0; m < 8; ++m) acc[m] = __fmul_rn(denom, acc[m]);
     const I qa = kPacked ? (o * L.prow + b * kHalf + k) * L.inner + i : ga;
@@ -441,10 +500,8 @@ __device__ __forceinline__ void merge_slot(const LeafView<I>& L, I o, I b,
     }
 #pragma unroll
     for (int m = 0; m < 8; ++m) acc[m] = __fdiv_rn(acc[m], denom);
-    __stcs(reinterpret_cast<float4*>(L.out + ga),
-           make_float4(acc[0], acc[1], acc[2], acc[3]));
-    __stcs(reinterpret_cast<float4*>(L.out + gb),
-           make_float4(acc[4], acc[5], acc[6], acc[7]));
+    store4(L.out + ga, acc);
+    store4(L.out + gb, acc + 4);
     return;
   }
   // the scalar path: element by element, masked to the leaf
@@ -454,11 +511,11 @@ __device__ __forceinline__ void merge_slot(const LeafView<I>& L, I o, I b,
     const I e = b * kBlock + kk;
     if (e >= L.d || ii >= L.inner) continue;
     const I gi = (o * L.d + e) * L.inner + ii;
-    const float gv = L.g[gi];
     if (!push) {
-      L.out[gi] = gv;
+      L.out[gi] = L.g[gi];
       continue;
     }
+    const float gv = widen(L.g[gi]);
     I qi = gi;
     bool high = false;
     if (kPacked) {
@@ -475,12 +532,12 @@ __device__ __forceinline__ void merge_slot(const LeafView<I>& L, I o, I b,
       acc = __fadd_rn(acc, __fmul_rn(w2[pod], __fmul_rn(
           qv, L.scales[pod * L.pod_s + si])));
     }
-    L.out[gi] = __fdiv_rn(acc, denom);
+    L.out[gi] = narrow<T>(__fdiv_rn(acc, denom));
   }
 }
 
 // The tile walk both merge kernels share.
-template <bool kPacked, typename I>
+template <bool kPacked, typename T, typename I>
 __device__ __forceinline__ void merge_tiles(const MergeGroup& grp,
                                             const float* __restrict__ scal,
                                             int n_pods) {
@@ -498,7 +555,7 @@ __device__ __forceinline__ void merge_tiles(const MergeGroup& grp,
   int li = 0;
   for (long long t = blockIdx.x; t < grp.n_tiles; t += gridDim.x) {
     while (li + 1 < grp.n_leaves && t >= grp.leaf[li + 1].tile0) ++li;
-    const LeafView<I> L(grp.leaf[li]);
+    const LeafView<T, I> L(grp.leaf[li]);
     const int tc = grp.leaf[li].tc;
     const I tile = static_cast<I>(t - grp.leaf[li].tile0);
     if (tc == 0) {
@@ -507,8 +564,8 @@ __device__ __forceinline__ void merge_tiles(const MergeGroup& grp,
         const I u = tile * kRowUnits + s * kWarps + warp;
         if (u >= units) break;
         const I o = u / L.nb;
-        merge_slot<kPacked, false, I>(L, o, u - o * L.nb, 4 * lane, 0,
-                                      nullptr, w2, n_pods, denom, push);
+        merge_slot<kPacked, false, T, I>(L, o, u - o * L.nb, 4 * lane, 0,
+                                         nullptr, w2, n_pods, denom, push);
       }
       continue;
     }
@@ -538,19 +595,20 @@ __device__ __forceinline__ void merge_tiles(const MergeGroup& grp,
     if (i >= L.inner) continue;
     for (int j = rg * kColPairs + r; j < (rg + 1) * kColPairs;
          j += kThreads / tc) {
-      merge_slot<kPacked, true, I>(L, o, ob - o * L.nb, j, i, col_sc + 4 * c,
-                                   w2, n_pods, denom, push);
+      merge_slot<kPacked, true, T, I>(L, o, ob - o * L.nb, j, i,
+                                      col_sc + 4 * c, w2, n_pods, denom,
+                                      push);
     }
   }
 }
 
 // Replaces src/repro/kernels/dequant_merge.py:dequant_merge_packed
 // (_packed_kernel), every leaf of a tree in one launch.
-template <typename I>
+template <typename T, typename I>
 __global__ void __launch_bounds__(kThreads, kMergeBlocksPerSm)
 dequant_merge_packed_kernel(const __grid_constant__ MergeGroup grp,
                             const float* __restrict__ scal, int n_pods) {
-  merge_tiles<true, I>(grp, scal, n_pods);
+  merge_tiles<true, T, I>(grp, scal, n_pods);
 }
 
 // Replaces src/repro/kernels/dequant_merge.py:dequant_merge (_kernel, the
@@ -558,19 +616,20 @@ dequant_merge_packed_kernel(const __grid_constant__ MergeGroup grp,
 // reads it where it lies: no moveaxis copy, no re-padding of q or g and no
 // per-128-lane scale expansion, which the TPU wrapper needs for its (32,
 // 128) tiles.
-template <typename I>
+template <typename T, typename I>
 __global__ void __launch_bounds__(kThreads, kMergeBlocksPerSm)
 dequant_merge_kernel(const __grid_constant__ MergeGroup grp,
                      const float* __restrict__ scal, int n_pods) {
-  merge_tiles<false, I>(grp, scal, n_pods);
+  merge_tiles<false, T, I>(grp, scal, n_pods);
 }
 
 // Unpacks the leaf descriptors (kLeafFields int64 each: g, out, q,
 // scales, outer, d, inner, nb, prow, htail, tc, vec, tiles) and launches
-// the persistent grid; ``wide`` takes 64-bit offsets.
-template <bool kPacked>
-int launch_merge(const long long* desc, int n_leaves, const void* scal,
-                 int n_pods, int wide, void* stream) {
+// the persistent grid; every leaf's g and out are T, ``wide`` takes
+// 64-bit offsets.
+template <bool kPacked, typename T>
+int launch_merge_t(const long long* desc, int n_leaves, const void* scal,
+                   int n_pods, int wide, void* stream) {
   if (n_leaves < 1 || n_leaves > kMergeLeaves || n_pods < 1)
     return (int)cudaErrorInvalidValue;
   MergeGroup grp = {};
@@ -578,8 +637,8 @@ int launch_merge(const long long* desc, int n_leaves, const void* scal,
   for (int l = 0; l < n_leaves; ++l) {
     const long long* f = desc + l * kLeafFields;
     MergeLeaf& L = grp.leaf[l];
-    L.g = reinterpret_cast<const float*>(f[0]);
-    L.out = reinterpret_cast<float*>(f[1]);
+    L.g = reinterpret_cast<const void*>(f[0]);
+    L.out = reinterpret_cast<void*>(f[1]);
     L.q = reinterpret_cast<const int8_t*>(f[2]);
     L.scales = reinterpret_cast<const float*>(f[3]);
     L.outer = f[4]; L.d = f[5]; L.inner = f[6]; L.nb = f[7]; L.prow = f[8];
@@ -596,10 +655,10 @@ int launch_merge(const long long* desc, int n_leaves, const void* scal,
       sizeof(float) * n_pods * (1 + (grp.has_cols ? kColWidth : 0));
   const cudaStream_t s = (cudaStream_t)stream;
   void (*kernel)(const MergeGroup, const float*, int) =
-      kPacked ? (wide ? dequant_merge_packed_kernel<long long>
-                      : dequant_merge_packed_kernel<unsigned>)
-              : (wide ? dequant_merge_kernel<long long>
-                      : dequant_merge_kernel<unsigned>);
+      kPacked ? (wide ? dequant_merge_packed_kernel<T, long long>
+                      : dequant_merge_packed_kernel<T, unsigned>)
+              : (wide ? dequant_merge_kernel<T, long long>
+                      : dequant_merge_kernel<T, unsigned>);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -609,29 +668,59 @@ int launch_merge(const long long* desc, int n_leaves, const void* scal,
   return (int)cudaGetLastError();
 }
 
-// out = any_push ? (w1*g + sum_k w2_k*pods_k) / denom : g, flat.
-// scal = [w1, denom, any_push, w2_0 .. w2_{P-1}] on the device.
-template <typename I>
+// dtype: 0 fp32, 1 bf16, 2 fp16 (the leaves' g and out).
+template <bool kPacked>
+int launch_merge(const long long* desc, int n_leaves, const void* scal,
+                 int n_pods, int dtype, int wide, void* stream) {
+  switch (dtype) {
+    case 0: return launch_merge_t<kPacked, float>(desc, n_leaves, scal,
+                                                  n_pods, wide, stream);
+    case 1: return launch_merge_t<kPacked, __nv_bfloat16>(
+        desc, n_leaves, scal, n_pods, wide, stream);
+    case 2: return launch_merge_t<kPacked, __half>(desc, n_leaves, scal,
+                                                   n_pods, wide, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// out = any_push ? (w1*g + sum_k w2_k*pods_k) / denom : g, flat, g, pods
+// and out all T.  scal = [w1, denom, any_push, w2_0 .. w2_{P-1}] on the
+// device.
+template <typename T, typename I>
 __global__ void loss_weighted_update_kernel(
-    const float* __restrict__ g, const float* __restrict__ pods,
-    const float* __restrict__ scal, float* __restrict__ out, int n_pods,
-    I n) {
+    const T* __restrict__ g, const T* __restrict__ pods,
+    const float* __restrict__ scal, T* __restrict__ out, int n_pods, I n) {
   const float w1 = scal[0];
   const float denom = scal[1];
   const bool any_push = scal[2] > 0.5f;
   for (I idx = blockIdx.x * (I)blockDim.x + threadIdx.x; idx < n;
        idx += (I)gridDim.x * blockDim.x) {
-    const float gv = g[idx];
     if (!any_push) {
-      out[idx] = gv;
+      out[idx] = g[idx];
       continue;
     }
-    float acc = __fmul_rn(w1, gv);
+    float acc = __fmul_rn(w1, widen(g[idx]));
     for (int pod = 0; pod < n_pods; ++pod) {
-      acc = __fadd_rn(acc, __fmul_rn(scal[3 + pod], pods[pod * n + idx]));
+      acc = __fadd_rn(acc, __fmul_rn(scal[3 + pod],
+                                     widen(pods[pod * n + idx])));
     }
-    out[idx] = __fdiv_rn(acc, denom);
+    out[idx] = narrow<T>(__fdiv_rn(acc, denom));
   }
+}
+
+template <typename T>
+int launch_lwu_t(const void* g, const void* pods, const void* scal,
+                 void* out, int n_pods, long long n, cudaStream_t s) {
+  if (fits32(n_pods * n)) {
+    loss_weighted_update_kernel<T, unsigned><<<grid_for(n), kThreads, 0, s>>>(
+        (const T*)g, (const T*)pods, (const float*)scal, (T*)out, n_pods,
+        (unsigned)n);
+  } else {
+    loss_weighted_update_kernel<T, long long><<<grid_for(n), kThreads, 0,
+                                                s>>>(
+        (const T*)g, (const T*)pods, (const float*)scal, (T*)out, n_pods, n);
+  }
+  return (int)cudaGetLastError();
 }
 
 // NaN-propagating max, as torch.amax and jnp.max reduce.
@@ -739,42 +828,41 @@ int launch_unpack_int4(const void* desc, int n_leaves, int wide,
 // (_packed_kernel).  Bound by HBM bytes: g 498.7 MB + packed 249.3 MB +
 // scales 7.8 MB read, 498.7 MB written at lm100m x 4 pods = 1.254 GB,
 // 0.374 ms at 3.35 TB/s.  desc: n_leaves (at most kMergeLeaves) leaf
-// descriptors, merged in one launch.
+// descriptors of one dtype (0 fp32, 1 bf16, 2 fp16), merged in one
+// launch.
 int launch_dequant_merge_packed(const void* desc, int n_leaves,
-                                const void* scal, int n_pods, int wide,
-                                void* stream) {
+                                const void* scal, int n_pods, int dtype,
+                                int wide, void* stream) {
   return launch_merge<true>((const long long*)desc, n_leaves, scal, n_pods,
-                            wide, stream);
+                            dtype, wide, stream);
 }
 
 // Replaces src/repro/kernels/loss_weighted_update.py:loss_weighted_update
 // (_kernel).  Bound by HBM bytes: g 498.7 MB + pods 1994.7 MB read,
 // 498.7 MB written at lm100m x 4 pods = 2.99 GB, 0.893 ms at 3.35 TB/s.
-// g/out: (n,) fp32; pods: (n_pods, n) fp32.
+// g/out: (n,); pods: (n_pods, n); all of one dtype (0 fp32, 1 bf16, 2
+// fp16).
 int launch_loss_weighted_update(const void* g, const void* pods,
                                 const void* scal, void* out, int n_pods,
-                                long long n, void* stream) {
+                                long long n, int dtype, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
-  if (fits32(n_pods * n)) {
-    loss_weighted_update_kernel<unsigned><<<grid_for(n), kThreads, 0, s>>>(
-        (const float*)g, (const float*)pods, (const float*)scal, (float*)out,
-        n_pods, (unsigned)n);
-  } else {
-    loss_weighted_update_kernel<long long><<<grid_for(n), kThreads, 0, s>>>(
-        (const float*)g, (const float*)pods, (const float*)scal, (float*)out,
-        n_pods, n);
+  switch (dtype) {
+    case 0: return launch_lwu_t<float>(g, pods, scal, out, n_pods, n, s);
+    case 1: return launch_lwu_t<__nv_bfloat16>(g, pods, scal, out, n_pods, n,
+                                               s);
+    case 2: return launch_lwu_t<__half>(g, pods, scal, out, n_pods, n, s);
+    default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 // Replaces src/repro/kernels/dequant_merge.py:dequant_merge (_kernel, the
 // int8 merge).  Bound by HBM bytes: g 498.7 MB + q 498.7 MB + scales 7.8
 // MB read, 498.7 MB written at lm100m x 4 pods = 1.504 GB, 0.449 ms at
-// 3.35 TB/s.  desc as for launch_dequant_merge_packed.
+// 3.35 TB/s.  desc and dtype as for launch_dequant_merge_packed.
 int launch_dequant_merge(const void* desc, int n_leaves, const void* scal,
-                         int n_pods, int wide, void* stream) {
+                         int n_pods, int dtype, int wide, void* stream) {
   return launch_merge<false>((const long long*)desc, n_leaves, scal, n_pods,
-                             wide, stream);
+                             dtype, wide, stream);
 }
 
 // Replaces src/repro/kernels/quantize.py:quantize_int8 (_q_kernel).  Bound

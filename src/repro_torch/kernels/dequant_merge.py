@@ -18,7 +18,10 @@ contiguous one (``inner == 1``), else ``(o, block, COL_PAIRS`` row pairs,
 parameters, ``GROUP_LEAVES`` a launch; a persistent grid walks the tiles.
 Only the real ``d`` elements are written, so ``g`` is never padded; the
 int8 kernel reads the trimmed wire ``q`` where it lies, and the int4
-kernel reads the wire's short-paired tail as it is.
+kernel reads the wire's short-paired tail as it is.  ``g`` is fp32, bf16
+or fp16 (:data:`DTYPES`), widened on load and rounded once on store, as
+the reference's kernels take any float leaf; a launch carries leaves of
+one dtype, so a tree of mixed dtypes takes one launch a dtype.
 """
 from __future__ import annotations
 
@@ -40,6 +43,10 @@ COL_WIDTH = 256         # kColWidth: most columns a column tile holds
 GROUP_LEAVES = 32       # kMergeLeaves: leaf descriptors a launch carries
 BLOCKS_PER_SM = 4       # kMergeBlocksPerSm
 SMS = 132               # the H100 SXM's streaming multiprocessors
+
+#: the leaf dtypes the merges (and ``loss_weighted_update``) take, and the
+#: launchers' code for each
+DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 #: ``(g, payload, scales, axis)``: one leaf of a grouped merge, ``axis``
 #: blocked in the pod-stacked payload (never 0, the pod axis)
@@ -107,13 +114,14 @@ def _check(name: str, g: torch.Tensor, q: torch.Tensor, scales: torch.Tensor,
            axis: int):
     """Device, dtype and axis checks shared by both merges; returns
     ``(g.shape or (1,), ax, d, nb)``."""
-    for arg, t, dt in (("g", g, torch.float32), ("q", q, torch.int8),
-                       ("scales", scales, torch.float32)):
+    for arg, t, dt in (("g", g, tuple(DTYPES)), ("q", q, (torch.int8,)),
+                       ("scales", scales, (torch.float32,))):
         if t.device != g.device or not t.is_cuda:
             raise ValueError(f"{name}: {arg} on {t.device}, g on {g.device}; "
                              f"all must be on one card")
-        if t.dtype != dt:
-            raise TypeError(f"{name}: {arg} is {t.dtype}, expected {dt}")
+        if t.dtype not in dt:
+            raise TypeError(f"{name}: {arg} is {t.dtype}, expected one of "
+                            f"{dt}")
     if not (g.is_contiguous() and q.is_contiguous()
             and scales.is_contiguous()):
         raise ValueError(f"{name}: g, the payload and scales must be "
@@ -165,7 +173,8 @@ def _scal(w2, denom, any_push, device) -> torch.Tensor:
 def _run(name: str, leaves: Sequence[Leaf], plan_fn, w2, denom, any_push
          ) -> List[torch.Tensor]:
     """Check and plan every leaf, then launch the kernel once per
-    ``GROUP_LEAVES`` leaves; returns the merged leaves in order."""
+    ``GROUP_LEAVES`` leaves of one dtype; returns the merged leaves in
+    order."""
     if not leaves:
         return []
     plans = [plan_fn(*leaf) for leaf in leaves]
@@ -180,23 +189,26 @@ def _run(name: str, leaves: Sequence[Leaf], plan_fn, w2, denom, any_push
         raise ValueError(f"{name}: w2 has {scal.numel() - 2} weights for "
                          f"{n_pods} pods")
     outs = [torch.empty_like(g) for g, _, _, _ in leaves]
-    work = [(leaf, out, p) for leaf, out, p in zip(leaves, outs, plans)
-            if p.tiles]
-    for start in range(0, len(work), GROUP_LEAVES):
-        chunk = work[start:start + GROUP_LEAVES]
-        fields = []
-        for (g, q, scales, _), out, p in chunk:
-            extent = p.d if p.inner == 1 else p.inner
-            vec = (extent % 4 == 0 and (p.inner > 1 or p.prow % 4 == 0)
-                   and g.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
-                   and q.data_ptr() % 4 == 0)
-            fields += [g.data_ptr(), out.data_ptr(), q.data_ptr(),
-                       scales.data_ptr(), p.outer, p.d, p.inner, p.nb,
-                       p.prow, p.htail, p.tc, int(vec), p.tiles]
-        desc = (ctypes.c_longlong * len(fields))(*fields)
-        build.launch(name, device, ctypes.addressof(desc), len(chunk),
-                     scal.data_ptr(), n_pods,
-                     int(wide([p for _, _, p in chunk], n_pods)))
+    for dtype, code in DTYPES.items():
+        work = [(leaf, out, p) for leaf, out, p in zip(leaves, outs, plans)
+                if p.tiles and leaf[0].dtype == dtype]
+        for start in range(0, len(work), GROUP_LEAVES):
+            chunk = work[start:start + GROUP_LEAVES]
+            fields = []
+            for (g, q, scales, _), out, p in chunk:
+                extent = p.d if p.inner == 1 else p.inner
+                run = 4 * g.element_size()  # four elements: one access
+                vec = (extent % 4 == 0 and (p.inner > 1 or p.prow % 4 == 0)
+                       and g.data_ptr() % run == 0
+                       and out.data_ptr() % run == 0
+                       and q.data_ptr() % 4 == 0)
+                fields += [g.data_ptr(), out.data_ptr(), q.data_ptr(),
+                           scales.data_ptr(), p.outer, p.d, p.inner, p.nb,
+                           p.prow, p.htail, p.tc, int(vec), p.tiles]
+            desc = (ctypes.c_longlong * len(fields))(*fields)
+            build.launch(name, device, ctypes.addressof(desc), len(chunk),
+                         scal.data_ptr(), n_pods, code,
+                         int(wide([p for _, _, p in chunk], n_pods)))
     return outs
 
 
@@ -255,16 +267,17 @@ def dequant_merge_packed_cuda(g: torch.Tensor, q_packed: torch.Tensor,
                                            denom, any_push)[0]
 
 
-def launch_spec(kernel: str, g_shape, n_pods: int, axis: int = -1
-                ) -> build.LaunchSpec:
+def launch_spec(kernel: str, g_shape, n_pods: int, axis: int = -1,
+                dtype: str = "float32") -> build.LaunchSpec:
     """The launch ``kernel`` (``"dequant_merge"`` or
     ``"dequant_merge_packed"``) makes for one global leaf of ``g_shape``
-    and ``n_pods`` pods, blocked on ``axis`` of the pod-stacked payload
-    (canonical int4).  A block's step over row tiles is 8 whole 256-blocks
-    (a warp each): 8 x 256 g/out elements, as many int8 bytes or half as
-    many packed bytes per pod, and one scale per pod and block (a
-    gather).  Over a column tile it is ``COL_PAIRS`` row pairs (j, j+128)
-    of one block by ``4*tc`` columns, and the tile's row of scales."""
+    and ``dtype`` and ``n_pods`` pods, blocked on ``axis`` of the
+    pod-stacked payload (canonical int4).  A block's step over row tiles
+    is 8 whole 256-blocks (a warp each): 8 x 256 g/out elements, as many
+    int8 bytes or half as many packed bytes per pod, and one scale per pod
+    and block (a gather).  Over a column tile it is ``COL_PAIRS`` row
+    pairs (j, j+128) of one block by ``4*tc`` columns, and the tile's row
+    of scales."""
     gs = tuple(g_shape) or (1,)
     ax = axis % (len(gs) + 1)
     plan = plan_leaf(gs, ax, (-(-gs[ax - 1] // BLOCK) * HALF
@@ -289,12 +302,12 @@ def launch_spec(kernel: str, g_shape, n_pods: int, axis: int = -1
         kernel=kernel, source=build.source("wire_kernels"),
         function=f"{kernel}_kernel", grid=(grid(plan.tiles), 1, 1),
         threads=build.WIRE_THREADS, smem=smem_bytes([plan], P),
-        operands=(build.Operand("g", *g, "float32"),
+        operands=(build.Operand("g", *g, dtype),
                   build.Operand("q_packed" if packed else "q", *q, "int8"),
                   scales,
                   build.Operand("scal", (2 + P,), (2 + P,), "float32"),
-                  build.Operand("out", *g, "float32")),
-        accumulator="acc", threads_of="kThreads",
+                  build.Operand("out", *g, dtype)),
+        accumulator="acc", template={"T": dtype}, threads_of="kThreads",
         constants={"kBlock": BLOCK, "kHalf": HALF,
                    "kThreads": build.WIRE_THREADS, "kRowUnits": ROW_UNITS,
                    "kColPairs": COL_PAIRS, "kColWidth": COL_WIDTH,

@@ -143,7 +143,10 @@ def kernel_lint_cases():
     blocks a row) and two pods; pack, unpack and the merges also take
     lm100m's ``wq`` layout (blocked on a middle axis: column tiles for the
     merges, whole-unit tiles of 16 KB for pack and unpack) at 2 layers
-    and 4 pods.  The model kernels take shapes their real
+    and 4 pods.  The three merges also take bf16 leaves: qwen3-8b's
+    ``wq`` at one layer (row tiles, as every leaf of that tree takes) and
+    lm100m's ``wq`` layout (column tiles).  The model kernels take shapes
+    their real
     tiling divides.  Flash attention has three designs: the SIMT kernel
     (fp32 prefill, 128 queries and keys, two 64-row tiles, at head dims 64
     and 256 on one KV head); the split-KV decode kernel and its combine
@@ -165,6 +168,7 @@ def kernel_lint_cases():
     slots) of 128 channels (four blocks) and decode.
     """
     pods, g, wq = 2, (4, 512), (2, 768, 12, 64)
+    qwen_wq = (1, 4096, 4096)
     rg = ((4, 1, 10, 256), (4, 2048, 1, 256), "bfloat16")
     lm = ((8, 1, 12, 64), (8, 640, 4, 64), "float32")
     mla = ((4, 1, 16, 192), (4, 1152, 16, 192), "bfloat16", 128)
@@ -187,6 +191,17 @@ def kernel_lint_cases():
         ("dequant_merge[wq]", _dqm.launch_spec("dequant_merge", wq, 4, 2)),
         ("dequant_merge_packed[wq]",
          _dqm.launch_spec("dequant_merge_packed", wq, 4, 2)),
+        ("loss_weighted_update[bf16]",
+         _lwu.launch_spec(qwen_wq, pods, "bfloat16")),
+        ("dequant_merge[bf16]",
+         _dqm.launch_spec("dequant_merge", qwen_wq, pods, -1, "bfloat16")),
+        ("dequant_merge_packed[bf16]",
+         _dqm.launch_spec("dequant_merge_packed", qwen_wq, pods, -1,
+                          "bfloat16")),
+        ("dequant_merge[wq bf16]",
+         _dqm.launch_spec("dequant_merge", wq, 4, 2, "bfloat16")),
+        ("dequant_merge_packed[wq bf16]",
+         _dqm.launch_spec("dequant_merge_packed", wq, 4, 2, "bfloat16")),
         ("flash_attention[D64]",
          _fa.launch_spec((1, 128, 4, 64), (1, 128, 2, 64), "float32")),
         ("flash_attention[D256]",

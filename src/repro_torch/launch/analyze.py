@@ -1,6 +1,26 @@
 """The port's static analyzer over its entry points (the reference's
 ``launch/analyze.py``, ``make lint-hlo``).
 
+The round targets run on ``N_PODS`` gloo ranks, one pod a rank, spawned
+once for all of them (``launch.placed_audit``'s ``_spawn``), on the
+device asked for; each rank counts the collectives it issues
+(``analysis.collectives.count_collectives``) and the parent holds each
+target's records to the collective-placement rule:
+
+* ``check_hermes_round``: the open round ships exactly the billed wire,
+  each payload array once; the closed round ships only the gate exchange.
+* ``check_async_halves``: the dispatch carries the gather; the commit
+  issues no collective.
+* ``check_admission``: ``topk`` and ``prob`` admission at participation
+  0.5, round and dispatch, against the unchanged wire specs.
+* ``check_train_step``: qwen3-8b's smoke model's local train step through
+  ``launch/steps.py`` issues no collective.
+
+The reference's commit and train step also prove their donations alias
+(``analysis/donation.py``); the port's round rebuilds its trees, so those
+halves wait for the next slice (ROADMAP queue 1 item 9) and the reports
+say so.  Beside them:
+
 * ``check_round_loop_source``: the host-sync guard over the production
   round loop, ``launch.train.train_hermes``, with the one sanctioned
   fetcher ``_host_fetch`` allowed.
@@ -9,20 +29,14 @@
   path's pack constants, Python against the CUDA sources.
 
 ``--self-test`` proves the analyzer fails loudly: it rebuilds one known
-regression per ported rule class (a ``bool(any_push)`` per-round host
-sync, a mis-tiled copy) and requires each to raise
-:class:`repro_torch.analysis.AnalysisError` with its named violation.
-The mis-tiled copy is a real CUDA kernel (``kernels/tile_copy.py``): on
-the card the self-test also launches it and requires its output to equal
-the plain version's bit for bit.
-
-Not ported yet (ROADMAP queue 1): the collective-placement and donation
-rules and their fixtures, and the HLO checks of the round, the async
-halves, admission and the train step.  The elastic resize's check (the
-reference's ``check_elastic``: after 4 -> 3 -> 4 pods the wire bill
-tracks the pod count and nothing else crosses) is
-``launch.placed_audit``'s elastic cases, on the collectives each rank
-issues.
+regression per ported rule class (a ship that gathers the fp32 delta, a
+``bool(any_push)`` per-round host sync, a mis-tiled copy) and requires
+each to raise :class:`repro_torch.analysis.AnalysisError` with its named
+violation.  The mis-tiled copy is a real CUDA kernel
+(``kernels/tile_copy.py``): on the card the self-test also launches it
+and requires its output to equal the plain version's bit for bit.  The
+elastic resize's check (the reference's ``check_elastic``) is
+``launch.placed_audit``'s elastic cases.
 
 Usage:
     python -m repro_torch.launch.analyze --self-test [--out PATH]
@@ -33,17 +47,259 @@ from __future__ import annotations
 import argparse
 import json
 import os
-from typing import Any, Callable, Dict, List
+import sys
+import tempfile
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import resolve_device
 from repro_torch.analysis import (
     AnalysisError, HostSyncGuard, KernelTileLint, Report, analyze,
 )
+from repro_torch.analysis import collectives as C
+from repro_torch.config import (
+    HermesConfig, OptimizerConfig, ParallelConfig, ShapeConfig,
+)
 from repro_torch.kernels import ops, tile_copy
 from repro_torch.launch.train import train_hermes
+
+N_PODS = 2          # the round, dispatch, commit and train targets
+#: what waits for the next slice in the targets that donate
+DONATION = ("the donation half (analysis/donation.py) waits for the next "
+            "slice, ROADMAP queue 1 item 9: the port's round rebuilds its "
+            "trees")
+
+
+def _cfg(mode: Optional[str] = None, **kw) -> HermesConfig:
+    mode = {} if mode is None else {"compression": mode}
+    return HermesConfig(alpha=-0.3, beta=0.1, lam=2, window=4, **mode, **kw)
+
+
+def _toy(dev: torch.device, n: int = N_PODS):
+    """The reference's round tree: one blocked leaf and one short tail,
+    ``(pods, w_global)``, drawn with numpy from seed 0."""
+    rng = np.random.default_rng(0)
+    pods = {"w": rng.standard_normal((n, 4, 512)),
+            "b": rng.standard_normal((n, 7))}
+    wg = {"w": rng.standard_normal((4, 512)), "b": np.zeros((7,))}
+    return ({k: torch.tensor(v, dtype=torch.float32, device=dev)
+             for k, v in pods.items()},
+            {k: torch.tensor(v, dtype=torch.float32, device=dev)
+             for k, v in wg.items()})
+
+
+def _wire_tree():
+    """The toy's global model as ``meta`` tensors: what the specs read."""
+    return {k: torch.empty(v.shape, device="meta")
+            for k, v in _toy(torch.device("cpu"))[1].items()}
+
+
+# ---------------------------------------------------------------------------
+# The round targets: run on the spawned ranks, held to the rule here
+# ---------------------------------------------------------------------------
+
+def _round_inputs(cfg: HermesConfig, dev: torch.device, groups):
+    """This rank's rows of the toy pods and of a gate state whose history
+    the round's losses (2.0, 2.05) beat, so every gate opens."""
+    from repro_torch.core.gup import gup_gate
+    from repro_torch.dist import hermes_sync as hs
+    pods, wg = _toy(dev)
+    gup = hs.hermes_pod_state(cfg, N_PODS, dev)
+    for level in (3.0, 3.2):
+        _, gup = gup_gate(gup, torch.full((N_PODS,), level, device=dev), cfg)
+    rows = groups.rows
+    losses = 2.0 + 0.05 * torch.arange(N_PODS, device=dev,
+                                       dtype=torch.float32)
+    return ({k: v[rows] for k, v in pods.items()},
+            {k: v[rows] for k, v in gup.items()}, losses[rows], wg,
+            torch.tensor(1.0, device=dev))
+
+
+def _round_targets(mode: Optional[str], dev: torch.device, groups,
+                   log: List) -> Dict[str, Any]:
+    """Every round target on this rank: ``{label: its records}``."""
+    from repro_torch.dist import hermes_sync as hs
+    from repro_torch.dist.wire import GeneratorNoise
+    out: Dict[str, Any] = {}
+
+    def run(label, fn):
+        start = len(log)
+        result = fn()
+        out[label] = C.records(log[start:], groups)
+        return result
+
+    cfg = _cfg(mode)
+    m = cfg.compression
+    kw = dict(round_step=1, noise=GeneratorNoise(0, dev), groups=groups)
+    pods, gup, losses, wg, L = _round_inputs(cfg, dev, groups)
+    opened = run(f"hermes_round[{m}]", lambda: hs.hermes_round(
+        pods, gup, losses, wg, L, cfg, **kw))
+    closed = run(f"hermes_round_closed[{m}]", lambda: hs.hermes_round(
+        pods, gup, losses, wg, L, cfg,
+        live=torch.zeros((N_PODS,), dtype=torch.bool, device=dev), **kw))
+    if not opened["merged"] or closed["merged"]:
+        raise AssertionError(f"the open round merged {opened['merged']}, "
+                             f"the closed one {closed['merged']}")
+    dp = run(f"hermes_dispatch[{m}]", lambda: hs.hermes_dispatch(
+        pods, gup, losses, wg, L, cfg, **kw))
+    run(f"hermes_commit[{m}]", lambda: hs.hermes_commit(
+        pods, dp["pending"], wg, cfg=cfg, groups=groups))
+    for admission in ("topk", "prob"):
+        acfg = _cfg(mode, participation_rate=0.5, admission=admission)
+        tag = f"{m},prate=0.5,{admission}"
+        # ``prob`` admits each open pod by a draw, so a round may admit
+        # none and ship nothing: the first round step that admits one is
+        # the target (every rank draws the same)
+        for step in range(1, 33):
+            akw = {**kw, "round_step": step}
+            got = run(f"hermes_round[{tag}]", lambda: hs.hermes_round(
+                pods, gup, losses, wg, L, acfg, **akw))
+            if got["merged"]:
+                break
+        dp = run(f"hermes_dispatch[{tag}]", lambda: hs.hermes_dispatch(
+            pods, gup, losses, wg, L, acfg, **akw))
+        if not (got["merged"] and hs.pending_merges(dp["pending"])):
+            raise AssertionError(f"{tag}: no round step in 1-32 admitted a "
+                                 f"pod")
+    return out
+
+
+def _train_target(dev: torch.device, groups, log: List,
+                  arch: str = "qwen3-8b") -> Dict[str, Any]:
+    """The Level-B local train step of ``arch``'s smoke model on this
+    rank, one step through ``launch/steps.py``."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.steps import make_train_setup
+    cfg = get_smoke_config(arch)
+    shape = ShapeConfig("analyze_smoke", 32, 8, "train")
+    setup = make_train_setup(cfg, shape, ParallelConfig(),
+                             OptimizerConfig(name="adamw", lr=1e-3),
+                             device=dev)
+    state = setup.init_state(0)
+    gen = torch.Generator(device=dev).manual_seed(groups.rank)
+    batch = {k: torch.randint(0, cfg.vocab_size, spec.shape, generator=gen,
+                              device=dev)
+             for k, spec in setup.arg_specs[1].items()}
+    start = len(log)
+    _, loss = setup.step_fn(state, batch)
+    if not bool(torch.isfinite(loss)):
+        raise AssertionError(f"train_step[{arch}] loss {loss}")
+    return {f"train_step[{arch}]": C.records(log[start:], groups)}
+
+
+def _fp32_hoist_target(dev: torch.device, groups, log: List
+                       ) -> Dict[str, Any]:
+    """The reference's GSPMD regression, written out: a ship that gathers
+    each pod's fp32 delta across the pod axis where the wire gathers its
+    fp16 payload."""
+    from repro_torch.dist.wire import all_gather_rows
+    pods, _, _, wg, _ = _round_inputs(_cfg("fp16"), dev, groups)
+    pod, size = groups.group("pod")
+    start = len(log)
+    for k in sorted(pods):
+        all_gather_rows(pods[k] - wg[k][None], pod, size)  # BUG (deliberate)
+    return {"selftest[fp32-hoist]": C.records(log[start:], groups)}
+
+
+def _targets_main(rank: int, world: int, store: str, job: Dict[str, Any],
+                  out_dir: str) -> None:
+    """One rank of :func:`run_round_targets`."""
+    from repro_torch.launch.mesh import make_pod_groups
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    try:
+        torch.set_num_threads(job["threads"])
+        dev = torch.device(job["device"])
+        groups = make_pod_groups(N_PODS)
+        log: List = []
+        C.count_collectives(log)
+        report = _round_targets(job["mode"], dev, groups, log)
+        report.update(_train_target(dev, groups, log))
+        report.update(_fp32_hoist_target(dev, groups, log))
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(report, f)
+    finally:
+        dist.destroy_process_group()
+    # the report is written: skip the interpreter's teardown, where a rank
+    # under load once aborted ("terminate called without an active
+    # exception") after its work was done
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
+
+
+def run_round_targets(mode: Optional[str] = None, device="cuda", *,
+                      timeout: float = 300.0,
+                      workdir: Optional[str] = None) -> List[Dict[str, Any]]:
+    """Spawn ``N_PODS`` gloo ranks once and run every round target, the
+    train step and the fp32-hoist fixture on them; returns each rank's
+    ``{label: records}``.  A failed rank fails the run."""
+    from repro_torch.launch.placed_audit import _spawn
+    dev = resolve_device(device)
+    job = {"mode": mode, "device": str(dev),
+           "threads": max(1, torch.get_num_threads() // N_PODS)}
+    with tempfile.TemporaryDirectory(dir=workdir) as tmp:
+        return _spawn(N_PODS, job, timeout, tmp, target=_targets_main)
+
+
+def _rule_for(label: str):
+    """The rule a round target is held to, by its label."""
+    mode = label[label.index("[") + 1:].split(",")[0].rstrip("]")
+    if label.startswith(("hermes_round_closed",)):
+        return C.closed_rule(N_PODS)
+    if label.startswith(("hermes_commit", "train_step")):
+        return C.pod_local_rule(N_PODS)
+    return C.placement_rule(_wire_tree(), mode, N_PODS)
+
+
+def _held(label: str, per_rank: List[Dict[str, Any]], rule_for=_rule_for,
+          fail: bool = True) -> Report:
+    """One target's records, rank by rank, held to its rule: one report
+    over every rank's violations."""
+    violations, rules = [], []
+    for r, recs in enumerate(per_rank):
+        rule = rule_for(label)
+        rep = analyze([rule], collectives=recs[label],
+                      label=f"{label}@rank{r}", fail=False)
+        violations += rep.violations
+        rules = rep.rules
+    report = Report(label=label, violations=violations, rules=rules)
+    return report.raise_if_failed() if fail else report
+
+
+def _labels(per_rank, prefix) -> List[str]:
+    return [k for k in per_rank[0] if k.startswith(prefix)]
+
+
+def check_hermes_round(per_rank) -> List[Report]:
+    """The open round ships exactly the billed wire; the closed round only
+    the gate exchange."""
+    return [_held(k, per_rank) for k in _labels(per_rank, "hermes_round")
+            if "prate" not in k]
+
+
+def check_async_halves(per_rank) -> List[Report]:
+    """The dispatch carries the gather; the commit issues no collective
+    (its donation half waits: :data:`DONATION`)."""
+    return [_held(k, per_rank) for k in _labels(per_rank, "hermes_dispatch")
+            if "prate" not in k] + \
+        [_held(k, per_rank) for k in _labels(per_rank, "hermes_commit")]
+
+
+def check_admission(per_rank) -> List[Report]:
+    """Admission at participation 0.5, ``topk`` and ``prob``, changes which
+    gates ship, never the wire: the round and the dispatch hold to the
+    unchanged specs."""
+    return [_held(k, per_rank) for k in per_rank[0] if "prate=0.5" in k]
+
+
+def check_train_step(per_rank) -> List[Report]:
+    """The local train step crosses the pod axis with nothing (its
+    donation half waits: :data:`DONATION`)."""
+    return [_held(k, per_rank) for k in _labels(per_rank, "train_step")]
 
 
 def check_round_loop_source() -> List[Report]:
@@ -119,8 +375,23 @@ def selftest_bad_tiles(device: torch.device) -> Dict[str, Any]:
     return out
 
 
-def run_selftests(device: torch.device) -> List[Dict[str, Any]]:
-    return [selftest_host_sync_loop(), selftest_bad_tiles(device)]
+def selftest_fp32_hoist(per_rank) -> Dict[str, Any]:
+    """The reference's GSPMD-hoist regression: a ship that gathers the fp32
+    delta in place of the fp16 payload must raise ``fp32-model-crossing``
+    (the fixture's records come from the spawned ranks)."""
+    return _expect_violation(
+        "fp32-hoist", "fp32-model-crossing",
+        lambda: _held("selftest[fp32-hoist]", per_rank,
+                      rule_for=lambda _: C.placement_rule(
+                          _wire_tree(), "fp16", N_PODS)))
+
+
+def run_selftests(device: torch.device, per_rank=None
+                  ) -> List[Dict[str, Any]]:
+    """Every fixture; the fp32 hoist's with the ranks' records (the round
+    targets' run)."""
+    return ([] if per_rank is None else [selftest_fp32_hoist(per_rank)]) + \
+        [selftest_host_sync_loop(), selftest_bad_tiles(device)]
 
 
 def main(argv=None) -> Dict[str, Any]:
@@ -129,21 +400,30 @@ def main(argv=None) -> Dict[str, Any]:
                     help="also run the violating fixtures (each must fail "
                          "with its named violation class)")
     ap.add_argument("--device", default="cuda",
-                    help="where the fixture's copy runs (default: the card)")
+                    help="where the ranks' rounds and the fixture's copy run "
+                         "(default: the card)")
+    ap.add_argument("--mode", default=None,
+                    help="wire format of the round targets (default: "
+                         "HermesConfig's)")
     ap.add_argument("--out", default=None, help="write a JSON report")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
 
-    reports = check_round_loop_source() + check_kernels()
+    per_rank = run_round_targets(args.mode, device)
+    reports = (check_hermes_round(per_rank) + check_async_halves(per_rank)
+               + check_admission(per_rank) + check_train_step(per_rank)
+               + check_round_loop_source() + check_kernels())
     for r in reports:
         print(f"  ok {r.label} ({', '.join(r.rules)})")
     record: Dict[str, Any] = {
         "device": str(device),
+        "n_pods": N_PODS,
         "targets": [r.to_json() for r in reports],
+        "waits": {"hermes_commit": DONATION, "train_step": DONATION},
         "ok": all(r.ok for r in reports),
     }
     if args.self_test:
-        record["self_test"] = run_selftests(device)
+        record["self_test"] = run_selftests(device, per_rank)
         for f in record["self_test"]:
             print(f"  ok self-test {f['fixture']} raised "
                   f"{f['expected_class']} ({', '.join(f['classes'])})")

@@ -40,8 +40,9 @@ re-rendezvous, which neither package has.  ``launch.placed_audit``'s
 elastic cases hold the placed resize against the never-resized rounds.
 
 The checkpoint-restart demo (the reference's ``run_demo``) restores onto
-a smaller ``(data, model)`` mesh through tensor-parallel sharding, which
-one card does not have: ROADMAP queue 1 item 8.
+a smaller ``(data, model)`` mesh through tensor-parallel sharding: it
+waits for ``dist/sharding.py``'s rules bound to a torch ``DeviceMesh``
+over gloo ranks, the next slice (ROADMAP queue 1 item 9).
 """
 from __future__ import annotations
 
@@ -894,12 +895,13 @@ def run_hermes_shrink_demo(n_pods: int = 4, drop: int = 1, seed: int = 0,
 
 def run_demo(*args, **kwargs) -> dict:
     """The reference's checkpoint-restart demo: restore a qwen3-8b smoke
-    model onto a smaller (data, model) mesh.  Not ported: the mesh is
-    tensor-parallel sharding (``dist/sharding.py``), which one card does
-    not have."""
+    model onto a smaller (data, model) mesh.  ``dist/sharding.py``'s rule
+    tables are ported; binding them to a torch ``DeviceMesh`` over gloo
+    ranks, which the demo restores onto, is the next slice."""
     raise NotImplementedError(
         "the checkpoint-restart demo restores onto a smaller (data, model) "
-        "mesh through dist/sharding.py: ROADMAP queue 1 item 8")
+        "DeviceMesh over gloo ranks, with dist/sharding.py's AxisRules "
+        "bound to it: the next slice, ROADMAP queue 1 item 9")
 
 
 def main(argv=None) -> None:

@@ -34,15 +34,21 @@ process; a process outside the group passes ``layout=`` (the group's
 ``(members, n_pods)``, which :func:`shrink_layout` computes on any rank)
 in place of a ``PodGroups`` it does not hold.
 
-``make_production_mesh`` and the per-architecture rules wait for the
-model zoo and the audits (ROADMAP queue 1).
+``make_production_mesh`` describes the reference's production meshes by
+their shape alone (``dist.sharding.MeshShape``), and ``arch_rules``
+derives an architecture's logical-to-mesh rules on such a shape, table
+for table as the reference's: the byte bill's ``block_axis`` hint and the
+sharding audits read them.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import Any, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch.distributed as dist
+
+from repro_torch.config import ModelConfig, ParallelConfig
+from repro_torch.dist.sharding import AxisRules, MeshShape, make_rules
 
 
 def pod_mesh_shape(ndev: int, n_pods: int) -> Tuple[int, int, int]:
@@ -331,3 +337,108 @@ def grow_groups(groups: Optional[PodGroups], n_new: int = 1, *,
 def placed(groups: Optional[PodGroups]) -> bool:
     """Does a round over ``groups`` cross processes at all?"""
     return groups is not None and groups.size > 1
+
+
+# -- production mesh shapes and per-architecture rules ----------------------
+
+def make_production_mesh(*, multi_pod: bool = False) -> MeshShape:
+    """The reference's production mesh as a shape: ``(16, 16)`` over
+    ``("data", "model")``, or ``(2, 16, 16)`` over ``("pod", "data",
+    "model")`` (its ``make_pod_mesh(2)`` at 512 devices too)."""
+    if multi_pod:
+        return MeshShape(("pod", "data", "model"), (2, 16, 16))
+    return MeshShape(("data", "model"), (16, 16))
+
+
+def mesh_axis_size(mesh: MeshShape, name: str) -> int:
+    return mesh.axis_size(name)
+
+
+def arch_parallel_config(arch: str, optimized: bool = False
+                         ) -> ParallelConfig:
+    """The parallelism policy of an assigned architecture: FSDP for the
+    three largest, and with ``optimized`` the reference's gradient
+    accumulation for the HBM-heaviest."""
+    fsdp = arch in ("grok-1-314b", "granite-34b", "llava-next-34b")
+    mb = 1
+    if optimized:
+        mb = {"grok-1-314b": 4, "llava-next-34b": 2, "granite-34b": 2,
+              "deepseek-v2-lite-16b": 2, "recurrentgemma-2b": 4}.get(arch, 1)
+    return ParallelConfig(fsdp=fsdp, microbatch=mb)
+
+
+def arch_rules(cfg: ModelConfig, mesh: Optional[MeshShape],
+               parallel: ParallelConfig, *, multi_pod: bool = False,
+               decode: bool = False, batch: int = 0,
+               tp_pad_heads: bool = False) -> AxisRules:
+    """Divisibility-aware logical-to-mesh rules for one (arch, mesh,
+    mode): a logical axis takes "model" only where its dimension divides
+    by the model axis (16 with no mesh), the batch takes the replica tiers
+    first (cluster, then pod) and "data" last where each divides it, and
+    decode shards an MQA cache's sequence over "model"."""
+    tp = mesh_axis_size(mesh, "model") if mesh is not None else 16
+    dp = mesh_axis_size(mesh, "data") if mesh is not None else 16
+    pods = mesh_axis_size(mesh, "pod") if (mesh is not None
+                                           and multi_pod) else 1
+    clusters = (mesh_axis_size(mesh, "cluster")
+                if (mesh is not None and multi_pod) else 1)
+
+    def div(n: int) -> bool:
+        return n > 0 and n % tp == 0
+
+    extra: Dict[str, object] = {}
+    # heads shard only when divisible; tp_pad_heads pads the activation
+    # heads so act_heads can shard where the parameter heads cannot
+    extra["heads"] = "model" if div(cfg.num_heads) else None
+    extra["act_heads"] = ("model" if (div(cfg.num_heads) or tp_pad_heads)
+                          else None)
+    extra["kv_heads"] = "model" if div(cfg.num_kv_heads) else None
+    extra["act_kv"] = "model" if div(cfg.num_kv_heads) else None
+    extra["vocab"] = "model" if div(cfg.vocab_size) else None
+    extra["act_vocab"] = "model" if div(cfg.vocab_size) else None
+    extra["ff"] = "model" if div(cfg.d_ff) else None
+    extra["act_ff"] = "model" if div(cfg.d_ff) else None
+    if cfg.recurrent is not None:
+        w = cfg.recurrent.lru_width or cfg.d_model
+        extra["lru"] = "model" if div(w) else None
+    if cfg.moe is not None:
+        if parallel.expert_parallel and div(cfg.moe.num_experts):
+            extra["expert"] = "model"
+            extra["expert_ff"] = None
+        else:  # too few experts for expert parallelism: TP in each expert
+            extra["expert"] = None
+            extra["expert_ff"] = "model" if div(cfg.moe.expert_ff) else None
+
+    # the batch: the replica tiers claim first, data last, each only where
+    # it divides the global batch
+    batch_axes = []
+    if multi_pod and clusters > 1 and batch % clusters == 0:
+        batch_axes.append("cluster")
+    rep = clusters if "cluster" in batch_axes else 1
+    if multi_pod and pods > 1 and (batch // rep) % pods == 0:
+        batch_axes.append("pod")
+        rep *= pods
+    eff = batch // rep
+    if batch % (rep * dp) == 0 and eff >= dp:
+        batch_axes.append("data")
+    extra["batch"] = tuple(batch_axes) if batch_axes else None
+    extra["moe_group"] = extra["batch"]
+
+    if decode:
+        # an MQA cache shards its sequence over "model", bounding the
+        # cache a device holds
+        extra["cache_seq"] = "model" if not div(cfg.num_kv_heads) else None
+        extra["seq"] = None  # one-token activations: no sequence parallel
+    else:
+        extra["cache_seq"] = None
+
+    if parallel.fsdp:
+        # with the batch off "data" (small serve batches), FSDP over the
+        # idle data axis still holds: pure weight sharding
+        extra.setdefault("embed", "data")
+        extra.setdefault("qkv", "data")
+
+    return make_rules(mesh, fsdp=parallel.fsdp,
+                      sequence_parallel=(parallel.sequence_parallel
+                                         and not decode),
+                      multi_pod=multi_pod, extra=extra)

@@ -12,8 +12,9 @@ host them all: gloo gathers CUDA tensors).  Each rank rebuilds the same
 inputs from the seed, keeps its own pod rows, runs the same cases placed
 over ``launch.mesh.make_pod_groups`` and reports whether its outputs hash
 as the parent's, the host's ``merged`` flag of each round, and every
-``all_gather_into_tensor`` it issued: the tier, dtype, per-rank dims and
-bytes, to be held against ``dist.wire``'s specs.
+collective it issued (``analysis.collectives.count_collectives``): the
+tier, dtype, per-rank dims and bytes, to be held against ``dist.wire``'s
+specs.
 
 Cases, per wire format, gates forced open by a loss history the round's
 losses beat: ``flat`` (``hermes_round``), ``flat_async``
@@ -62,6 +63,7 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from repro_torch import resolve_device
+from repro_torch.analysis.collectives import count_collectives, records, tier
 from repro_torch.config import HermesConfig, OptimizerConfig
 from repro_torch.core.gup import gup_gate
 from repro_torch.dist import hermes_sync as hs
@@ -78,6 +80,10 @@ from repro_torch.utils.trees import tree_flatten, tree_map
 CASES = ("flat", "flat_async", "cluster", "cluster_async", "closed")
 ELASTIC = ("drop", "rejoin", "cluster_resize")
 TOY = {"a": (8, 16), "b": (16,), "c": (3, 512), "e": ()}
+#: the reference's round-audit tree: one blocked leaf, one short tail
+ROUND = {"w": (4, 512), "b": (7,)}
+TOYS = {"toy": TOY, "round": ROUND}
+META = torch.device("meta")
 
 
 def _digest(t: torch.Tensor) -> str:
@@ -88,17 +94,33 @@ def _digest(t: torch.Tensor) -> str:
     return h.hexdigest()
 
 
-def _w_global(preset: str, seed: int, dev: torch.device, scalars=True):
-    """The global model.  ``toy`` without ``scalars`` leaves out its
-    scalar leaf: a two-tier commit masks cluster rows, and a stacked
-    scalar's re-encoded partial has none (the reference asserts so)."""
-    if preset == "toy":
+def _w_global(job: Dict[str, Any], dev: torch.device, scalars=True):
+    """The global model of ``job``'s preset: a toy tree (``toy`` without
+    ``scalars`` leaves out its scalar leaf: a two-tier commit masks
+    cluster rows, and a stacked scalar's re-encoded partial has none, the
+    reference asserts so), a trainer preset, or with ``layers`` an
+    architecture's published config cut to that many layers, in
+    ``dtype``.  On ``meta``: shapes and dtypes alone."""
+    preset, seed = job["preset"], job["seed"]
+    dtype = getattr(torch, job.get("dtype", "float32"))
+    if preset in TOYS:
         gen = torch.Generator().manual_seed(seed)
-        return {k: torch.randn(s, generator=gen).to(dev)
-                for k, s in TOY.items() if scalars or s}
-    from repro_torch.launch.train import _preset
+        return {k: torch.randn(s, generator=gen).to(device=dev, dtype=dtype)
+                for k, s in TOYS[preset].items() if scalars or s}
     from repro_torch.models.lm import init_lm
-    return init_lm(_preset(preset), seed, dev, draw_on=dev)
+    return init_lm(_config(job), seed, dev,
+                   draw_on=None if dev.type == "meta" else dev, dtype=dtype)
+
+
+def _config(job: Dict[str, Any]):
+    """The model config of a non-toy preset."""
+    if job.get("layers"):
+        import dataclasses
+        from repro_torch.configs import get_config
+        return dataclasses.replace(get_config(job["preset"]),
+                                   num_layers=job["layers"])
+    from repro_torch.launch.train import _preset
+    return _preset(job["preset"])
 
 
 def _scalars(case: str, fmt: str) -> bool:
@@ -110,10 +132,11 @@ def _inputs(job: Dict[str, Any], dev: torch.device, rows: slice,
     """The rounds' inputs, made from the seed: ``(w_global, pod rows,
     error rows or None, the open gate state's rows)``."""
     seed, n = job["seed"], job["n_pods"]
-    w = _w_global(job["preset"], seed, dev, scalars)
+    w = _w_global(job, dev, scalars)
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
     pods = tree_map(lambda g: g[None] + 1e-3 * torch.randn(
-        (n,) + tuple(g.shape), generator=gen, device=dev)[rows], w)
+        (n,) + tuple(g.shape), generator=gen, device=dev,
+        dtype=g.dtype)[rows], w)
     err = None
     if job["error_scale"]:
         err = tree_map(lambda g: job["error_scale"] * torch.randn(
@@ -132,7 +155,9 @@ def _cfg(fmt: str, n_clusters: int) -> HermesConfig:
 
 def _run_case(case, fmt, job, dev, rows, groups=None, log=None):
     """One case; returns ``(outputs, merged flags, collectives by
-    phase)``: outputs ``{"w_global", "pods", "error"}`` (row trees)."""
+    phase)``: outputs ``{"w_global", "pods", "error"}`` (row trees); the
+    collectives named (:func:`_named`) and, under ``"records"``, as the
+    collective-placement rule's records."""
     n, C = job["n_pods"], job["n_clusters"]
     w, pods, err, gup = _inputs(job, dev, rows, _scalars(case, fmt))
     level = 4.0 if case == "closed" else 2.0
@@ -150,6 +175,8 @@ def _run_case(case, fmt, job, dev, rows, groups=None, log=None):
         yield
         if log is not None:
             phases[name] = _named(log[start:], groups)
+            phases.setdefault("records", {})[name] = records(log[start:],
+                                                             groups)
 
     outs = {}
     if case in ("flat", "cluster", "closed"):
@@ -239,46 +266,15 @@ def _launches() -> Dict[str, int]:
     return {k: v for k, v in build.LAUNCHES.items() if v}
 
 
-def _tier(group, g: Optional[PodGroups]) -> str:
-    """The tier of ``g`` that ``group`` is (``other``: none of them)."""
-    if g is not None and group is g.pod:
-        return "pod"
-    if g is not None and g.n_clusters > 1:
-        if group is g.intra:
-            return "intra"
-        if group is g.cross:
-            return "cluster"
-    return "pod" if group is None else "other"
-
-
-def _counting(log: List):
-    """Record every ``all_gather_into_tensor`` and ``broadcast`` this rank
-    issues as ``(group, op, dtype, per-rank dims, bytes)``; :func:`_named`
-    names the group's tier."""
-    real_gather, real_broadcast = dist.all_gather_into_tensor, dist.broadcast
-
-    def entry(group, op, t):
-        return (group, op, str(t.dtype).removeprefix("torch."),
-                tuple(t.shape), t.numel() * t.element_size())
-
-    def gather(out, inp, group=None, async_op=False):
-        log.append(entry(group, "", inp))
-        return real_gather(out, inp, group=group, async_op=async_op)
-
-    def broadcast(tensor, src=None, group=None, async_op=False, **kw):
-        log.append(entry(group, "/broadcast", tensor))
-        return real_broadcast(tensor, src=src, group=group,
-                              async_op=async_op, **kw)
-
-    dist.all_gather_into_tensor = gather
-    dist.broadcast = broadcast
-
-
 def _named(entries, groups: Optional[PodGroups]) -> List:
-    """Logged collectives as ``(tier, dtype, per-rank dims, bytes)``, the
-    tier read against ``groups`` (a broadcast's suffixed ``/broadcast``)."""
-    return [(_tier(g, groups) + op, dtype, dims, nbytes)
-            for g, op, dtype, dims, nbytes in entries]
+    """Collectives logged by ``analysis.collectives.count_collectives``
+    as ``(tier, dtype, per-rank dims, bytes)``, the tier read against
+    ``groups`` (suffixed with the kind, ``/broadcast``, for any but a
+    gather)."""
+    return [(tier(g, groups) + ("" if kind == "all_gather_into_tensor"
+                                else f"/{kind}"),
+             op["dtype"], tuple(op["dims"]), op["bytes"])
+            for g, kind, op in entries]
 
 
 def _rank_main(rank: int, world: int, store: str, job: Dict[str, Any],
@@ -294,7 +290,7 @@ def _rank_main(rank: int, world: int, store: str, job: Dict[str, Any],
             torch.backends.cudnn.allow_tf32 = False
         groups = make_pod_groups(job["n_pods"], job["n_clusters"])
         log: List = []
-        _counting(log)
+        count_collectives(log)
         report: Dict[str, Any] = {"rank": rank, "cases": {}}
         rows, n_rows = groups.rows, groups.rows_per_rank
         for fmt in job["formats"]:
@@ -307,7 +303,8 @@ def _rank_main(rank: int, world: int, store: str, job: Dict[str, Any],
                 want = job["digests"][f"{fmt}/{case}"]
                 report["cases"][f"{fmt}/{case}"] = {
                     "equal": {k: v == want[k] for k, v in got.items()},
-                    "merged": merged, "phases": phases,
+                    "merged": merged,
+                    "records": phases.pop("records", {}), "phases": phases,
                     "launches": _launches(),
                     "seconds": time.perf_counter() - t0}
                 del outs
@@ -326,6 +323,8 @@ def _rank_main(rank: int, world: int, store: str, job: Dict[str, Any],
             build.reset_launches()
             report["train"] = _train(job, dev, groups)
             report["train"]["launches"] = _launches()
+        report["peak_bytes"] = (torch.cuda.max_memory_allocated(dev)
+                                if dev.type == "cuda" else None)
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
             json.dump(report, f)
     finally:
@@ -407,7 +406,7 @@ def _run_elastic(case, fmt, job, dev, groups=None, log=None):
     dead, steps = _elastic_plan(case, n, C)
     rounds = el._Rounds(cfg, n, dev, job.get("pod_noise"))
     oracle = groups is None
-    w = _w_global(job["preset"], job["seed"], dev)
+    w = _w_global(job, dev)
     gen = torch.Generator(device=dev).manual_seed(job["seed"] + 1)
     pods = tree_map(lambda g: g[None] + 1e-3 * torch.randn(
         (n,) + tuple(g.shape), generator=gen, device=dev), w)
@@ -579,13 +578,16 @@ def audit(preset: str = "toy", *, ranks: int = 4, n_pods: int = 4,
           cases: Sequence[str] = CASES, train: Optional[Dict] = None,
           elastic: Sequence[str] = (), pod_noise=None,
           device="cuda", seed: int = 0, deterministic: bool = True,
-          timeout: float = 600.0, workdir: Optional[str] = None
-          ) -> Dict[str, Any]:
+          timeout: float = 600.0, workdir: Optional[str] = None,
+          layers: int = 0, dtype: str = "float32") -> Dict[str, Any]:
     """Run the cases unplaced here, then placed on ``ranks`` spawned
     processes; returns ``{"cases": {"fmt/case": {"equal", "merged",
-    "collectives", "expected"}}, "elastic": {"fmt/case": {...}}, "train":
-    {...}, "proofs": {fmt: [each rank's {"drop", "rejoin"}]}, "seconds"}``
-    with every rank's report merged.  The elastic
+    "collectives", "records", "expected"}}, "elastic": {"fmt/case":
+    {...}}, "train": {...}, "proofs": {fmt: [each rank's {"drop",
+    "rejoin"}]}, "peak_bytes": [each rank's], "seconds"}`` with every
+    rank's report merged.  ``preset`` is ``toy``, ``round``, a trainer
+    preset, or with ``layers`` an architecture cut to that many layers;
+    the models are in ``dtype``.  The elastic
     cases need one pod a rank; ``pod_noise(ids)``, a picklable factory,
     gives their rounds' int4 noise for the stacked rows of the original
     pods ``ids``.  Without it they skip int4, whose default noise is not
@@ -596,7 +598,8 @@ def audit(preset: str = "toy", *, ranks: int = 4, n_pods: int = 4,
     rank_layout(ranks, n_pods, n_clusters)
     if elastic and ranks != n_pods:
         raise ValueError("the elastic cases place one pod a rank")
-    job = {"preset": preset, "n_pods": n_pods, "n_clusters": n_clusters,
+    job = {"preset": preset, "layers": layers, "dtype": dtype,
+           "n_pods": n_pods, "n_clusters": n_clusters,
            "formats": list(formats), "cases": list(cases), "seed": seed,
            "elastic": list(elastic), "pod_noise": pod_noise,
            "elastic_formats": [f for f in formats
@@ -606,7 +609,7 @@ def audit(preset: str = "toy", *, ranks: int = 4, n_pods: int = 4,
            # the ranks share the host's cores; the unplaced run uses as
            # many threads as one rank
            "threads": max(1, torch.get_num_threads() // ranks),
-           "error_scale": 1e-4 if preset == "toy" else 0.0,
+           "error_scale": 1e-4 if preset in TOYS else 0.0,
            "deterministic": deterministic, "train": train, "digests": {}}
     every = slice(0, n_pods)
     threads = torch.get_num_threads()
@@ -629,17 +632,15 @@ def audit(preset: str = "toy", *, ranks: int = 4, n_pods: int = 4,
             unplaced_train["launches"] = _launches()
     finally:
         torch.set_num_threads(threads)
-    trees = {sc: tree_map(lambda g: torch.empty(g.shape, dtype=g.dtype,
-                                                device="meta"),
-                          _w_global(preset, seed, dev, sc))
-             for sc in (True, False)}
+    trees = {sc: _w_global(job, META, sc) for sc in (True, False)}
     if dev.type == "cuda":
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
     unplaced_s = time.perf_counter() - t0
     reports = _spawn(ranks, job, timeout, workdir)
     out: Dict[str, Any] = {"cases": {}, "unplaced_s": unplaced_s,
-                           "seconds": time.perf_counter() - t0}
+                           "seconds": time.perf_counter() - t0,
+                           "peak_bytes": [r["peak_bytes"] for r in reports]}
     for key in job["digests"]:
         fmt, case = key.split("/")
         per = [r["cases"][key] for r in reports]
@@ -649,6 +650,7 @@ def audit(preset: str = "toy", *, ranks: int = 4, n_pods: int = 4,
             "unplaced_merged": job["digests"][key]["merged"],
             "launches": [p["launches"] for p in per],
             "collectives": [p["phases"] for p in per],
+            "records": [p["records"] for p in per],
             # as the ranks' reports read back (JSON lists)
             "expected": json.loads(json.dumps(expected_collectives(
                 trees[_scalars(case, fmt)], fmt, case, n_pods, n_clusters,

@@ -25,12 +25,14 @@ values of ``S`` encoder positions to prefill, ``min(4096, S)`` to
 decode; a vision model takes ``F = min(frontend_tokens, S // 2) or S //
 8`` positions of ``frontend_embeds (B, F, d)`` and ``S - F`` tokens.
 
-The reference also derives sharding trees for its mesh from the
-parameters' logical axes, and ``abstract_init_lm`` evaluates the init
-without allocating; one card has no mesh to shard over, so neither has a
-counterpart here, and the MoE dispatch takes one token group
-(``_moe_groups`` is 1).  Tokens are int64, the index type of the port's
-embedding.
+:func:`abstract_init_lm` gives the parameter tree on the ``meta``
+device with its logical axes (``models.lm.param_axes``), as the
+reference's does without allocating; the axes feed
+``dist.sharding``'s rules and the byte bill's ``block_axis`` hint.  The
+reference also derives sharding trees for its mesh from those axes; one
+card has no mesh to shard over, so the step builders take none, and the
+MoE dispatch takes one token group (``_moe_groups`` is 1).  Tokens are
+int64, the index type of the port's embedding.
 """
 from __future__ import annotations
 
@@ -71,6 +73,13 @@ def specs(tree: Tree) -> Tree:
     scalar."""
     return tree_map(lambda x: Spec((), torch.int32) if isinstance(x, int)
                     else Spec(tuple(x.shape), x.dtype), tree)
+
+
+def abstract_init_lm(cfg: ModelConfig) -> Tuple[Tree, Tree]:
+    """``(params, param_axes)``: ``init_lm``'s tree on the ``meta``
+    device (shapes and dtypes, nothing allocated or drawn) and the axes
+    twin of its leaves."""
+    return LM.init_lm(cfg, 0, META), LM.param_axes(cfg)
 
 
 def _param_dtype(cfg: ModelConfig) -> torch.dtype:

@@ -42,7 +42,7 @@ scan | kernel), and write the cache in place.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -167,6 +167,83 @@ def init_lm(cfg: ModelConfig, seed: int, device,
         emb["head"] = cast(L.dense_init(gen, (d, cfg.vocab_size), device))
     return {"embedding": emb, **stack,
             "final_norm": cast(L.init_norm(cfg, d, device))}
+
+
+# The logical axes of every leaf (the reference's annotations: ``P(value,
+# axes)`` at init, ``split_tree``'s axes twin), by the part of a block the
+# leaf is in.  A stacked stack's leaves take "layers" first.
+_NORM_AXES = {"scale": ("embed",), "bias": ("embed",)}
+_PART_AXES = {
+    "attention": {"wq": ("qkv", "heads", "head_dim"),
+                  "wk": ("qkv", "kv_heads", "head_dim"),
+                  "wv": ("qkv", "kv_heads", "head_dim"),
+                  "wo": ("heads", "head_dim", "qkv"),
+                  "q_norm": ("head_dim",), "k_norm": ("head_dim",)},
+    "mla": {"wq": ("qkv", "heads", "head_dim"), "w_dkv": ("qkv", "lora"),
+            "w_kr": ("qkv", "head_dim"), "kv_norm": ("lora",),
+            "w_uk": ("lora", "heads", "head_dim"),
+            "w_uv": ("lora", "heads", "head_dim"),
+            "wo": ("heads", "head_dim", "qkv")},
+    "mlp": {"wi": ("qkv", "ff"), "wg": ("qkv", "ff"), "wo": ("ff", "qkv")},
+    "moe": {"router": ("qkv", "expert"),
+            "wi": ("expert", "qkv", "expert_ff"),
+            "wg": ("expert", "qkv", "expert_ff"),
+            "wo": ("expert", "expert_ff", "qkv"),
+            "shared_wi": ("qkv", "ff"), "shared_wg": ("qkv", "ff"),
+            "shared_wo": ("ff", "qkv")},
+    "time_mix": {"mu_x": ("embed",), "mu": (None, "embed"),
+                 "mix_w1": ("qkv", "lora"), "mix_w2": (None, "lora", "embed"),
+                 "decay_base": ("embed",), "decay_w1": ("qkv", "lora"),
+                 "decay_w2": ("lora", "embed"),
+                 "bonus_u": ("heads", "head_dim"), "wr": ("qkv", "ff"),
+                 "wk": ("qkv", "ff"), "wv": ("qkv", "ff"),
+                 "wg": ("qkv", "ff"), "wo": ("ff", "qkv"),
+                 "ln_scale": ("embed",), "ln_bias": ("embed",)},
+    "channel_mix": {"mu_k": ("embed",), "mu_r": ("embed",),
+                    "wk": ("qkv", "ff"), "wv": ("ff", "qkv"),
+                    "wr": ("qkv", "ff")},
+    "rglru": {"w_in_x": ("qkv", "lru"), "w_in_g": ("qkv", "lru"),
+              "conv_w": ("conv", "lru"), "conv_b": ("lru",),
+              "gate_a_w": ("lru", "ff"), "gate_a_b": ("lru",),
+              "gate_x_w": ("lru", "ff"), "gate_x_b": ("lru",),
+              "lam": ("lru",), "w_out": ("lru", "qkv")},
+}
+_EMBED_AXES = {"table": ("vocab", "embed"), "head": ("embed", "vocab")}
+
+
+def _block_axes(cfg: ModelConfig, kind: str, block: Dict, prefix: Tuple
+                ) -> Dict:
+    """The axes of one block's leaves (a stacked block's prefixed with
+    ``prefix``)."""
+    mixer = {"rwkv": "time_mix", "rec": "rglru"}.get(
+        kind, "mla" if cfg.mla is not None else "attention")
+    mlp = {"rwkv": "channel_mix", "moe": "moe"}.get(kind, "mlp")
+    parts = {"mixer": _PART_AXES[mixer], "mlp": _PART_AXES[mlp],
+             "cross": _PART_AXES["attention"]}
+    return {part: {name: prefix + (parts[part][name] if part in parts
+                                   else _NORM_AXES[name])
+                   for name in leaves}
+            for part, leaves in block.items()}
+
+
+def param_axes(cfg: ModelConfig) -> Params:
+    """The logical axes of every leaf of ``init_lm(cfg, ...)``, a tree of
+    its structure with one tuple of axis names (None: an unnamed axis) a
+    leaf: the reference's ``init_lm`` axes twin, in the port's tree
+    order.  Built from the tree's shapes on the ``meta`` device, so
+    nothing is allocated."""
+    tree = init_lm(cfg, 0, "meta")
+    out: Params = {"embedding": {k: _EMBED_AXES[k] for k in tree["embedding"]},
+                   "final_norm": {k: _NORM_AXES[k]
+                                  for k in tree["final_norm"]}}
+    if "blocks" in tree:
+        out["blocks"] = [_block_axes(cfg, block_kind(cfg, i), b, ())
+                         for i, b in enumerate(tree["blocks"])]
+    for stack in ("layers", "encoder", "decoder"):
+        if stack in tree:
+            out[stack] = _block_axes(cfg, block_kind(cfg, 0), tree[stack],
+                                     ("layers",))
+    return out
 
 
 # rec_impl -> the RG-LRU block's impl (the reference's names)

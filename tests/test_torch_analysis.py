@@ -649,7 +649,7 @@ def test_analyze_self_test_cli_on_cpu(tmp_path):
     assert len([l for l in labels if l.startswith("kernel[")]) == \
         len(ops.kernel_lint_cases()) + 1
     assert {f["expected_class"] for f in record["self_test"]} == \
-        {"host-sync-in-loop", "tile-misaligned"}
+        {"fp32-model-crossing", "host-sync-in-loop", "tile-misaligned"}
 
 
 def test_bad_tiles_selftest_on_cpu_lints_and_launches_nothing():

@@ -409,6 +409,110 @@ def test_wrappers_check_inputs_and_count_launches(card):
     assert build.LAUNCHES["dequantize_int8"] == 1
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("any_push", [True, False])
+def test_merges_take_half_precision_leaves(card, dtype, any_push):
+    """The three merges on bf16 and fp16 leaves (row tiles, column tiles,
+    tails, the scalar path), bitwise their plain versions: widened on
+    load, merged in fp32, rounded once on store.  A grouped merge over
+    leaves of two dtypes takes one launch a dtype."""
+    shapes = [(4, 512), (2, 768, 12, 64), (3, 300), (2, 512, 3), (700,)]
+    n_pods = 3
+    gen = torch.Generator(device=card).manual_seed(31)
+    w1, w2, denom, push = _scalars(card, n_pods, any_push, 32)
+    for name, group, plain in (
+            ("int8", dequant_merge_group_cuda, ref.dequant_merge_ref),
+            ("int4", dequant_merge_packed_group_cuda,
+             ref.dequant_merge_packed_ref)):
+        fmt = wire.get_format(name)
+        leaves = []
+        for i, s in enumerate(shapes):
+            g = torch.randn(s, generator=gen, device=card)
+            pay = fmt.encode(1e-2 * torch.randn((n_pods,) + s, generator=gen,
+                                                device=card), key=(0, i))
+            leaves.append((g.to(dtype) if i else g,
+                           pay["q" if name == "int8" else "q_packed"],
+                           pay["scales"], wire.block_axis((n_pods,) + s)))
+        build.reset_launches()
+        got = group(leaves, w2, denom, push)
+        kernel = "dequant_merge" if name == "int8" else "dequant_merge_packed"
+        assert build.LAUNCHES[kernel] == 2   # one fp32 leaf, four of dtype
+        for (g, q, sc, ax), out in zip(leaves, got):
+            assert out.dtype == g.dtype
+            assert torch.equal(out, plain(g, q, sc, w2, denom, push,
+                                          axis=ax)), (name, tuple(g.shape))
+        # one element off the 8-byte alignment: the scalar path
+        g, q, sc, ax = leaves[1]
+        buf = torch.empty(g.numel() + 1, dtype=dtype, device=card)
+        gv = buf[1:].view(g.shape)
+        gv.copy_(g)
+        out, = group([(gv, q, sc, ax)], w2, denom, push)
+        assert torch.equal(out, plain(g, q, sc, w2, denom, push, axis=ax))
+    for shape in ((4, 4096), (17,), (3, 1000)):
+        g = torch.randn(shape, generator=gen, device=card).to(dtype)
+        pods = (g[None] + 1e-2 * torch.randn((n_pods,) + shape, generator=gen,
+                                             device=card)).to(dtype)
+        got = loss_weighted_update_cuda(g, pods, w1, w2, denom, push)
+        assert got.dtype == dtype
+        assert torch.equal(got, ref.loss_weighted_update_ref(
+            g, pods, w1, w2, denom, push)), shape
+    with pytest.raises(TypeError, match="dtype"):
+        loss_weighted_update_cuda(g.float(), pods, w1, w2, denom, push)
+    with pytest.raises(TypeError):
+        dequant_merge_cuda(g.double(), *leaves[0][1:3], w2, denom, push)
+
+
+@pytest.mark.parametrize("compression", ["none", "fp16", "int8", "int4"])
+def test_bf16_hermes_round_on_card_equals_plain(card, compression,
+                                                monkeypatch):
+    """A bf16 tree's Hermes round through the merge kernels, in every
+    wire format, bitwise the same round with the merges' plain versions
+    on the same inputs (the reference's kernels take any float leaf; the
+    port's raised on a bf16 ``g`` before its kernels were templated on
+    the leaf dtype)."""
+    from repro_torch.dist import hermes_sync as hs
+    from repro_torch.core.gup import gup_gate
+    from repro_torch.kernels import dequant_merge as dqm
+    from repro_torch.kernels import loss_weighted_update as lwu
+    from repro_torch.utils.trees import tree_leaves, tree_map
+    n = 3
+    w, pods = _lmtiny_pods(card, n, 7)
+    w = tree_map(lambda x: x.to(torch.bfloat16), w)
+    pods = tree_map(lambda x: x.to(torch.bfloat16), pods)
+    cfg = HermesConfig(compression=compression,
+                       error_feedback=compression in ("int8", "int4"))
+    gup = hs.hermes_pod_state(cfg, n, card)
+    for level in (3.0, 3.2):
+        _, gup = gup_gate(gup, torch.full((n,), level, device=card), cfg)
+    losses = torch.tensor([2.1, 2.2, 2.0], device=card)
+    L = torch.tensor(3.4, device=card)
+
+    def run():
+        return hs.hermes_round(pods, gup, losses, w, L, cfg, use_kernel=True,
+                               round_step=1,
+                               noise=wire.GeneratorNoise(6, card))
+
+    build.reset_launches()
+    got = run()
+    launches = dict(build.LAUNCHES)
+    kernel = {"none": "loss_weighted_update", "fp16": "loss_weighted_update",
+              "int8": "dequant_merge",
+              "int4": "dequant_merge_packed"}[compression]
+    assert got["merged"] and launches[kernel] > 0, launches
+    monkeypatch.setattr(ops, "dequant_merge_group",
+                        dqm.dequant_merge_group_plain)
+    monkeypatch.setattr(ops, "dequant_merge_packed_group",
+                        dqm.dequant_merge_packed_group_plain)
+    monkeypatch.setattr(ops, "loss_weighted_update",
+                        lwu.loss_weighted_update_plain)
+    build.reset_launches()
+    want = run()
+    assert build.LAUNCHES[kernel] == 0
+    for a, b in zip(tree_leaves([got["w_global"], got["pod_params"]]),
+                    tree_leaves([want["w_global"], want["pod_params"]])):
+        assert a.dtype == torch.bfloat16 and torch.equal(a, b)
+
+
 def test_train_hermes_on_card_runs_every_kernel(card):
     from repro_torch.launch.train import _preset, train_hermes
     counts = {}
@@ -917,10 +1021,13 @@ def _spec_inputs(spec, card):
             return lambda: pack_int4_cuda(q, axis=1)
         p = pack_int4_cuda(q, axis=1)
         return lambda: unpack_int4_cuda(p, axis=1)
+    dt = getattr(torch, spec.operands[0].dtype)
     if name == "loss_weighted_update":
-        gl, pods = randn(*g), randn(2, *g)
-        return lambda: loss_weighted_update_cuda(gl, pods, denom - 0.8, w2,
-                                                 denom, push)
+        (n,), (P, _) = shapes["g"], shapes["pods"]
+        gl, pods = randn(n).to(dt), randn(P, n).to(dt)
+        return lambda: loss_weighted_update_cuda(
+            gl, pods, denom - 0.8, torch.rand(P, generator=gen, device=card),
+            denom, push)
     if name in ("dequant_merge", "dequant_merge_packed"):
         # a leaf the kernel walks as the spec's does: (units, 256) blocked
         # on its last axis (row tiles), or (outer*nb, 256, inner) blocked
@@ -930,7 +1037,7 @@ def _spec_inputs(spec, card):
             gshape, ax = shapes["g"], 2
         else:
             gshape, ax = (shapes["g"][0] // 2, 256, shapes["g"][2]), 2
-        gl = randn(*gshape)
+        gl = randn(*gshape).to(dt)
         q = torch.randint(-7, 8, (P,) + gshape, generator=gen, device=card,
                           dtype=torch.int8)
         sc = randn(P, gshape[0], 1, *gshape[2:]).abs()
@@ -942,7 +1049,6 @@ def _spec_inputs(spec, card):
         return lambda: dequant_merge_packed_cuda(gl, qp, sc, w2, denom, push,
                                                  axis=ax)
     if name in ("flash_simt", "flash_decode", "flash_prefill"):
-        dt = getattr(torch, spec.operands[0].dtype)
         q, k, v = (randn(*shapes[n]).to(dt) for n in ("q", "k", "v"))
         Sq, Skv = q.shape[1], k.shape[1]
         qp = torch.arange(Skv - Sq, Skv, dtype=torch.int32, device=card)

@@ -54,6 +54,6 @@ def test_main_names_the_unported_checkpoint_restart(capsys):
     assert {"hermes_shrink", "hermes_rejoin", "hermes_cluster_resize"} <= \
         set(out)
     assert out["hermes_rejoin"]["bit_identical"]
-    assert "ROADMAP queue 1 item 8" in out["checkpoint_restart"]["error"]
-    with pytest.raises(NotImplementedError, match="item 8"):
+    assert "ROADMAP queue 1 item 9" in out["checkpoint_restart"]["error"]
+    with pytest.raises(NotImplementedError, match="item 9"):
         tel.run_demo()

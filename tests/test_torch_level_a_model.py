@@ -25,7 +25,7 @@ from repro_torch.core import bundles as tbundles
 from repro_torch.core import loss_sgd as tsgd
 from repro_torch.dist import compression as tcomp
 from repro_torch.models import cnn as tcnn
-from repro_torch.utils.trees import tree_leaves
+from repro_torch.utils.trees import tree_leaves, tree_map
 
 from torch_parity import jax_noise
 
@@ -78,9 +78,15 @@ def test_payload_bytes_equal_reference(arch, mode):
 
 
 def test_payload_bytes_refuses_the_sharding_hint():
-    _, t = _params("mnist-cnn")
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+    """The hint needs an axes tree of the parameters' structure: an empty
+    one is refused; one with no rules moves no blocked axis, so the bill
+    is the shape-only one, as the reference's."""
+    p, t = _params("mnist-cnn")
+    with pytest.raises(KeyError):
         tcomp.payload_bytes(t, "int4", param_axes={})
+    axes = tree_map(lambda x: (None,) * x.ndim, t)
+    assert tcomp.payload_bytes(t, "int4", param_axes=axes) == \
+        jcomp.payload_bytes(p, "int4") == BILL["mnist-cnn"]["int4"]
     with pytest.raises(ValueError):
         tcomp.payload_bytes(t, "int3")
 

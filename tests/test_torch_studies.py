@@ -174,4 +174,4 @@ def test_runner_rows_match_reference(monkeypatch, capsys):
     out = capsys.readouterr().out.splitlines()
     assert out[0] == "name,us_per_call,derived"
     assert out[1].startswith("kernels/ERROR,0.0,NotImplementedError:")
-    assert "ROADMAP queue 1 item 8" in out[1]
+    assert "benchmark PR, ROADMAP queue 1 item 10" in out[1]
