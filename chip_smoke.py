@@ -2132,9 +2132,11 @@ def elastic(torch, dev, results) -> None:
                     raise AssertionError(f"int4 proofs launched {launches}")
                 if mode == "int8" and launches.get("dequant_merge", 0) < 1:
                     raise AssertionError(f"int8 proofs launched {launches}")
+                # one grouped launch a merge of the fp32 tree (14 leaves)
                 if mode == "none" and \
-                        launches.get("loss_weighted_update", 0) < 1:
-                    raise AssertionError(f"none proofs launched {launches}")
+                        launches.get("loss_weighted_update", 0) != merges[0]:
+                    raise AssertionError(f"none proofs launched {launches} "
+                                         f"for {merges[0]} merges")
                 del out
     finally:
         el.elastic_shrink, el.elastic_grow = real["elastic_shrink"], \
@@ -2920,8 +2922,10 @@ def wire_audits(torch, dev, results) -> None:
     from repro_torch.kernels.dequant_merge import (
         dequant_merge_group_cuda, dequant_merge_packed_group_cuda)
     from repro_torch.kernels.loss_weighted_update import (
-        loss_weighted_update_cuda)
+        loss_weighted_update_group_cuda, loss_weighted_update_group_plain)
+    from repro_torch.dist import hermes_sync as hs
     from repro_torch.launch import analyze, hermes_dryrun
+    from repro_torch.launch import placed_audit as pa
     from repro_torch.launch.placed_audit import _config
     from repro_torch.models.lm import init_lm
     from repro_torch.utils.trees import tree_flatten
@@ -2981,10 +2985,24 @@ def wire_audits(torch, dev, results) -> None:
                  "loss_weighted_update"):
         if launches.get(name, 0) < 1:
             raise AssertionError(f"the qwen3-8b rounds never launched {name}")
+    # the open none and fp16 rounds, in the unplaced run and on each rank
+    # (a closed round merges nothing): one grouped launch a none merge of
+    # the bf16 tree, one an fp16 merge's decode-fallback run (the two
+    # vocabulary tables alone, then the rest)
+    job = {"preset": arch, "seed": 0, "layers": layers, "dtype": "bfloat16"}
+    runs = {"none": 1, "fp16": len(hs.fallback_runs(
+        [2 * x.numel() * x.element_size()
+         for x in tree_flatten(pa._w_global(job, pa.META))[0]]))}
+    want = sum(runs[f] * sum(run["formats"][f]["flat"]["merged"])
+               * (1 + hermes_dryrun.N_PODS) for f in runs)
+    if launches["loss_weighted_update"] != want:
+        raise AssertionError(f"the none / fp16 rounds launched "
+                             f"loss_weighted_update "
+                             f"{launches['loss_weighted_update']} times, "
+                             f"{want} expected ({runs} a merge)")
 
     # (c) the bf16 merges at the same tree, two pods, gates open: each
     # held bitwise to its plain version and timed on the card's clock
-    job = {"preset": arch, "layers": layers}
     g_leaves = tree_flatten(init_lm(_config(job), 0, dev, draw_on=dev,
                                     dtype=torch.bfloat16))[0]
     n_pods = 2
@@ -3004,10 +3022,10 @@ def wire_audits(torch, dev, results) -> None:
         if fmt == "none":
             pods = [(g[None] + d) for g, d in zip(g_leaves, deltas)]
             ins = g_leaves + pods
-            kern = lambda: [loss_weighted_update_cuda(  # noqa: E731
-                g, p, w1, w2, denom, push) for g, p in zip(g_leaves, pods)]
-            plain = lambda: [ref.loss_weighted_update_ref(  # noqa: E731
-                g, p, w1, w2, denom, push) for g, p in zip(g_leaves, pods)]
+            kern = lambda: loss_weighted_update_group_cuda(  # noqa: E731
+                list(zip(g_leaves, pods)), w1, w2, denom, push)
+            plain = lambda: loss_weighted_update_group_plain(  # noqa: E731
+                list(zip(g_leaves, pods)), w1, w2, denom, push)
             flops = 2 + 2 * n_pods
         else:
             pays = wire.get_format(fmt).encode_group(
@@ -3081,7 +3099,7 @@ def main() -> int:
     from repro_torch.kernels.dequant_merge import (
         dequant_merge_group_cuda, dequant_merge_packed_group_cuda)
     from repro_torch.kernels.loss_weighted_update import (
-        loss_weighted_update_cuda)
+        loss_weighted_update_group_cuda, loss_weighted_update_group_plain)
     from repro_torch.kernels.pack import (
         pack_int4_group_cuda, pack_int4_group_plain, unpack_int4_group_cuda,
         unpack_int4_group_plain)
@@ -3159,7 +3177,8 @@ def main() -> int:
         "unpack_int4": (lambda: unpack_int4_group_cuda(unpack_leaves),
                         lambda: unpack_int4_group_plain(unpack_leaves), 0,
                         None),
-        # the merges: one grouped launch over every leaf, as the round
+        # the merges and the loss-weighted update: one grouped launch over
+        # every leaf, as the round
         "dequant_merge_packed": (
             lambda: dequant_merge_packed_group_cuda(
                 [(g, p["q_packed"], p["scales"], ax)
@@ -3170,10 +3189,10 @@ def main() -> int:
                 for g, p, ax in zip(g_leaves, payloads, axes)],
             2 + 3 * PODS, None),
         "loss_weighted_update": (
-            lambda: [loss_weighted_update_cuda(g, p, w1, w2, denom, push)
-                     for g, p in zip(g_leaves, pods_f32)],
-            lambda: [ref.loss_weighted_update_ref(g, p, w1, w2, denom, push)
-                     for g, p in zip(g_leaves, pods_f32)],
+            lambda: loss_weighted_update_group_cuda(
+                list(zip(g_leaves, pods_f32)), w1, w2, denom, push),
+            lambda: loss_weighted_update_group_plain(
+                list(zip(g_leaves, pods_f32)), w1, w2, denom, push),
             2 + 2 * PODS, None),
         "dequant_merge": (
             lambda: dequant_merge_group_cuda(

@@ -27,7 +27,8 @@ Two merge associations, each pinned to its own reference path:
 * kernels (``use_kernel``): int8 and int4 merge the wire payload into the
   global leaf with ``dequant_merge`` / ``dequant_merge_packed`` (``denom*g
   + sum w2_i*(q_i*s_i)``), ``none``/``fp16`` use ``loss_weighted_update``
-  on the reconstructed pods;
+  on the reconstructed pods in grouped calls (``none``: the whole tree in
+  one; ``fp16``: a call a :func:`fallback_runs` run);
 * plain: the receiver decodes pod ``i``'s payload row and accumulates
   ``w2_i*(g + r_i)`` on ``w1*g`` (the reference's ``_merge_sliced``).
 """
@@ -164,11 +165,13 @@ def _merge_sliced(w_global, payloads, fmt, w1, w2, denom, any_push, n_pods):
 
 
 def _merge_recv(w_global, recv, w1, w2, denom, any_push, use_kernel):
-    """The merge over reconstructed pod-stacked models (``none``/``fp16``,
-    or the decode fallback)."""
+    """The merge over the pod-stacked models the ``none`` wire ships:
+    every leaf in one grouped kernel call."""
     if use_kernel:
-        return tree_map(lambda g, p: ops.loss_weighted_update(
-            g, p, w1, w2, denom, any_push), w_global, recv)
+        g_leaves, treedef = tree_flatten(w_global)
+        return tree_unflatten(treedef, ops.loss_weighted_update_group(
+            list(zip(g_leaves, flatten_up_to(treedef, recv))), w1, w2,
+            denom, any_push))
     return tree_map(lambda g, p: _merge_leaf(g, p, w1, w2, denom, any_push),
                     w_global, recv)
 
@@ -355,16 +358,46 @@ def _merge_payloads(w_global, payloads, w1, w2, denom, any_push, compression,
                                      any_push)
         for i, out in zip(fused, outs):
             merged[i] = out
-    for i, (g, p) in enumerate(zip(g_leaves, pays)):
-        if merged[i] is not None:
-            continue
-        recv = _recv(g, p, fmt, n_pods)
-        if fmt.fused_merge_group is not None:  # blocked on the pod axis
-            merged[i] = _merge_leaf(g, recv, w1, w2, denom, any_push)
-        else:
-            merged[i] = ops.loss_weighted_update(g, recv, w1, w2, denom,
-                                                 any_push)
+    # the decode fallback: the leaves the fused merge left, reconstructed
+    # and merged a run at a time, one grouped call a run
+    rest = [i for i, m in enumerate(merged) if m is None]
+    for run in fallback_runs([n_pods * g_leaves[i].numel()
+                              * g_leaves[i].element_size() for i in rest]):
+        idx = [rest[k] for k in run]
+        for i, out in zip(idx, _merge_run(
+                [g_leaves[i] for i in idx], [pays[i] for i in idx], fmt,
+                w1, w2, denom, any_push, n_pods)):
+            merged[i] = out
     return tree_unflatten(treedef, merged)
+
+
+def fallback_runs(sizes: Sequence[int]):
+    """The decode fallback's runs of leaves, in order, whose reconstructed
+    pods (``sizes``, bytes) together take at most the largest one's: a run
+    at a time, the merge holds no more reconstructions at once than a
+    merge leaf by leaf.  At qwen3-8b (1 layer, bf16, 2 pods) the two
+    vocabulary tables run alone and the other 12 leaves together."""
+    budget, runs, held = max(sizes, default=0), [], 0
+    for k, size in enumerate(sizes):
+        if runs and held + size <= budget:
+            runs[-1].append(k)
+            held += size
+        else:
+            runs.append([k])
+            held = size
+    return runs
+
+
+def _merge_run(gs, pays, fmt, w1, w2, denom, any_push, n_pods):
+    """One fallback run: reconstruct its leaves, then merge them (one
+    grouped kernel call; a leaf blocked on the pod axis merges plain).
+    The reconstructions are freed when it returns."""
+    recvs = [_recv(g, p, fmt, n_pods) for g, p in zip(gs, pays)]
+    if fmt.fused_merge_group is not None:  # blocked on the pod axis
+        return [_merge_leaf(g, r, w1, w2, denom, any_push)
+                for g, r in zip(gs, recvs)]
+    return ops.loss_weighted_update_group(list(zip(gs, recvs)), w1, w2,
+                                          denom, any_push)
 
 
 def _refresh(pod_params, gates, new_global):

@@ -53,8 +53,7 @@ LIBRARIES = {
         "unpack_int4": (_P, _I32, _I32, _P),
         # leaf descriptors, leaf count, scal, pods, dtype, 64-bit offsets
         "dequant_merge_packed": (_P, _I32, _P, _I32, _I32, _I32, _P),
-        # g, pods, scal, out, pods, n, dtype
-        "loss_weighted_update": (_P, _P, _P, _P, _I32, _I64, _I32, _P),
+        "loss_weighted_update": (_P, _I32, _P, _I32, _I32, _I32, _P),
         "dequant_merge": (_P, _I32, _P, _I32, _I32, _I32, _P),
         "quantize_int8": (_P, _P, _P, _I64, _I64, _P),
         "dequantize_int8": (_P, _P, _P, _I64, _P),

@@ -12,8 +12,9 @@
 // None of these kernels does a matrix product: each streams its operands
 // once, so each is bound by HBM bytes.  The design is a grid-stride
 // elementwise pass (a warp per 256-block for the quantize, whose scale is
-// a block reduction; the int4 pack and unpack and the int4 and int8
-// merges walk tiles of every leaf of a tree in one launch, see below)
+// a block reduction; the int4 pack and unpack, the int4 and int8 merges
+// and the loss-weighted update walk tiles of every leaf of a tree in one
+// launch, see below)
 // with neighbouring threads on neighbouring addresses, and 32-bit index
 // arithmetic whenever every index of the launch fits, since 64-bit
 // division costs tens of instructions per element.  Byte
@@ -46,8 +47,6 @@ inline unsigned grid_for(long long n) {
   const long long cap = 132LL * 16LL;
   return static_cast<unsigned>(blocks < cap ? blocks : cap);
 }
-
-inline bool fits32(long long max_index) { return max_index < (1LL << 31); }
 
 __device__ __forceinline__ int8_t nibble_join(int lo, int hi) {
   const int v = ((hi & 0xF) << 4) | (lo & 0xF);  // [0, 255]
@@ -683,43 +682,223 @@ int launch_merge(const long long* desc, int n_leaves, const void* scal,
   }
 }
 
-// out = any_push ? (w1*g + sum_k w2_k*pods_k) / denom : g, flat, g, pods
-// and out all T.  scal = [w1, denom, any_push, w2_0 .. w2_{P-1}] on the
-// device.
-template <typename T, typename I>
-__global__ void loss_weighted_update_kernel(
-    const T* __restrict__ g, const T* __restrict__ pods,
-    const float* __restrict__ scal, T* __restrict__ out, int n_pods, I n) {
-  const float w1 = scal[0];
-  const float denom = scal[1];
-  const bool any_push = scal[2] > 0.5f;
-  for (I idx = blockIdx.x * (I)blockDim.x + threadIdx.x; idx < n;
-       idx += (I)gridDim.x * blockDim.x) {
-    if (!any_push) {
-      out[idx] = g[idx];
-      continue;
-    }
-    float acc = __fmul_rn(w1, widen(g[idx]));
-    for (int pod = 0; pod < n_pods; ++pod) {
-      acc = __fadd_rn(acc, __fmul_rn(scal[3 + pod],
-                                     widen(pods[pod * n + idx])));
-    }
-    out[idx] = narrow<T>(__fdiv_rn(acc, denom));
-  }
+// ---- the loss-weighted update ---------------------------------------------
+//
+// out = any_push ? (w1*g + sum_i w2_i*pods_i) / denom : g over every flat
+// leaf of a tree of one dtype T in one launch: g and out (n,), pods
+// (n_pods, n).  Nothing is reused, so the kernel is bound by HBM bytes,
+// (2 + n_pods) * sizeof(T) an element.  A slot is 16 bytes of g (4 fp32 or
+// 8 bf16 / fp16 elements), the same 16 bytes of every pod and of out; a
+// tile is kLwuSlots slots a thread, neighbouring threads on neighbouring
+// slots, and a persistent grid of 132 SMs x kLwuBlocksPerSm blocks walks
+// the tiles of every leaf, numbered across the launch.  The leaf
+// descriptors travel by value in the kernel's parameters, kMergeLeaves a
+// launch, as the merges' do.  A thread issues its loads of g and of
+// kPodChunk pods for all its slots before it uses any of them, through the
+// read-only path (__ldg: the streaming hint __ldcs on the pods, or an L2
+// prefetch hint, ran 4-7% slower on the H100; one slot a thread beat two,
+// which spill at the 64 registers of 4 blocks an SM, and 4 blocks beat 2,
+// 6 or 8: tools/merge_probe.py --sub), and stores out streaming.  w2 sits
+// in shared memory, read once a block.  A leaf whose g, pods or out is not
+// 16-byte aligned, or whose length is not a whole number of slots (pod
+// i's row then breaks the alignment), walks its slots element by element.
+//
+// The arithmetic is the plain version's: widen to fp32 on load, w1*g, then
+// + w2_i*p_i in pod order, then / denom, one rounding per operation, and
+// one rounding to T on store; with any_push false out is g's bytes.
+
+constexpr int kLwuSlots = 1;           // 16-byte slots a thread takes a tile
+constexpr int kLwuBlocksPerSm = 4;     // persistent grid: 132 SMs x 4
+constexpr int kLwuTile = kThreads * kLwuSlots;  // slots a tile
+constexpr int kLwuFields = 6;          // int64 fields of a leaf descriptor
+
+struct LwuLeaf {
+  const void* g;     // (n,) T
+  const void* pods;  // (n_pods, n) T
+  void* out;         // (n,) T
+  long long n;
+  long long tile0;   // the leaf's first tile in the launch
+  int vec;           // 16-byte slots: pointers aligned, n whole slots
+};
+
+struct LwuGroup {
+  LwuLeaf leaf[kMergeLeaves];
+  long long n_tiles;
+  int n_leaves;
+};
+
+// The 16 bytes at p as fp32, and fp32 rounded to T into 16 bytes.
+template <typename T>
+__device__ __forceinline__ void widen16(uint4 x, float* v) {
+  constexpr int kLwuVec = 16 / sizeof(T);
+  T h[kLwuVec];
+  memcpy(h, &x, sizeof(x));
+#pragma unroll
+  for (int k = 0; k < kLwuVec; ++k) v[k] = widen(h[k]);
 }
 
 template <typename T>
-int launch_lwu_t(const void* g, const void* pods, const void* scal,
-                 void* out, int n_pods, long long n, cudaStream_t s) {
-  if (fits32(n_pods * n)) {
-    loss_weighted_update_kernel<T, unsigned><<<grid_for(n), kThreads, 0, s>>>(
-        (const T*)g, (const T*)pods, (const float*)scal, (T*)out, n_pods,
-        (unsigned)n);
-  } else {
-    loss_weighted_update_kernel<T, long long><<<grid_for(n), kThreads, 0,
-                                                s>>>(
-        (const T*)g, (const T*)pods, (const float*)scal, (T*)out, n_pods, n);
+__device__ __forceinline__ uint4 narrow16(const float* v) {
+  constexpr int kLwuVec = 16 / sizeof(T);
+  T h[kLwuVec];
+#pragma unroll
+  for (int k = 0; k < kLwuVec; ++k) h[k] = narrow<T>(v[k]);
+  uint4 x;
+  memcpy(&x, h, sizeof(x));
+  return x;
+}
+
+// Replaces src/repro/kernels/loss_weighted_update.py:loss_weighted_update
+// (_kernel), every leaf of a tree of one dtype in one launch.
+// scal = [w1, denom, any_push, w2_0 .. w2_{P-1}] on the device.
+template <typename T, typename I>
+__global__ void __launch_bounds__(kThreads, kLwuBlocksPerSm)
+loss_weighted_update_kernel(const __grid_constant__ LwuGroup grp,
+                            const float* __restrict__ scal, int n_pods) {
+  constexpr int kLwuVec = 16 / sizeof(T);  // elements a slot
+  extern __shared__ float lwu_w2[];
+  for (int p = threadIdx.x; p < n_pods; p += kThreads) lwu_w2[p] = scal[3 + p];
+  const float w1 = scal[0];
+  const float denom = scal[1];
+  const bool push = scal[2] > 0.5f;
+  __syncthreads();
+  int li = 0;
+  for (long long t = blockIdx.x; t < grp.n_tiles; t += gridDim.x) {
+    while (li + 1 < grp.n_leaves && t >= grp.leaf[li + 1].tile0) ++li;
+    const LwuLeaf& L = grp.leaf[li];
+    const T* g = static_cast<const T*>(L.g);
+    const T* pods = static_cast<const T*>(L.pods);
+    T* out = static_cast<T*>(L.out);
+    const I n = static_cast<I>(L.n);
+    const I s0 = static_cast<I>(t - L.tile0) * kLwuTile + threadIdx.x;
+    if (L.vec) {
+      const I slots = n / kLwuVec;
+      uint4 gw[kLwuSlots];
+#pragma unroll
+      for (int u = 0; u < kLwuSlots; ++u) {
+        const I s = s0 + u * kThreads;
+        gw[u] = make_uint4(0u, 0u, 0u, 0u);
+        if (s < slots) gw[u] = __ldg(reinterpret_cast<const uint4*>(
+            g + s * kLwuVec));
+      }
+      if (!push) {  // g as it was: its widening rounds back exactly
+#pragma unroll
+        for (int u = 0; u < kLwuSlots; ++u) {
+          const I s = s0 + u * kThreads;
+          if (s < slots) __stcs(reinterpret_cast<uint4*>(out + s * kLwuVec),
+                                gw[u]);
+        }
+        continue;
+      }
+      float acc[kLwuSlots][kLwuVec];
+      for (int p0 = 0; p0 < n_pods; p0 += kPodChunk) {
+        uint4 pw[kPodChunk][kLwuSlots];
+#pragma unroll
+        for (int c = 0; c < kPodChunk; ++c) {
+          if (p0 + c < n_pods) {
+            const T* pod = pods + static_cast<I>(p0 + c) * n;
+#pragma unroll
+            for (int u = 0; u < kLwuSlots; ++u) {
+              const I s = s0 + u * kThreads;
+              pw[c][u] = make_uint4(0u, 0u, 0u, 0u);
+              if (s < slots) pw[c][u] = __ldg(reinterpret_cast<const uint4*>(
+                  pod + s * kLwuVec));
+            }
+          }
+        }
+        if (p0 == 0) {
+#pragma unroll
+          for (int u = 0; u < kLwuSlots; ++u) {
+            widen16<T>(gw[u], acc[u]);
+#pragma unroll
+            for (int k = 0; k < kLwuVec; ++k)
+              acc[u][k] = __fmul_rn(w1, acc[u][k]);
+          }
+        }
+#pragma unroll
+        for (int c = 0; c < kPodChunk; ++c) {
+          if (p0 + c < n_pods) {
+            const float w = lwu_w2[p0 + c];
+#pragma unroll
+            for (int u = 0; u < kLwuSlots; ++u) {
+              float pv[kLwuVec];
+              widen16<T>(pw[c][u], pv);
+#pragma unroll
+              for (int k = 0; k < kLwuVec; ++k)
+                acc[u][k] = __fadd_rn(acc[u][k], __fmul_rn(w, pv[k]));
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kLwuSlots; ++u) {
+        const I s = s0 + u * kThreads;
+        if (s >= slots) continue;
+#pragma unroll
+        for (int k = 0; k < kLwuVec; ++k)
+          acc[u][k] = __fdiv_rn(acc[u][k], denom);
+        __stcs(reinterpret_cast<uint4*>(out + s * kLwuVec),
+               narrow16<T>(acc[u]));
+      }
+      continue;
+    }
+    // the scalar path: each slot's elements one by one, masked to the leaf
+    for (int u = 0; u < kLwuSlots; ++u) {
+      const I e0 = (s0 + u * kThreads) * kLwuVec;
+      for (int k = 0; k < kLwuVec; ++k) {
+        const I e = e0 + k;
+        if (e >= n) break;
+        if (!push) {
+          out[e] = g[e];
+          continue;
+        }
+        float sum = __fmul_rn(w1, widen(g[e]));
+        for (int pod = 0; pod < n_pods; ++pod)
+          sum = __fadd_rn(sum, __fmul_rn(lwu_w2[pod], widen(
+              pods[static_cast<I>(pod) * n + e])));
+        out[e] = narrow<T>(__fdiv_rn(sum, denom));
+      }
+    }
   }
+}
+
+// Unpacks the leaf descriptors (kLwuFields int64 each: g, pods, out, n,
+// vec, tiles) and launches the persistent grid; ``wide`` takes 64-bit
+// offsets (some leaf's n_pods * n reaches 2^31).
+template <typename T>
+int launch_lwu_t(const long long* desc, int n_leaves, const void* scal,
+                 int n_pods, int wide, void* stream) {
+  if (n_leaves < 1 || n_leaves > kMergeLeaves || n_pods < 1)
+    return (int)cudaErrorInvalidValue;
+  LwuGroup grp = {};
+  long long tiles = 0;
+  for (int l = 0; l < n_leaves; ++l) {
+    const long long* f = desc + l * kLwuFields;
+    LwuLeaf& L = grp.leaf[l];
+    L.g = reinterpret_cast<const void*>(f[0]);
+    L.pods = reinterpret_cast<const void*>(f[1]);
+    L.out = reinterpret_cast<void*>(f[2]);
+    L.n = f[3];
+    L.vec = (int)f[4];
+    L.tile0 = tiles;
+    tiles += f[5];
+  }
+  if (tiles < 1) return (int)cudaErrorInvalidValue;
+  grp.n_tiles = tiles;
+  grp.n_leaves = n_leaves;
+  const long long cap = 132LL * kLwuBlocksPerSm;
+  const unsigned grid = (unsigned)(tiles < cap ? tiles : cap);
+  const size_t smem = sizeof(float) * n_pods;
+  void (*kernel)(const LwuGroup, const float*, int) =
+      wide ? loss_weighted_update_kernel<T, long long>
+           : loss_weighted_update_kernel<T, unsigned>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      grp, (const float*)scal, n_pods);
   return (int)cudaGetLastError();
 }
 
@@ -840,17 +1019,20 @@ int launch_dequant_merge_packed(const void* desc, int n_leaves,
 // Replaces src/repro/kernels/loss_weighted_update.py:loss_weighted_update
 // (_kernel).  Bound by HBM bytes: g 498.7 MB + pods 1994.7 MB read,
 // 498.7 MB written at lm100m x 4 pods = 2.99 GB, 0.893 ms at 3.35 TB/s.
-// g/out: (n,); pods: (n_pods, n); all of one dtype (0 fp32, 1 bf16, 2
-// fp16).
-int launch_loss_weighted_update(const void* g, const void* pods,
-                                const void* scal, void* out, int n_pods,
-                                long long n, int dtype, void* stream) {
-  const cudaStream_t s = (cudaStream_t)stream;
+// desc: n_leaves (at most kMergeLeaves) leaf descriptors of one dtype (0
+// fp32, 1 bf16, 2 fp16), g and out (n,), pods (n_pods, n), updated in one
+// launch.
+int launch_loss_weighted_update(const void* desc, int n_leaves,
+                                const void* scal, int n_pods, int dtype,
+                                int wide, void* stream) {
+  const long long* d = (const long long*)desc;
   switch (dtype) {
-    case 0: return launch_lwu_t<float>(g, pods, scal, out, n_pods, n, s);
-    case 1: return launch_lwu_t<__nv_bfloat16>(g, pods, scal, out, n_pods, n,
-                                               s);
-    case 2: return launch_lwu_t<__half>(g, pods, scal, out, n_pods, n, s);
+    case 0: return launch_lwu_t<float>(d, n_leaves, scal, n_pods, wide,
+                                       stream);
+    case 1: return launch_lwu_t<__nv_bfloat16>(d, n_leaves, scal, n_pods,
+                                               wide, stream);
+    case 2: return launch_lwu_t<__half>(d, n_leaves, scal, n_pods, wide,
+                                        stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -104,6 +104,16 @@ def loss_weighted_update(g, pods, w1, w2, denom, any_push) -> torch.Tensor:
     return _lwu.loss_weighted_update_plain(g, pods, w1, w2, denom, any_push)
 
 
+def loss_weighted_update_group(leaves, w1, w2, denom, any_push):
+    """:func:`loss_weighted_update` of every leaf ``(g, pods)``: one launch
+    a dtype on a card."""
+    if leaves and leaves[0][0].is_cuda:
+        return _lwu.loss_weighted_update_group_cuda(leaves, w1, w2, denom,
+                                                    any_push)
+    return _lwu.loss_weighted_update_group_plain(leaves, w1, w2, denom,
+                                                 any_push)
+
+
 def flash_attention(q, k, v, q_positions, kv_positions, *,
                     causal: bool = True, window: int = 0,
                     scale=None) -> torch.Tensor:

@@ -24,7 +24,9 @@ from repro_torch.kernels.dequant_merge import (
 from repro_torch.kernels.flash_attention import (
     decode_combine, design, flash_attention_cuda, flash_attention_plain,
 )
-from repro_torch.kernels.loss_weighted_update import loss_weighted_update_cuda
+from repro_torch.kernels.loss_weighted_update import (
+    loss_weighted_update_cuda, loss_weighted_update_group_cuda,
+)
 from repro_torch.kernels.pack import (
     pack_int4_cuda, pack_int4_group_cuda, pack_int4_group_plain,
     unpack_int4_cuda, unpack_int4_group_cuda, unpack_int4_group_plain,
@@ -381,6 +383,82 @@ def test_loss_weighted_update_kernel_bitwise(card, shape, n_pods, any_push):
                                                          denom, push))
 
 
+# the grouped update's leaves: whole 16-byte slots in every dtype, odd
+# lengths (the scalar path), a 1-element leaf, lm100m's wq layout
+LWU_SHAPES = [(4, 4096), (3, 1000), (17,), (1,), (2, 768, 12, 64), (7, 130),
+              (4096,), (5, 3)]
+
+
+def _lwu_leaves(card, shapes, n_pods, dtypes, seed):
+    gen = torch.Generator(device=card).manual_seed(seed)
+    leaves = []
+    for s, dt in zip(shapes, dtypes):
+        g = torch.randn(s, generator=gen, device=card)
+        pods = g[None] + 1e-2 * torch.randn((n_pods,) + s, generator=gen,
+                                            device=card)
+        leaves.append((g.to(dt), pods.to(dt)))
+    return leaves
+
+
+def _lwu_check(leaves, got, w1, w2, denom, push):
+    for (g, pods), out in zip(leaves, got):
+        assert out.dtype == g.dtype and out.shape == g.shape
+        assert torch.equal(out, ref.loss_weighted_update_ref(
+            g, pods, w1, w2, denom, push)), (tuple(g.shape), g.dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("any_push", [True, False])
+def test_loss_weighted_update_group_bitwise(card, dtype, any_push):
+    """Every leaf of a tree in one launch, bitwise the plain version: 16-byte
+    slots where a leaf is whole slots, element by element where it is not,
+    and g's bytes when no pod pushes."""
+    n_pods = 3
+    w1, w2, denom, push = _scalars(card, n_pods, any_push, 29)
+    leaves = _lwu_leaves(card, LWU_SHAPES, n_pods,
+                         [dtype] * len(LWU_SHAPES), 8)
+    build.reset_launches()
+    got = loss_weighted_update_group_cuda(leaves, w1, w2, denom, push)
+    assert build.LAUNCHES["loss_weighted_update"] == 1
+    _lwu_check(leaves, got, w1, w2, denom, push)
+    if not any_push:
+        assert all(torch.equal(o, g) for o, (g, _) in zip(got, leaves))
+    # a view one element off 16-byte alignment: the scalar path
+    g, pods = leaves[0]
+    buf = torch.empty(g.numel() + 1, dtype=dtype, device=card)
+    gv = buf[1:].view(g.shape)
+    gv.copy_(g)
+    out, = loss_weighted_update_group_cuda([(gv, pods)], w1, w2, denom, push)
+    assert torch.equal(out, ref.loss_weighted_update_ref(g, pods, w1, w2,
+                                                         denom, push))
+
+
+def test_loss_weighted_update_group_launches_a_dtype_and_32_leaves(card):
+    """A tree of mixed dtypes takes one launch a dtype; 33 leaves of one
+    dtype take two (32 descriptors a launch); 8 pods load in two chunks."""
+    n_pods = 8
+    w1, w2, denom, push = _scalars(card, n_pods, True, 30)
+    dts = [torch.float32, torch.bfloat16, torch.float16]
+    mixed = _lwu_leaves(card, LWU_SHAPES, n_pods,
+                        [dts[i % 3] for i in range(len(LWU_SHAPES))], 9)
+    build.reset_launches()
+    got = loss_weighted_update_group_cuda(mixed, w1, w2, denom, push)
+    assert build.LAUNCHES["loss_weighted_update"] == 3
+    _lwu_check(mixed, got, w1, w2, denom, push)
+    many = _lwu_leaves(card, [(s,) for s in range(1, 34)], 2,
+                       [torch.bfloat16] * 33, 10)
+    w1, w2, denom, push = _scalars(card, 2, True, 31)
+    build.reset_launches()
+    got = loss_weighted_update_group_cuda(many, w1, w2, denom, push)
+    assert build.LAUNCHES["loss_weighted_update"] == 2
+    _lwu_check(many, got, w1, w2, denom, push)
+    with pytest.raises(ValueError, match="pods"):
+        loss_weighted_update_group_cuda([many[0], mixed[1]], w1, w2, denom,
+                                        push)
+    assert build.LAUNCHES["loss_weighted_update"] == 2
+
+
 def test_wrappers_check_inputs_and_count_launches(card):
     build.reset_launches()
     q = torch.zeros((2, 512), dtype=torch.int8, device=card)
@@ -505,6 +583,8 @@ def test_bf16_hermes_round_on_card_equals_plain(card, compression,
                         dqm.dequant_merge_packed_group_plain)
     monkeypatch.setattr(ops, "loss_weighted_update",
                         lwu.loss_weighted_update_plain)
+    monkeypatch.setattr(ops, "loss_weighted_update_group",
+                        lwu.loss_weighted_update_group_plain)
     build.reset_launches()
     want = run()
     assert build.LAUNCHES[kernel] == 0
