@@ -61,7 +61,8 @@ Phases (any failure raises and the script exits nonzero):
    clean, ``train_hermes``'s loop passes the host-sync guard, and each
    fixture raises its named class; the mis-tiled copy (the last TPU
    kernel, ``selftest_bad_tiles``) launches there and equals its plain
-   version bit for bit.  Then the copy and ``x.clone()`` are timed on the
+   version bit for bit (the dropped-donation fixture's int4 round adds
+   one pack, unpack and packed merge).  Then the copy and ``x.clone()`` are timed on the
    card's own clock (``device_ms``, wall time beside) with the plain
    version, and the synchronising calls of one lm100m int4
    round, one int8 dispatch + commit and a short trainer run are counted
@@ -180,8 +181,11 @@ Phases (any failure raises and the script exits nonzero):
     the open round ships exactly the billed wire and the closed one only
     the gate exchange, the dispatch carries the gather and the commit no
     collective, ``topk`` and ``prob`` admission at participation 0.5 keep
-    the specs, qwen3-8b's smoke train step issues no collective, and the
-    fp32-hoist fixture raises ``fp32-model-crossing``; (b)
+    the specs, qwen3-8b's smoke train step issues no collective, the
+    commit and the train step update their donated trees in place
+    (``analysis.donation.DonationAliasing``), the fp32-hoist fixture
+    raises ``fp32-model-crossing`` and the functional commit
+    ``dropped-donation``; (b)
     ``launch.hermes_dryrun`` at qwen3-8b: the four formats' bills at full
     width and depth on meta tensors, then the round at full width with 1
     of its 36 layers, in bf16, every format, placed on two gloo ranks of
@@ -193,7 +197,19 @@ Phases (any failure raises and the script exits nonzero):
     pods, bitwise their plain versions, timed on the card's clock beside
     their bound (``dequant_merge_packed[qwen3-8b bf16]`` and the others in
     the ``kernels`` line);
-17. a ``kernels`` JSON line, the ``nvidia-smi`` line, and the result line.
+17. donation and the checkpoint restart: (a) ``train_hermes`` at lm100m
+    x 4 pods, fp32, async int4 rounds, 4 steps through the donating pod
+    step and commit (``launch.train.make_pod_step``,
+    ``make_async_round_fns``), the wire kernels' launches counted
+    (``donation_launches`` in the ``kernels`` line); then one pod step and
+    one commit at that size, each donating and functional on the same
+    inputs (cloned first): bitwise equal, the donating outputs in the
+    donated storage under the donation rule (which names the functional
+    ones' rebuild), each path's peak and rise in ``max_memory_allocated``
+    printed; (b) ``launch.elastic.run_demo`` on 8 gloo ranks sharing the
+    card: qwen3-8b's smoke model on a (2, 4) DeviceMesh, checkpointed and
+    restored onto (1, 4), the meshes, losses and ``loss_continuous``;
+18. a ``kernels`` JSON line, the ``nvidia-smi`` line, and the result line.
 
 It needs the repository's ``src/`` beside it and imports neither JAX nor
 the JAX package.
@@ -1028,7 +1044,11 @@ def analyzer(torch, dev, results) -> None:
         f"{sorted(fixtures)} raised their classes; the copy equal to its "
         f"plain version: {fixtures['bad-tiles']['copy_equal']}; launches "
         f"{launches}")
-    if (not record["ok"] or launches != {"tile_copy": 1}
+    # the copy, and the dropped-donation fixture's int4 dispatch and
+    # commit: one pack, one unpack (the residual), one packed merge
+    want = {"tile_copy": 1, "pack_int4": 1, "unpack_int4": 1,
+            "dequant_merge_packed": 1}
+    if (not record["ok"] or launches != want
             or len(specs) != len(ops.kernel_lint_cases())
             or fixtures["bad-tiles"]["copy_equal"] is not True
             or "train_hermes[source]" not in labels):
@@ -2939,10 +2959,18 @@ def wire_audits(torch, dev, results) -> None:
                + analyze.check_admission(per_rank)
                + analyze.check_train_step(per_rank))
     hoist = analyze.selftest_fp32_hoist(per_rank)
+    dropped = analyze.selftest_dropped_donation(dev)
+    donating = [r.label for r in reports
+                if "donation-aliasing" in r.rules]
+    if sorted(donating) != sorted(
+            [k for k in per_rank[0] if k.startswith("hermes_commit")]
+            + [k for k in per_rank[0] if k.startswith("train_step")]):
+        raise AssertionError(f"the donation halves ran on {donating}")
     log(f"[16] analyzer round targets on {analyze.N_PODS} gloo ranks of the "
-        f"card: {', '.join(r.label for r in reports)} clean; the fp32-hoist "
-        f"fixture raised {hoist['classes']}; {analyze.DONATION}; "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"card: {', '.join(r.label for r in reports)} clean (donation "
+        f"aliased in place: {', '.join(donating)}); the fp32-hoist fixture "
+        f"raised {hoist['classes']}, the functional commit "
+        f"{dropped['classes']}; {time.perf_counter() - t0:.1f} s")
 
     # (b) hermes_dryrun: the full-depth bills on meta tensors, then the
     # round at full width executed on two ranks, launches counted
@@ -3078,6 +3106,189 @@ def wire_audits(torch, dev, results) -> None:
         torch.cuda.empty_cache()
     del g_leaves, deltas
     torch.cuda.empty_cache()
+
+
+def donation(torch, dev, results) -> None:
+    """Phase 17a: donation as in-place updates at lm100m x 4 pods, fp32,
+    async int4 rounds.  ``train_hermes`` runs a few steps through the
+    donating pod step and commit, its wire kernels counted; then one pod
+    step and one commit, each donating and functional on the same inputs
+    (cloned first), held bitwise equal, the donating one's outputs in the
+    donated storage under the donation rule, and each path's peak and the
+    call's rise in ``max_memory_allocated`` printed."""
+    from repro_torch.analysis import (
+        DonationAliasing, analyze, donated_leaf_ranges, trace_aliasing)
+    from repro_torch.config import HermesConfig, OptimizerConfig
+    from repro_torch.core.gup import gup_gate
+    from repro_torch.dist import hermes_sync as hs
+    from repro_torch.dist import wire
+    from repro_torch.kernels import build
+    from repro_torch.launch import train as T
+    from repro_torch.models.lm import init_lm
+    from repro_torch.optim.optimizers import make_optimizer
+    from repro_torch.utils.trees import tree_leaves, tree_map
+
+    t_phase = time.perf_counter()
+    cfg = T._preset("lm100m")
+    hcfg = HermesConfig(alpha=-0.8, lam=2, compression="int4",
+                        async_rounds=True)
+    opt_cfg = OptimizerConfig(name="adamw", lr=3e-4)
+    build.reset_launches()
+    out = T.train_hermes(cfg, steps=4, batch=8, seq=128, pods=PODS,
+                         opt_cfg=opt_cfg, hcfg=hcfg, log_every=10 ** 6,
+                         device=dev)
+    launches = {k: build.LAUNCHES[k] for k in WIRE_ROWS}
+    log(f"[17a] train_hermes lm100m x {PODS} pods, async int4, 4 steps "
+        f"through the donating pod step and commit: {out['rounds']} rounds, "
+        f"{out['committed']} committed, drained {out['drained']}, global "
+        f"loss {out['global_loss']:.4f}, {out['ms_per_step']:.1f} ms a "
+        f"step; wire launches {launches}; "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    if not (out["drained"] and out["dispatched"] == out["committed"] >= 1
+            and math.isfinite(out["global_loss"])):
+        raise AssertionError(f"the donating trainer: {out}")
+    for k in ("pack_int4", "unpack_int4", "dequant_merge_packed"):
+        if launches[k] < 1:
+            raise AssertionError(f"the donating int4 rounds never "
+                                 f"launched {k}")
+        results[k]["donation_launches"] = launches[k]
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def clone(tree):
+        return tree_map(lambda x: x.clone() if isinstance(x, torch.Tensor)
+                        else x, tree)
+
+    def same(a, b):
+        return all(torch.equal(x, y) if isinstance(x, torch.Tensor)
+                   else x == y for x, y in zip(tree_leaves(a),
+                                               tree_leaves(b)))
+
+    def traced(label, fn, args, donated):
+        """``fn(*args)`` with its storages and peak: ``(result, rise,
+        peak)``, the donation rule applied to argnums ``donated`` (None:
+        the functional twin, whose rule must name the rebuild)."""
+        before = torch.cuda.memory_allocated(dev)
+        ranges = donated_leaf_ranges(args, donated or (0,))
+        result, aliasing = trace_aliasing(fn, *args, device=dev)
+        rule = DonationAliasing({f"arg{k}": range(*v)
+                                 for k, v in ranges.items()})
+        rep = analyze([rule], aliasing=aliasing, label=label, fail=False)
+        if rep.ok != (donated is not None):
+            raise AssertionError(f"{label}: donation rule "
+                                 f"{[str(v) for v in rep.violations]}")
+        return result, aliasing.peak_rise, before + aliasing.peak_rise
+
+    opt = make_optimizer(opt_cfg)
+    w = init_lm(cfg, 0, dev, draw_on=dev)
+    tree_gb = PODS * sum(x.numel() * x.element_size()
+                         for x in tree_leaves(w)) / 1e9
+    gen = torch.Generator(device=dev).manual_seed(17)
+    pods = tree_map(lambda g: g[None] + 1e-3 * torch.randn(
+        (PODS,) + tuple(g.shape), generator=gen, device=dev), w)
+    state = opt.init(pods)
+    stacked = {k: torch.randint(0, cfg.vocab_size, (PODS, 8, 128),
+                                generator=gen, device=dev)
+               for k in ("tokens", "targets")}
+    peaks = {}
+    with torch.no_grad():
+        d_pods, d_state = clone(pods), clone(state)
+    torch.cuda.synchronize()
+    (got, got_state, got_loss), rise, peak = traced(
+        "pod_step[donating]", T.make_pod_step(cfg, opt),
+        (d_pods, d_state, stacked), (0, 1))
+    peaks["pod_step"] = {"donating": (rise, peak)}
+    if got is not d_pods or got_state is not d_state:
+        raise AssertionError("the donating pod step returned new trees")
+    del got, got_state
+    (f_pods, f_state, f_loss), rise, peak = traced(
+        "pod_step[functional]", T.make_pod_step(cfg, opt, donate=False),
+        (pods, state, stacked), None)
+    peaks["pod_step"]["functional"] = (rise, peak)
+    if not (torch.equal(got_loss, f_loss) and same(d_pods, f_pods)
+            and same(d_state, f_state)):
+        raise AssertionError("the donating pod step differs from the "
+                             "functional one")
+    del pods, state, d_state, f_state, f_pods, stacked
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # a dispatch whose every gate opens (a loss history the losses beat),
+    # then its commit, donating and functional
+    gup = hs.hermes_pod_state(hcfg, PODS, dev)
+    for level in (3.0, 3.2):
+        _, gup = gup_gate(gup, torch.full((PODS,), level, device=dev), hcfg)
+    losses = 2.0 + 0.05 * torch.arange(PODS, device=dev,
+                                       dtype=torch.float32)
+    dispatch, commit = T.make_async_round_fns(hcfg)
+    dp = dispatch(d_pods, gup, losses, w, torch.tensor(3.4, device=dev),
+                  None, round_step=1, noise=wire.GeneratorNoise(17, dev))
+    pending = dp["pending"]
+    if not hs.pending_merges(pending):
+        raise AssertionError("the phase's dispatch opened no gate")
+    with torch.no_grad():
+        c_pods = clone(d_pods)
+    torch.cuda.synchronize()
+    want, rise, peak = traced(
+        "hermes_commit[functional]", lambda p, pend, g:
+        hs.hermes_cluster_commit(p, pend, g, cfg=hcfg),
+        (c_pods, dict(pending), w), None)
+    peaks["commit"] = {"functional": (rise, peak)}
+    leaves = tree_leaves(d_pods)
+    got, rise, peak = traced("hermes_commit[donating]", commit,
+                             (d_pods, pending, w), (0,))
+    peaks["commit"]["donating"] = (rise, peak)
+    if pending or any(x is not y for x, y in zip(
+            tree_leaves(got["pod_params"]), leaves)):
+        raise AssertionError("the donating commit kept its pending or "
+                             "returned new pods")
+    if not (same(got["pod_params"], want["pod_params"])
+            and same(got["w_global"], want["w_global"])):
+        raise AssertionError("the donating commit differs from the "
+                             "functional one")
+    for what, p in peaks.items():
+        d, f = p["donating"], p["functional"]
+        log(f"    {what}: donating rise {d[0] / 1e9:.3f} GB (peak "
+            f"{d[1] / 1e9:.3f}), functional rise {f[0] / 1e9:.3f} GB (peak "
+            f"{f[1] / 1e9:.3f}): {(f[0] - d[0]) / 1e9:.3f} GB saved; one "
+            f"pod-stacked fp32 tree is {tree_gb:.3f} GB")
+    log(f"    bitwise equal, outputs in the donated storage, the rule "
+        f"passes the donating calls and names the functional ones; "
+        f"[17a] {time.perf_counter() - t_phase:.1f} s")
+    del got, want, d_pods, c_pods, dp, pending, w, gup
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def restart(torch, dev) -> None:
+    """Phase 17b: ``launch.elastic.run_demo``, the checkpoint restart onto
+    a smaller DeviceMesh: 8 gloo ranks share the card, qwen3-8b's smoke
+    model trains on a (2, 4) mesh, is checkpointed and restored onto
+    (1, 4)."""
+    from repro_torch.launch import elastic as el
+    t0 = time.perf_counter()
+    out = el.run_demo(device=dev)
+    log(f"[17b] run_demo on 8 gloo ranks of the card: mesh "
+        f"{out['phase1_mesh']} losses "
+        f"{[round(x, 4) for x in out['phase1_losses']]}, restored at step "
+        f"{out['resumed_from_step']} onto {out['phase2_mesh']}: losses "
+        f"{[round(x, 4) for x in out['phase2_losses']]}, loss_continuous "
+        f"{out['loss_continuous']}, realloc {out['realloc']}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not (out["phase1_mesh"] == [2, 4] and out["phase2_mesh"] == [1, 4]
+            and out["resumed_from_step"] == 5 and out["loss_continuous"]
+            and all(math.isfinite(x) for x in out["phase1_losses"]
+                    + out["phase2_losses"])):
+        raise AssertionError(f"run_demo on the card: {out}")
+
+
+def donation_and_restart(torch, dev, results) -> None:
+    """Phase 17: donation (a), then the checkpoint restart (b)."""
+    t_phase = time.perf_counter()
+    donation(torch, dev, results)
+    restart(torch, dev)
+    log(f"[17] phase wall {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -3435,14 +3646,16 @@ def main() -> int:
                        (13, lambda: elastic(torch, dev, results)),
                        (14, lambda: mla_and_zoo(torch, dev, results)),
                        (15, lambda: encdec_and_vlm(torch, dev, results)),
-                       (16, lambda: wire_audits(torch, dev, results))):
+                       (16, lambda: wire_audits(torch, dev, results)),
+                       (17, lambda: donation_and_restart(torch, dev,
+                                                         results))):
         gc.collect()
         log(f"--- phase {phase} starts at {time.perf_counter() - t_start:.1f}"
             f" s, {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
         run()
     log(f"--- all phases done at {time.perf_counter() - t_start:.1f} s")
 
-    # ---- 17. result lines -------------------------------------------------
+    # ---- 18. result lines -------------------------------------------------
     print(json.dumps({"kernels": list(results.values())}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

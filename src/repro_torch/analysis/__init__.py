@@ -2,9 +2,11 @@
 rule registry and one entry point (:func:`analyze`), the kernel tile lint
 over the CUDA kernels' launch specs and sources
 (:class:`KernelTileLint`), the round loop's host-sync guard
-(:class:`HostSyncGuard`), and the collective-placement rule over the
+(:class:`HostSyncGuard`), the collective-placement rule over the
 collectives a rank issued (:class:`CollectivePlacement`, with
-:func:`control_traffic_allowance`).  ``python -m
+:func:`control_traffic_allowance`), and the donation rule over one
+call's storages (:class:`DonationAliasing`, with
+:func:`donated_leaf_ranges` and :func:`trace_aliasing`).  ``python -m
 repro_torch.launch.analyze`` runs them; nothing here launches a kernel."""
 from repro_torch.analysis.collectives import (  # noqa: F401
     CollectivePlacement, classify_collectives, control_traffic_allowance,
@@ -13,6 +15,9 @@ from repro_torch.analysis.collectives import (  # noqa: F401
 from repro_torch.analysis.core import (  # noqa: F401
     RULE_REGISTRY, AnalysisError, Report, Rule, Target, Violation, analyze,
     register_rule,
+)
+from repro_torch.analysis.donation import (  # noqa: F401
+    Aliasing, DonationAliasing, donated_leaf_ranges, trace_aliasing,
 )
 from repro_torch.analysis.hostsync import HostSyncGuard  # noqa: F401
 from repro_torch.analysis.tiles import KernelTileLint  # noqa: F401

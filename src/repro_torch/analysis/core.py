@@ -8,8 +8,9 @@ audit callers treat it like an inline assert) listing every violation.
 The reference's rules read lowered HLO; eager PyTorch has none, so a
 target carries the kernels' launch specs (``kernels/build.py:
 LaunchSpec``) and the collectives a rank issued in its place, beside the
-python callable whose source the AST rules read.  Nothing here launches
-a kernel or imports a device runtime.
+python callable whose source the AST rules read, and for the donation
+rule the storages of one call (``analysis.donation.Aliasing``).  Nothing
+here launches a kernel or imports a device runtime.
 
 Adding a rule::
 
@@ -57,12 +58,15 @@ class Target:
     ``example_args``) for the AST rules, the kernel launch specs
     (``launches``) for the tile lint, and the collectives one rank
     issued (``collectives``: ``analysis.collectives.records``) for the
-    collective-placement rule."""
+    collective-placement rule, and the storages of one call
+    (``aliasing``: ``analysis.donation.Aliasing``) for the donation
+    rule."""
     fn: Optional[Callable] = None
     example_args: Tuple = ()
     label: str = "<target>"
     launches: Tuple[Any, ...] = ()
     collectives: Tuple[Dict[str, Any], ...] = ()
+    aliasing: Any = None
 
 
 class Rule:
@@ -113,19 +117,21 @@ class Report:
 def analyze(rules: Sequence[Rule], *, fn: Optional[Callable] = None,
             example_args: Tuple = (), launches: Sequence[Any] = (),
             collectives: Sequence[Dict[str, Any]] = (),
-            label: Optional[str] = None, fail: bool = True) -> Report:
+            aliasing: Any = None, label: Optional[str] = None,
+            fail: bool = True) -> Report:
     """Run ``rules`` over one target; the analyzer's one entry point.
 
     ``fn``/``example_args`` feed the rules that read source, ``launches``
     (launch specs) the tile lint, ``collectives`` (counted records) the
-    collective placement.  With ``fail=True`` (default) any
+    collective placement, ``aliasing`` (one call's storages) the
+    donation rule.  With ``fail=True`` (default) any
     violation raises :class:`AnalysisError` naming every violation class;
     ``fail=False`` returns the :class:`Report` for callers that
     aggregate."""
     target = Target(fn=fn, example_args=tuple(example_args),
                     label=label or getattr(fn, "__name__", "<target>"),
                     launches=tuple(launches),
-                    collectives=tuple(collectives))
+                    collectives=tuple(collectives), aliasing=aliasing)
     violations: List[Violation] = []
     for rule in rules:
         violations.extend(rule.check(target))

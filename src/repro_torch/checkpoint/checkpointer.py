@@ -26,7 +26,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.utils.trees import tree_flatten, tree_unflatten
+from repro_torch.utils.trees import tree_flatten, tree_map, tree_unflatten
 
 Tree = Any
 
@@ -116,11 +116,28 @@ def _leaf(arr: np.ndarray, dtype_name: str, template, device):
     return t.to(device)
 
 
+def _place(t, sharding):
+    """A restored leaf placed on a device mesh (``dist.sharding.Sharding``:
+    the mesh and its placements) with ``distribute_tensor``.  Every rank
+    of the mesh reads the same checkpoint, so each keeps its own slice
+    of its own copy (``src_data_rank=None``: no collective)."""
+    if sharding is None or not isinstance(t, torch.Tensor):
+        return t
+    from torch.distributed.tensor import distribute_tensor
+    return distribute_tensor(t, sharding.mesh, sharding.placements,
+                             src_data_rank=None)
+
+
 def restore_tree(template: Tree, directory: str, step: Optional[int] = None,
-                 *, device=None) -> Tuple[Tree, int]:
+                 *, device=None, shardings: Optional[Tree] = None
+                 ) -> Tuple[Tree, int]:
     """Restore into the structure of ``template`` (values replaced), each
     tensor on ``device`` (default: where the template's leaf is).  Returns
-    ``(tree, step)``; ``step=None`` takes the latest checkpoint."""
+    ``(tree, step)``; ``step=None`` takes the latest checkpoint.
+    ``shardings``, a tree of ``dist.sharding.Sharding`` (or None a leaf)
+    matching ``template``, places each leaf on its device mesh as a
+    DTensor: the elastic re-shard onto another mesh, as the reference's
+    ``device_put`` with its shardings."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -136,7 +153,10 @@ def restore_tree(template: Tree, directory: str, step: Optional[int] = None,
             m = by_key[key]
             leaves.append(_leaf(data[f"a{m['idx']}"], m["dtype"], tmpl,
                                 device))
-    return tree_unflatten(treedef, leaves), step
+    tree = tree_unflatten(treedef, leaves)
+    if shardings is not None:
+        tree = tree_map(_place, tree, shardings)
+    return tree, step
 
 
 def latest_step(directory: str) -> Optional[int]:
@@ -180,9 +200,11 @@ class Checkpointer:
             work()
 
     def restore(self, template: Tree, *, step: Optional[int] = None,
-                device=None) -> Tuple[Tree, int]:
+                device=None, shardings: Optional[Tree] = None
+                ) -> Tuple[Tree, int]:
         self.wait()
-        return restore_tree(template, self.directory, step, device=device)
+        return restore_tree(template, self.directory, step, device=device,
+                            shardings=shardings)
 
     def _gc(self):
         steps = sorted(int(d.split("_")[1]) for d in os.listdir(self.directory)

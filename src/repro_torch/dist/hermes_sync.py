@@ -51,7 +51,7 @@ from repro_torch.dist.wire import (
 from repro_torch.kernels import ops
 from repro_torch.launch.mesh import PodGroups, placed
 from repro_torch.utils.trees import (
-    flatten_up_to, tree_flatten, tree_map, tree_unflatten,
+    flatten_up_to, tree_flatten, tree_leaves, tree_map, tree_unflatten,
 )
 
 Tree = Any
@@ -400,10 +400,17 @@ def _merge_run(gs, pays, fmt, w1, w2, denom, any_push, n_pods):
                                           denom, any_push)
 
 
-def _refresh(pod_params, gates, new_global):
-    """Pushing pods restart from the merged global model."""
-    return tree_map(lambda p, g: torch.where(_pod_mask(gates, p), g[None], p),
-                    pod_params, new_global)
+def _refresh(pod_params, gates, new_global, in_place: bool = False):
+    """Pushing pods restart from the merged global model.  ``in_place``
+    writes each refreshed leaf back into its own tensor, a leaf at a time
+    (the donated commit), and returns ``pod_params`` itself."""
+    if not in_place:
+        return tree_map(lambda p, g: torch.where(_pod_mask(gates, p),
+                                                 g[None], p),
+                        pod_params, new_global)
+    for p, g in zip(tree_leaves(pod_params), tree_leaves(new_global)):
+        p.copy_(torch.where(_pod_mask(gates, p), g[None], p))
+    return pod_params
 
 
 def _live(gates: torch.Tensor, live: Optional[torch.Tensor]) -> torch.Tensor:
@@ -567,7 +574,8 @@ def pending_merges(pending: Dict[str, Any]) -> bool:
 
 def hermes_commit(pod_params: Tree, pending: Dict[str, Any], w_global: Tree,
                   *, cfg: HermesConfig, live: Optional[torch.Tensor] = None,
-                  groups: Optional[PodGroups] = None) -> Dict[str, Any]:
+                  groups: Optional[PodGroups] = None,
+                  in_place: bool = False) -> Dict[str, Any]:
     """The commit half: merge a pending payload, one round late.
 
     Re-derives Algorithm 2's weights from the dispatch-time losses and
@@ -580,7 +588,10 @@ def hermes_commit(pod_params: Tree, pending: Dict[str, Any], w_global: Tree,
     gathered at dispatch, so a placed commit issues no collective.
     Returns ``{"pod_params", "w_global", "gates", "any_push"}``; a closed
     dispatch commits as the identity.  The caller drops ``pending``
-    afterwards, which frees the payload."""
+    afterwards, which frees the payload.  ``in_place`` writes the
+    refreshed rows into ``pod_params``' own leaves (the donating commit of
+    ``launch.train.make_async_round_fns``); by default the commit is
+    functional, as the reference's ``hermes_commit``."""
     gates = _live(pending["gates"], live)
     if pending["payload"] is None:
         return {"pod_params": pod_params, "w_global": w_global,
@@ -592,7 +603,7 @@ def hermes_commit(pod_params: Tree, pending: Dict[str, Any], w_global: Tree,
                                  any_push, cfg.compression, use_kernel,
                                  int(gates.shape[0]))
     return {"pod_params": _refresh(pod_params, _mine(gates, groups),
-                                   new_global),
+                                   new_global, in_place),
             "w_global": new_global, "gates": gates, "any_push": any_push}
 
 
@@ -932,8 +943,8 @@ def hermes_cluster_commit(pod_params: Tree, pending: Dict[str, Any],
                           n_clusters: Optional[int] = None,
                           cluster_sizes: Optional[Sequence[int]] = None,
                           live: Optional[torch.Tensor] = None,
-                          groups: Optional[PodGroups] = None
-                          ) -> Dict[str, Any]:
+                          groups: Optional[PodGroups] = None,
+                          in_place: bool = False) -> Dict[str, Any]:
     """The commit half of a pipelined two-tier round: fold a pending
     ``cluster_payload`` into the global model, one round late, with no
     collective.  A flat ``pending`` commits through :func:`hermes_commit`
@@ -945,10 +956,10 @@ def hermes_cluster_commit(pod_params: Tree, pending: Dict[str, Any],
     the partial carried leaves the denominator.  The cluster's survivors
     do not refresh (their push never merged); a pod that died ungated
     costs its cluster nothing.  Returns ``{"pod_params", "w_global",
-    "gates", "any_push"}``."""
+    "gates", "any_push"}``; ``in_place`` as in :func:`hermes_commit`."""
     if "cluster_payload" not in pending:
         return hermes_commit(pod_params, pending, w_global, cfg=cfg,
-                             live=live, groups=groups)
+                             live=live, groups=groups, in_place=in_place)
     gates_d = pending["gates"].to(torch.bool)
     dev, n_pods = gates_d.device, int(gates_d.shape[0])
     C = resolve_n_clusters(cfg, n_clusters, cluster_sizes)
@@ -971,5 +982,5 @@ def hermes_cluster_commit(pod_params: Tree, pending: Dict[str, Any],
                                 get_format(cfg.compression), denom, any_push,
                                 C)
     return {"pod_params": _refresh(pod_params, _mine(gates, groups),
-                                   new_global),
+                                   new_global, in_place),
             "w_global": new_global, "gates": gates, "any_push": any_push}

@@ -2,7 +2,7 @@
 ``launch/analyze.py``, ``make lint-hlo``).
 
 The round targets run on ``N_PODS`` gloo ranks, one pod a rank, spawned
-once for all of them (``launch.placed_audit``'s ``_spawn``), on the
+once for all of them (``launch.spawn.spawn_ranks``), on the
 device asked for; each rank counts the collectives it issues
 (``analysis.collectives.count_collectives``) and the parent holds each
 target's records to the collective-placement rule:
@@ -10,16 +10,16 @@ target's records to the collective-placement rule:
 * ``check_hermes_round``: the open round ships exactly the billed wire,
   each payload array once; the closed round ships only the gate exchange.
 * ``check_async_halves``: the dispatch carries the gather; the commit
-  issues no collective.
+  (``launch.train.make_async_round_fns``'s, as ``train_hermes`` runs it)
+  issues no collective and its donated ``pod_params`` come back in their
+  own storage (``analysis.donation.DonationAliasing``).
 * ``check_admission``: ``topk`` and ``prob`` admission at participation
   0.5, round and dispatch, against the unchanged wire specs.
 * ``check_train_step``: qwen3-8b's smoke model's local train step through
-  ``launch/steps.py`` issues no collective.
+  ``launch/steps.py`` issues no collective and updates its whole donated
+  state in place.
 
-The reference's commit and train step also prove their donations alias
-(``analysis/donation.py``); the port's round rebuilds its trees, so those
-halves wait for the next slice (ROADMAP queue 1 item 9) and the reports
-say so.  Beside them:
+Beside them:
 
 * ``check_round_loop_source``: the host-sync guard over the production
   round loop, ``launch.train.train_hermes``, with the one sanctioned
@@ -30,7 +30,8 @@ say so.  Beside them:
 
 ``--self-test`` proves the analyzer fails loudly: it rebuilds one known
 regression per ported rule class (a ship that gathers the fp32 delta, a
-``bool(any_push)`` per-round host sync, a mis-tiled copy) and requires
+functional commit that drops its donation, a ``bool(any_push)``
+per-round host sync, a mis-tiled copy) and requires
 each to raise :class:`repro_torch.analysis.AnalysisError` with its named
 violation.  The mis-tiled copy is a real CUDA kernel
 (``kernels/tile_copy.py``): on the card the self-test also launches it
@@ -47,30 +48,26 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import sys
-import tempfile
 from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from repro_torch import resolve_device
 from repro_torch.analysis import (
-    AnalysisError, HostSyncGuard, KernelTileLint, Report, analyze,
+    Aliasing, AnalysisError, DonationAliasing, HostSyncGuard,
+    KernelTileLint, Report, analyze, donated_leaf_ranges, trace_aliasing,
 )
 from repro_torch.analysis import collectives as C
 from repro_torch.config import (
     HermesConfig, OptimizerConfig, ParallelConfig, ShapeConfig,
 )
 from repro_torch.kernels import ops, tile_copy
-from repro_torch.launch.train import train_hermes
+from repro_torch.launch.spawn import spawn_ranks
+from repro_torch.launch.train import make_async_round_fns, train_hermes
+from repro_torch.utils.trees import tree_map
 
 N_PODS = 2          # the round, dispatch, commit and train targets
-#: what waits for the next slice in the targets that donate
-DONATION = ("the donation half (analysis/donation.py) waits for the next "
-            "slice, ROADMAP queue 1 item 9: the port's round rebuilds its "
-            "trees")
 
 
 def _cfg(mode: Optional[str] = None, **kw) -> HermesConfig:
@@ -145,8 +142,15 @@ def _round_targets(mode: Optional[str], dev: torch.device, groups,
                              f"the closed one {closed['merged']}")
     dp = run(f"hermes_dispatch[{m}]", lambda: hs.hermes_dispatch(
         pods, gup, losses, wg, L, cfg, **kw))
-    run(f"hermes_commit[{m}]", lambda: hs.hermes_commit(
-        pods, dp["pending"], wg, cfg=cfg, groups=groups))
+    # the commit as train_hermes runs it; it consumes its pods, and the
+    # later targets read the originals
+    _, commit = make_async_round_fns(cfg, groups)
+    args = (tree_map(torch.clone, pods), dp["pending"], wg)
+    label = f"hermes_commit[{m}]"
+    _, aliasing = run(label, lambda: trace_aliasing(commit, *args,
+                                                    device=dev))
+    out.setdefault("donation", {})[label] = _donation(
+        aliasing, {"pod_params": donated_leaf_ranges(args, (0,))[0]})
     for admission in ("topk", "prob"):
         acfg = _cfg(mode, participation_rate=0.5, admission=admission)
         tag = f"{m},prate=0.5,{admission}"
@@ -184,10 +188,23 @@ def _train_target(dev: torch.device, groups, log: List,
                               device=dev)
              for k, spec in setup.arg_specs[1].items()}
     start = len(log)
-    _, loss = setup.step_fn(state, batch)
+    (_, loss), aliasing = trace_aliasing(setup.step_fn, state, batch,
+                                         device=dev)
     if not bool(torch.isfinite(loss)):
         raise AssertionError(f"train_step[{arch}] loss {loss}")
-    return {f"train_step[{arch}]": C.records(log[start:], groups)}
+    label = f"train_step[{arch}]"
+    return {label: C.records(log[start:], groups),
+            "donation": {label: _donation(aliasing, {
+                "train_state": donated_leaf_ranges((state, batch),
+                                                   (0,))[0]})}}
+
+
+def _donation(aliasing: Aliasing, donated: Dict[str, Any]
+              ) -> Dict[str, Any]:
+    """A target's donation record as a rank reports it: the call's
+    storages and each donated label's flat leaf range."""
+    return {"aliasing": aliasing.to_json(),
+            "donated": {k: list(v) for k, v in donated.items()}}
 
 
 def _fp32_hoist_target(dev: torch.device, groups, log: List
@@ -204,45 +221,35 @@ def _fp32_hoist_target(dev: torch.device, groups, log: List
     return {"selftest[fp32-hoist]": C.records(log[start:], groups)}
 
 
-def _targets_main(rank: int, world: int, store: str, job: Dict[str, Any],
-                  out_dir: str) -> None:
+def _targets_main(rank: int, world: int, job: Dict[str, Any]
+                  ) -> Dict[str, Any]:
     """One rank of :func:`run_round_targets`."""
     from repro_torch.launch.mesh import make_pod_groups
-    dist.init_process_group("gloo", store=dist.FileStore(store, world),
-                            rank=rank, world_size=world)
-    try:
-        torch.set_num_threads(job["threads"])
-        dev = torch.device(job["device"])
-        groups = make_pod_groups(N_PODS)
-        log: List = []
-        C.count_collectives(log)
-        report = _round_targets(job["mode"], dev, groups, log)
-        report.update(_train_target(dev, groups, log))
-        report.update(_fp32_hoist_target(dev, groups, log))
-        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
-            json.dump(report, f)
-    finally:
-        dist.destroy_process_group()
-    # the report is written: skip the interpreter's teardown, where a rank
-    # under load once aborted ("terminate called without an active
-    # exception") after its work was done
-    sys.stdout.flush()
-    sys.stderr.flush()
-    os._exit(0)
+    torch.set_num_threads(job["threads"])
+    dev = torch.device(job["device"])
+    groups = make_pod_groups(N_PODS)
+    log: List = []
+    C.count_collectives(log)
+    report = _round_targets(job["mode"], dev, groups, log)
+    train = _train_target(dev, groups, log)
+    report["donation"].update(train.pop("donation"))
+    report.update(train)
+    report.update(_fp32_hoist_target(dev, groups, log))
+    return report
 
 
 def run_round_targets(mode: Optional[str] = None, device="cuda", *,
                       timeout: float = 300.0,
                       workdir: Optional[str] = None) -> List[Dict[str, Any]]:
-    """Spawn ``N_PODS`` gloo ranks once and run every round target, the
-    train step and the fp32-hoist fixture on them; returns each rank's
-    ``{label: records}``.  A failed rank fails the run."""
-    from repro_torch.launch.placed_audit import _spawn
+    """Spawn ``N_PODS`` gloo ranks once (``launch.spawn.spawn_ranks``)
+    and run every round target, the train step and the fp32-hoist fixture
+    on them; returns each rank's ``{label: records}``.  A failed rank
+    fails the run with its traceback."""
     dev = resolve_device(device)
     job = {"mode": mode, "device": str(dev),
            "threads": max(1, torch.get_num_threads() // N_PODS)}
-    with tempfile.TemporaryDirectory(dir=workdir) as tmp:
-        return _spawn(N_PODS, job, timeout, tmp, target=_targets_main)
+    return spawn_ranks(N_PODS, job, _targets_main, timeout=timeout,
+                       workdir=workdir)
 
 
 def _rule_for(label: str):
@@ -257,12 +264,18 @@ def _rule_for(label: str):
 
 def _held(label: str, per_rank: List[Dict[str, Any]], rule_for=_rule_for,
           fail: bool = True) -> Report:
-    """One target's records, rank by rank, held to its rule: one report
-    over every rank's violations."""
+    """One target's records, rank by rank, held to its rule, and a target
+    that donates to the donation rule too: one report over every rank's
+    violations."""
     violations, rules = [], []
     for r, recs in enumerate(per_rank):
-        rule = rule_for(label)
-        rep = analyze([rule], collectives=recs[label],
+        rule_set, aliasing = [rule_for(label)], None
+        donation = recs.get("donation", {}).get(label)
+        if donation is not None:
+            rule_set.append(DonationAliasing(
+                {k: range(*v) for k, v in donation["donated"].items()}))
+            aliasing = Aliasing.from_json(donation["aliasing"])
+        rep = analyze(rule_set, collectives=recs[label], aliasing=aliasing,
                       label=f"{label}@rank{r}", fail=False)
         violations += rep.violations
         rules = rep.rules
@@ -283,7 +296,7 @@ def check_hermes_round(per_rank) -> List[Report]:
 
 def check_async_halves(per_rank) -> List[Report]:
     """The dispatch carries the gather; the commit issues no collective
-    (its donation half waits: :data:`DONATION`)."""
+    and its donated pods alias its output's."""
     return [_held(k, per_rank) for k in _labels(per_rank, "hermes_dispatch")
             if "prate" not in k] + \
         [_held(k, per_rank) for k in _labels(per_rank, "hermes_commit")]
@@ -297,8 +310,8 @@ def check_admission(per_rank) -> List[Report]:
 
 
 def check_train_step(per_rank) -> List[Report]:
-    """The local train step crosses the pod axis with nothing (its
-    donation half waits: :data:`DONATION`)."""
+    """The local train step crosses the pod axis with nothing and its
+    donated state aliases in place."""
     return [_held(k, per_rank) for k in _labels(per_rank, "train_step")]
 
 
@@ -386,12 +399,44 @@ def selftest_fp32_hoist(per_rank) -> Dict[str, Any]:
                           _wire_tree(), "fp16", N_PODS)))
 
 
+def selftest_dropped_donation(device: torch.device) -> Dict[str, Any]:
+    """The bare functional commit (``hs.hermes_commit`` without
+    ``in_place``): it rebuilds the pod tree with ``torch.where``, so the
+    donated pods come back in no output's storage and the rule must name
+    ``dropped-donation``.  Unplaced, every gate open."""
+    from repro_torch.core.gup import gup_gate
+    from repro_torch.dist import hermes_sync as hs
+    from repro_torch.dist.wire import GeneratorNoise
+    cfg = _cfg()
+    pods, wg = _toy(device)
+    gup = hs.hermes_pod_state(cfg, N_PODS, device)
+    for level in (3.0, 3.2):
+        _, gup = gup_gate(gup, torch.full((N_PODS,), level, device=device),
+                          cfg)
+    losses = 2.0 + 0.05 * torch.arange(N_PODS, device=device,
+                                       dtype=torch.float32)
+    dp = hs.hermes_dispatch(pods, gup, losses, wg,
+                            torch.tensor(1.0, device=device), cfg,
+                            round_step=1, noise=GeneratorNoise(0, device))
+    args = (pods, dp["pending"], wg)
+    _, aliasing = trace_aliasing(  # BUG (deliberate): nothing donated
+        lambda p, pend, w: hs.hermes_commit(p, pend, w, cfg=cfg), *args,
+        device=device)
+    lo, hi = donated_leaf_ranges(args, (0,))[0]
+    return _expect_violation(
+        "dropped-donation", "dropped-donation",
+        lambda: analyze([DonationAliasing({"pod_params": range(lo, hi)})],
+                        aliasing=aliasing,
+                        label="selftest[dropped-donation]"))
+
+
 def run_selftests(device: torch.device, per_rank=None
                   ) -> List[Dict[str, Any]]:
     """Every fixture; the fp32 hoist's with the ranks' records (the round
     targets' run)."""
     return ([] if per_rank is None else [selftest_fp32_hoist(per_rank)]) + \
-        [selftest_host_sync_loop(), selftest_bad_tiles(device)]
+        [selftest_dropped_donation(device), selftest_host_sync_loop(),
+         selftest_bad_tiles(device)]
 
 
 def main(argv=None) -> Dict[str, Any]:
@@ -419,7 +464,6 @@ def main(argv=None) -> Dict[str, Any]:
         "device": str(device),
         "n_pods": N_PODS,
         "targets": [r.to_json() for r in reports],
-        "waits": {"hermes_commit": DONATION, "train_step": DONATION},
         "ok": all(r.ok for r in reports),
     }
     if args.self_test:

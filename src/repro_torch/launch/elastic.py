@@ -2,6 +2,7 @@
 one in flight (the reference's ``launch/elastic.py``).
 
     python -m repro_torch.launch.elastic --device cpu
+    python -m repro_torch.launch.elastic          # on the card
 
 * **In-flight pod shrink** (``elastic_shrink`` + ``drop_pod_equivalence``):
   the state is *pod-stacked* (a leading ``(n_pods,)`` axis on pod_params,
@@ -39,10 +40,13 @@ pod's too (masked): a process that has truly died would need a
 re-rendezvous, which neither package has.  ``launch.placed_audit``'s
 elastic cases hold the placed resize against the never-resized rounds.
 
-The checkpoint-restart demo (the reference's ``run_demo``) restores onto
-a smaller ``(data, model)`` mesh through tensor-parallel sharding: it
-waits for ``dist/sharding.py``'s rules bound to a torch ``DeviceMesh``
-over gloo ranks, the next slice (ROADMAP queue 1 item 9).
+* **Checkpoint restart onto a smaller mesh** (``run_demo``, the
+  reference's coarse path): spawned gloo ranks train qwen3-8b's smoke
+  model on a ``(data, model)`` torch ``DeviceMesh``, its state DTensors
+  placed by ``dist/sharding.py``'s rules bound to the mesh, checkpoint
+  it whole and restore it onto a mesh of half the ranks, every leaf
+  placed by the smaller mesh's rules (``checkpoint.restore_tree(
+  shardings=)``).
 """
 from __future__ import annotations
 
@@ -893,15 +897,237 @@ def run_hermes_shrink_demo(n_pods: int = 4, drop: int = 1, seed: int = 0,
     return out
 
 
-def run_demo(*args, **kwargs) -> dict:
-    """The reference's checkpoint-restart demo: restore a qwen3-8b smoke
-    model onto a smaller (data, model) mesh.  ``dist/sharding.py``'s rule
-    tables are ported; binding them to a torch ``DeviceMesh`` over gloo
-    ranks, which the demo restores onto, is the next slice."""
-    raise NotImplementedError(
-        "the checkpoint-restart demo restores onto a smaller (data, model) "
-        "DeviceMesh over gloo ranks, with dist/sharding.py's AxisRules "
-        "bound to it: the next slice, ROADMAP queue 1 item 9")
+# ---------------------------------------------------------------------------
+# Checkpoint-restart demo (the original coarse path)
+# ---------------------------------------------------------------------------
+
+#: the demo's (data, model) mesh axes, as the reference's
+MESH_AXES = ("data", "model")
+
+
+class _MeshTrainer:
+    """One rank's train step of ``cfg`` on a ``(data, model)`` DeviceMesh:
+    the reference's ``build_setup("train", ...)`` jitted with its
+    shardings, the state donated as the port's steps donate it.
+
+    The state is ``launch/steps.py``'s, ``{"params", "opt", "step"}``
+    (with bf16 compute: bf16 parameters, fp32 ``master`` weights, ``m``
+    and ``v``), every tensor a DTensor: the parameters placed by
+    ``launch.mesh.arch_rules`` (heads, ff and vocab on "model" where
+    they divide, the rest replicated), the optimizer state by its ZeRO-1
+    rules (``steps.opt_rules``: "embed" and "qkv" over "data" too).
+
+    A step constrains each parameter to full replication (an all-gather
+    over the axes that shard it) and takes the plain tensors into the
+    model: the model's ops, and the card's kernels, take plain tensors.
+    The batch is constrained to its "batch" rule alone (each data row its
+    rows, a local slice; the sequence stays whole, as the causal forward
+    needs it), and each rank's loss and gradients are a mean over its
+    rows.  A gradient is a ``Partial`` sum over "data" (in fp32), made
+    whole by a redistribute to ``Replicate`` (an all-reduce: gloo has no
+    reduce-scatter, so ``Partial -> Shard`` is not taken;
+    ``dist.sharding.redistribute``), then sliced to
+    the optimizer state's placement (no collective).  AdamW updates the
+    local shards in place, and the new parameters go from the state's
+    placement to theirs (an all-gather over "data" for a ZeRO-1 leaf)
+    into the parameters' own tensors.  The loss is reduced as a
+    gradient is."""
+
+    def __init__(self, cfg, device_mesh, batch: int, opt_cfg):
+        from repro_torch.config import ParallelConfig
+        from repro_torch.dist.sharding import mesh_shape, param_sharding_tree
+        from repro_torch.launch.mesh import arch_rules
+        from repro_torch.launch.steps import opt_rules
+        from repro_torch.models.lm import param_axes
+        from repro_torch.optim.optimizers import make_optimizer
+        parallel = ParallelConfig()
+        self.cfg, self.mesh = cfg, device_mesh
+        self.rules = arch_rules(cfg, mesh_shape(device_mesh), parallel,
+                                batch=batch).bind(device_mesh)
+        self.master = cfg.dtype == "bfloat16" and \
+            cfg.param_dtype == "float32"
+        self.optimizer = make_optimizer(opt_cfg, master_weights=self.master)
+        axes = param_axes(cfg)
+        self.param_sharding = param_sharding_tree(axes, self.rules)
+        self.opt_sharding = param_sharding_tree(
+            axes, opt_rules(self.rules, parallel))
+        self.n_data = int(device_mesh.size(MESH_AXES.index("data")))
+
+    def state_sharding(self) -> Tree:
+        """The state's placements (None for the step counts)."""
+        opt = {k: self.opt_sharding for k in ("m", "v")}
+        if self.master:
+            opt["master"] = self.opt_sharding
+        return {"params": self.param_sharding,
+                "opt": {"step": None, **opt}, "step": None}
+
+    def init_state(self, seed: int, device: torch.device) -> Tree:
+        """The state drawn whole (the same on every rank, from ``seed``)
+        and placed."""
+        from torch.distributed.tensor import distribute_tensor
+        from repro_torch.launch.steps import _init_params
+        params = _init_params(self.cfg, seed, device)
+        state = {"params": params, "opt": self.optimizer.init(params),
+                 "step": 0}
+        return tree_map(
+            lambda x, sh: x if sh is None else distribute_tensor(
+                x, sh.mesh, sh.placements, src_data_rank=None),
+            state, self.state_sharding())
+
+    def _whole_mean(self, x: torch.Tensor):
+        """The mean over "data" of a per-data-row fp32 value, a DTensor
+        whole on every rank."""
+        from torch.distributed.tensor import DTensor, Partial, Replicate
+        from repro_torch.dist.sharding import redistribute
+        d = DTensor.from_local(x.to(torch.float32) / self.n_data, self.mesh,
+                               [Partial(), Replicate()], run_check=False)
+        return redistribute(d, self.mesh, [Replicate(), Replicate()])
+
+    def step(self, state: Tree, batch: Dict[str, torch.Tensor]):
+        """One step; ``state`` is donated.  Returns ``(state, loss)``."""
+        from torch.distributed.tensor import DTensor
+        from repro_torch.dist.sharding import constrain, redistribute
+        from repro_torch.launch.train import _loss_and_grads
+        full = tree_map(lambda p: constrain(p, self.rules).to_local(),
+                        state["params"])
+        mine = {k: constrain(v, self.rules, "batch", None).to_local()
+                for k, v in batch.items()}
+        loss, grads = _loss_and_grads(full, mine, self.cfg)
+        del full
+        grads = tree_map(
+            lambda g, sh: redistribute(self._whole_mean(g), sh.mesh,
+                                       sh.placements).to_local(),
+            grads, self.opt_sharding)
+        local = {k: v if k == "step" else tree_map(
+            lambda x: x.to_local(), v) for k, v in state["opt"].items()}
+        # the parameters at the optimizer state's placement: AdamW writes
+        # the new ones there (the cast of the master weights)
+        at_opt = tree_map(
+            lambda p, sh: redistribute(p, sh.mesh, sh.placements)
+            .to_local().clone(), state["params"], self.opt_sharding)
+        with torch.no_grad():
+            self.optimizer.apply_(at_opt, grads, local)
+            for p, x, sh in zip(tree_leaves(state["params"]),
+                                tree_leaves(at_opt),
+                                tree_leaves(self.opt_sharding)):
+                new = DTensor.from_local(
+                    x, sh.mesh, sh.placements, run_check=False,
+                    shape=p.shape, stride=p.stride())
+                p.to_local().copy_(redistribute(
+                    new, p.device_mesh, p.placements).to_local())
+        state["opt"]["step"] = local["step"]
+        state["step"] += 1
+        return state, self._whole_mean(loss.reshape(1)).to_local()[0]
+
+
+def _demo_main(rank: int, world: int, job: Dict[str, Any]
+               ) -> Dict[str, Any]:
+    """One rank of :func:`run_demo`: phase 1 on the full mesh, a
+    checkpoint, phase 2 on the smaller mesh of the first ranks (the others
+    build it too, every group creation being collective, then idle)."""
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.checkpoint.checkpointer import restore_tree, save_tree
+    from repro_torch.dist.sharding import constrain
+    from repro_torch.config import OptimizerConfig
+    from repro_torch.configs import get_smoke_config
+    torch.set_num_threads(job["threads"])
+    dev = torch.device(job["device"])
+    if dev.type == "cuda":
+        dev = torch.device("cuda", dev.index or 0)
+        torch.cuda.set_device(dev)   # every rank shares the one card
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    cfg = get_smoke_config(job["arch"])
+    opt = OptimizerConfig(name="adamw", lr=1e-3)
+    B, S = job["batch"], job["seq"]
+    rng = np.random.default_rng(job["seed"])
+
+    def batch_for():
+        t = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S)))
+        return {"tokens": t.to(dev), "targets": t.to(dev)}
+
+    def make(shape):
+        n = int(np.prod(shape))
+        mesh = DeviceMesh(dev.type, torch.arange(n).reshape(shape),
+                          mesh_dim_names=MESH_AXES)
+        return (_MeshTrainer(cfg, mesh, B, opt) if rank < n else None), n
+
+    report: Dict[str, Any] = {"rank": rank}
+    trainer, _ = make(job["mesh1"])
+    state = trainer.init_state(job["seed"], dev)
+    losses = []
+    for _ in range(job["steps_before"]):
+        state, loss = trainer.step(state, batch_for())
+        losses.append(loss)
+    report["phase1_losses"] = [float(x) for x in losses]
+    # the whole state, gathered on every rank; rank 0 writes it
+    whole = tree_map(lambda x: x if isinstance(x, int) else constrain(
+        x, trainer.rules).to_local(), state)
+    if rank == 0:
+        save_tree(whole, job["ckpt"], job["steps_before"])
+    del state, whole, trainer
+    dist.barrier()
+
+    trainer, n2 = make(job["mesh2"])
+    if trainer is None:
+        return report
+    from repro_torch.launch.steps import _init_params
+    params = _init_params(cfg, 0, torch.device("meta"))
+    template = {"params": params, "opt": trainer.optimizer.init(params),
+                "step": 0}
+    state, at = restore_tree(template, job["ckpt"], device=dev,
+                             shardings=trainer.state_sharding())
+    losses = []
+    for _ in range(job["steps_after"]):
+        state, loss = trainer.step(state, batch_for())
+        losses.append(loss)
+    report.update(phase2_losses=[float(x) for x in losses],
+                  resumed_from_step=at)
+    return report
+
+
+def run_demo(arch: str = "qwen3-8b", steps_before: int = 5,
+             steps_after: int = 5, seed: int = 0, *, world: int = 8,
+             device="cuda", timeout: float = 600.0,
+             workdir: Optional[str] = None) -> Dict[str, Any]:
+    """The reference's checkpoint-restart demo on ``world`` spawned gloo
+    ranks (``launch.spawn.spawn_ranks``), each on ``device`` (ranks share
+    one card).  ``arch``'s smoke model trains with AdamW (lr 1e-3, batch
+    16, seq 32) on a ``(world // 4, 4)`` (data, model) DeviceMesh for
+    ``steps_before`` steps; the state is checkpointed whole, as "half the
+    nodes died", and restored onto a ``(max(1, world // 8), 4)`` mesh of
+    the first ranks, every leaf placed by the smaller mesh's rules
+    (``checkpoint.restore_tree(shardings=)``), for ``steps_after`` more
+    steps on the same batch stream.  The allocator then re-balances the
+    per-node work.  Returns the reference's keys: the losses and mesh
+    shape of each phase, ``resumed_from_step``, ``realloc`` and
+    ``loss_continuous`` (phase 2's first loss below phase 1's first)."""
+    import tempfile
+    from repro_torch.core.allocator import dual_binary_search
+    from repro_torch.launch.spawn import spawn_ranks
+    if world < 4:
+        raise ValueError("need >= 4 ranks for a (data, model=4) mesh")
+    dev = resolve_device(device)
+    mesh1 = (world // 4, 4)
+    mesh2 = (max(1, world // 8), 4)
+    with tempfile.TemporaryDirectory(dir=workdir) as ckpt:
+        job = {"arch": arch, "seed": seed, "batch": 16, "seq": 32,
+               "steps_before": steps_before, "steps_after": steps_after,
+               "mesh1": mesh1, "mesh2": mesh2, "ckpt": ckpt,
+               "device": str(dev),
+               "threads": max(1, torch.get_num_threads() // world)}
+        reports = spawn_ranks(world, job, _demo_main, timeout=timeout,
+                              workdir=workdir)
+    first = reports[0]
+    a = dual_binary_search(k=0.02, t_target=1.0, dss_domain=(32, 4096))
+    return {"phase1_losses": first["phase1_losses"],
+            "phase1_mesh": list(mesh1),
+            "phase2_losses": first["phase2_losses"],
+            "phase2_mesh": list(mesh2),
+            "resumed_from_step": first["resumed_from_step"],
+            "realloc": {"dss": a.dss, "mbs": a.mbs},
+            "loss_continuous": (first["phase2_losses"][0]
+                                < first["phase1_losses"][0])}
 
 
 def main(argv=None) -> None:
@@ -912,10 +1138,7 @@ def main(argv=None) -> None:
            "hermes_rejoin": run_hermes_rejoin_demo(device=args.device),
            "hermes_cluster_resize": run_hermes_cluster_resize_demo(
                device=args.device)}
-    try:
-        out["checkpoint_restart"] = run_demo()
-    except NotImplementedError as e:
-        out["checkpoint_restart"] = {"error": f"NotImplementedError: {e}"}
+    out["checkpoint_restart"] = run_demo(device=args.device)
     print(json.dumps(out, indent=2))
 
 

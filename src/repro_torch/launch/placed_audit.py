@@ -6,9 +6,11 @@
 
 The parent process runs every case unplaced, all pods in one process,
 keeps a SHA-256 of each output (``w_global``, every pod row, every error
-row), frees what it holds, and spawns one process per rank: gloo over a
-``FileStore``, every rank's tensors on the parent's device (one card can
-host them all: gloo gathers CUDA tensors).  Each rank rebuilds the same
+row), frees what it holds, and spawns one process per rank
+(``launch.spawn.spawn_ranks``: gloo over a ``FileStore``; a rank that
+fails fails the audit with its traceback), every rank's tensors on the
+parent's device (one card can host them all: gloo gathers CUDA
+tensors).  Each rank rebuilds the same
 inputs from the seed, keeps its own pod rows, runs the same cases placed
 over ``launch.mesh.make_pod_groups`` and reports whether its outputs hash
 as the parent's, the host's ``merged`` flag of each round, and every
@@ -52,7 +54,6 @@ import contextlib
 import hashlib
 import json
 import os
-import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, List, Optional, Sequence
@@ -60,7 +61,6 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 import torch.distributed as dist
-import torch.multiprocessing as mp
 
 from repro_torch import resolve_device
 from repro_torch.analysis.collectives import count_collectives, records, tier
@@ -75,6 +75,7 @@ from repro_torch.launch.mesh import (
     PodGroups, flatten_cluster_groups, make_pod_groups, rank_layout,
     regroup_groups,
 )
+from repro_torch.launch.spawn import spawn_ranks
 from repro_torch.utils.trees import tree_flatten, tree_map
 
 CASES = ("flat", "flat_async", "cluster", "cluster_async", "closed")
@@ -277,58 +278,53 @@ def _named(entries, groups: Optional[PodGroups]) -> List:
             for g, kind, op in entries]
 
 
-def _rank_main(rank: int, world: int, store: str, job: Dict[str, Any],
-               out_dir: str) -> None:
-    """One rank: the cases placed, compared with the parent's digests."""
-    dist.init_process_group("gloo", store=dist.FileStore(store, world),
-                            rank=rank, world_size=world)
-    try:
-        torch.set_num_threads(job["threads"])
-        dev = torch.device(job["device"])
-        if dev.type == "cuda":
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
-        groups = make_pod_groups(job["n_pods"], job["n_clusters"])
-        log: List = []
-        count_collectives(log)
-        report: Dict[str, Any] = {"rank": rank, "cases": {}}
-        rows, n_rows = groups.rows, groups.rows_per_rank
-        for fmt in job["formats"]:
-            for case in job["cases"]:
-                t0 = time.perf_counter()
-                build.reset_launches()
-                outs, merged, phases = _run_case(case, fmt, job, dev, rows,
-                                                 groups, log)
-                got = _hashes(outs, n_rows, rows.start)
-                want = job["digests"][f"{fmt}/{case}"]
-                report["cases"][f"{fmt}/{case}"] = {
-                    "equal": {k: v == want[k] for k, v in got.items()},
-                    "merged": merged,
-                    "records": phases.pop("records", {}), "phases": phases,
-                    "launches": _launches(),
-                    "seconds": time.perf_counter() - t0}
-                del outs
-        report["elastic"], report["proofs"] = {}, {}
-        for fmt in job["elastic_formats"]:
-            for case in job["elastic"]:
-                t0 = time.perf_counter()
-                build.reset_launches()
-                got = _run_elastic(case, fmt, job, dev, groups, log)
-                got.update(launches=_launches(),
-                           seconds=time.perf_counter() - t0)
-                report["elastic"][f"{fmt}/{case}"] = got
-            if job["elastic"]:
-                report["proofs"][fmt] = _proofs(fmt, job, dev)
-        if job.get("train"):
+def _rank_main(rank: int, world: int, job: Dict[str, Any]
+               ) -> Dict[str, Any]:
+    """One rank (``launch.spawn.spawn_ranks``): the cases placed,
+    compared with the parent's digests."""
+    torch.set_num_threads(job["threads"])
+    dev = torch.device(job["device"])
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    groups = make_pod_groups(job["n_pods"], job["n_clusters"])
+    log: List = []
+    count_collectives(log)
+    report: Dict[str, Any] = {"rank": rank, "cases": {}}
+    rows, n_rows = groups.rows, groups.rows_per_rank
+    for fmt in job["formats"]:
+        for case in job["cases"]:
+            t0 = time.perf_counter()
             build.reset_launches()
-            report["train"] = _train(job, dev, groups)
-            report["train"]["launches"] = _launches()
-        report["peak_bytes"] = (torch.cuda.max_memory_allocated(dev)
-                                if dev.type == "cuda" else None)
-        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
-            json.dump(report, f)
-    finally:
-        dist.destroy_process_group()
+            outs, merged, phases = _run_case(case, fmt, job, dev, rows,
+                                             groups, log)
+            got = _hashes(outs, n_rows, rows.start)
+            want = job["digests"][f"{fmt}/{case}"]
+            report["cases"][f"{fmt}/{case}"] = {
+                "equal": {k: v == want[k] for k, v in got.items()},
+                "merged": merged,
+                "records": phases.pop("records", {}), "phases": phases,
+                "launches": _launches(),
+                "seconds": time.perf_counter() - t0}
+            del outs
+    report["elastic"], report["proofs"] = {}, {}
+    for fmt in job["elastic_formats"]:
+        for case in job["elastic"]:
+            t0 = time.perf_counter()
+            build.reset_launches()
+            got = _run_elastic(case, fmt, job, dev, groups, log)
+            got.update(launches=_launches(),
+                       seconds=time.perf_counter() - t0)
+            report["elastic"][f"{fmt}/{case}"] = got
+        if job["elastic"]:
+            report["proofs"][fmt] = _proofs(fmt, job, dev)
+    if job.get("train"):
+        build.reset_launches()
+        report["train"] = _train(job, dev, groups)
+        report["train"]["launches"] = _launches()
+    report["peak_bytes"] = (torch.cuda.max_memory_allocated(dev)
+                            if dev.type == "cuda" else None)
+    return report
 
 
 def _proofs(fmt: str, job: Dict[str, Any], dev: torch.device
@@ -592,7 +588,7 @@ def audit(preset: str = "toy", *, ranks: int = 4, n_pods: int = 4,
     gives their rounds' int4 noise for the stacked rows of the original
     pods ``ids``.  Without it they skip int4, whose default noise is not
     resize-invariant (the reference pins ``none``, ``fp16`` and ``int8``).
-    A rank that fails fails the audit (raises)."""
+    A rank that fails fails the audit (raises, with its traceback)."""
     dev = resolve_device(device)
     t0 = time.perf_counter()
     rank_layout(ranks, n_pods, n_clusters)
@@ -637,7 +633,8 @@ def audit(preset: str = "toy", *, ranks: int = 4, n_pods: int = 4,
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
     unplaced_s = time.perf_counter() - t0
-    reports = _spawn(ranks, job, timeout, workdir)
+    reports = spawn_ranks(ranks, job, _rank_main, timeout=timeout,
+                          workdir=workdir)
     out: Dict[str, Any] = {"cases": {}, "unplaced_s": unplaced_s,
                            "seconds": time.perf_counter() - t0,
                            "peak_bytes": [r["peak_bytes"] for r in reports]}
@@ -685,64 +682,27 @@ def audit(preset: str = "toy", *, ranks: int = 4, n_pods: int = 4,
     return out
 
 
-def _spawn(ranks: int, job, timeout: float, workdir: Optional[str],
-           target=_rank_main):
-    """Start every rank, wait for all, and read their reports; a rank that
-    exits nonzero or runs past ``timeout`` fails the audit."""
-    ctx = mp.get_context("spawn")
-    with tempfile.TemporaryDirectory(dir=workdir) as tmp:
-        store = os.path.join(tmp, "store")
-        procs = [ctx.Process(target=target,
-                             args=(r, ranks, store, job, tmp))
-                 for r in range(ranks)]
-        for p in procs:
-            p.start()
-        deadline = time.monotonic() + timeout
-        for p in procs:
-            p.join(max(1.0, deadline - time.monotonic()))
-        late = [r for r, p in enumerate(procs) if p.is_alive()]
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-                p.join()
-        codes = [p.exitcode for p in procs]
-        if late or any(codes):
-            raise RuntimeError(f"placed ranks failed: exit codes {codes}, "
-                               f"past the {timeout:.0f} s limit: {late}")
-        reports = []
-        for r in range(ranks):
-            with open(os.path.join(tmp, f"rank{r}.json")) as f:
-                reports.append(json.load(f))
-    return reports
-
-
-def _regroup_main(rank: int, world: int, store: str, job: Dict[str, Any],
-                  out_dir: str) -> None:
+def _regroup_main(rank: int, world: int, job: Dict[str, Any]
+                  ) -> Dict[str, Any]:
     """One rank of :func:`regroup_audit`."""
-    dist.init_process_group("gloo", store=dist.FileStore(store, world),
-                            rank=rank, world_size=world)
-    try:
-        members, n_pods = tuple(job["members"]), job["n_pods"]
-        pod = dist.new_group(list(members))
-        groups = None
-        if rank in members:
-            groups = PodGroups(n_pods=n_pods,
-                               rank=dist.get_group_rank(pod, rank),
-                               size=len(members), pod=pod, members=members)
-        got = regroup_groups(groups, job["n_clusters"],
-                             layout=(members, n_pods))
-        report: Dict[str, Any] = {"rank": rank, "member": got is not None}
-        if got is not None:
-            me = torch.tensor([float(rank)])
-            met = {tier: all_gather_rows(me, *got.group(tier)).int().tolist()
-                   for tier in ("pod", "intra", "cluster")}
-            report.update(group_rank=got.rank, cluster=got.cluster,
-                          rows=[got.rows.start, got.rows.stop],
-                          tiers=_tiers(got), met=met)
-        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
-            json.dump(report, f)
-    finally:
-        dist.destroy_process_group()
+    members, n_pods = tuple(job["members"]), job["n_pods"]
+    pod = dist.new_group(list(members))
+    groups = None
+    if rank in members:
+        groups = PodGroups(n_pods=n_pods,
+                           rank=dist.get_group_rank(pod, rank),
+                           size=len(members), pod=pod, members=members)
+    got = regroup_groups(groups, job["n_clusters"],
+                         layout=(members, n_pods))
+    report: Dict[str, Any] = {"rank": rank, "member": got is not None}
+    if got is not None:
+        me = torch.tensor([float(rank)])
+        met = {tier: all_gather_rows(me, *got.group(tier)).int().tolist()
+               for tier in ("pod", "intra", "cluster")}
+        report.update(group_rank=got.rank, cluster=got.cluster,
+                      rows=[got.rows.start, got.rows.stop],
+                      tiers=_tiers(got), met=met)
+    return report
 
 
 def regroup_audit(members: Sequence[int], world: int, n_clusters: int, *,
@@ -755,7 +715,8 @@ def regroup_audit(members: Sequence[int], world: int, n_clusters: int, *,
     that met in one gather over each tier."""
     job = {"members": list(members), "n_clusters": n_clusters,
            "n_pods": len(members) if n_pods is None else n_pods}
-    return _spawn(world, job, timeout, workdir, target=_regroup_main)
+    return spawn_ranks(world, job, _regroup_main, timeout=timeout,
+                       workdir=workdir)
 
 
 def main(argv=None) -> None:

@@ -8,8 +8,12 @@ allocated), ``init_state(seed)``, which builds the persistent state on the
 setup's device, and ``meta``.
 
 * train: ``step_fn(state, batch) -> (state, loss)``, the state
-  ``{"params", "opt", "step"}``.  With ``cfg.dtype == "bfloat16"`` the
-  parameters are bf16 and the optimizer keeps fp32 master weights;
+  ``{"params", "opt", "step"}``, donated as the reference's jit donates
+  it (``donate_argnums=(0,)``): the optimizer writes into the state's
+  own tensors and the state comes back itself.  With ``cfg.dtype ==
+  "bfloat16"`` the parameters are bf16 and the optimizer keeps fp32
+  master weights (``opt_rules``: the reference's ZeRO-1 placement of
+  that state on a mesh);
   ``parallel.microbatch > 1`` accumulates the gradient over that many
   slices of the batch, one backward each;
 * prefill: ``step_fn(params, cache, batch) -> (logits, cache)``;
@@ -45,6 +49,7 @@ from repro_torch import resolve_device
 from repro_torch.config import (
     ModelConfig, OptimizerConfig, ParallelConfig, ShapeConfig,
 )
+from repro_torch.dist.sharding import AxisRules
 from repro_torch.models import lm as LM
 from repro_torch.models.layers import compute_dtype
 from repro_torch.optim.optimizers import make_optimizer
@@ -80,6 +85,19 @@ def abstract_init_lm(cfg: ModelConfig) -> Tuple[Tree, Tree]:
     device (shapes and dtypes, nothing allocated or drawn) and the axes
     twin of its leaves."""
     return LM.init_lm(cfg, 0, META), LM.param_axes(cfg)
+
+
+def opt_rules(rules: AxisRules, parallel: ParallelConfig) -> AxisRules:
+    """ZeRO-1 (the reference's ``_opt_rules``): the optimizer state also
+    shards "qkv" and "embed" over "data" where nothing else claims them;
+    the rules as they are under FSDP or without ``zero1``."""
+    if not parallel.zero1 or parallel.fsdp:
+        return rules
+    r = dict(rules.rules)
+    for k in ("qkv", "embed"):
+        if r.get(k) is None:
+            r[k] = "data"
+    return dataclasses.replace(rules, rules=r)
 
 
 def _param_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -152,11 +170,11 @@ def make_train_setup(cfg: ModelConfig, shape: ShapeConfig,
                 loss = loss + li.detach()
         _, treedef = tree_flatten(state["params"])
         with torch.no_grad():
-            new_params, opt = optimizer.apply(
-                state["params"], tree_unflatten(treedef, list(grads)),
-                state["opt"])
-        return ({"params": new_params, "opt": opt,
-                 "step": state["step"] + 1}, loss.detach())
+            optimizer.apply_(state["params"],
+                             tree_unflatten(treedef, list(grads)),
+                             state["opt"])
+        state["step"] += 1
+        return state, loss.detach()
 
     return StepSetup(
         step_fn=train_step,

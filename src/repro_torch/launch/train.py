@@ -34,7 +34,7 @@ from __future__ import annotations
 import argparse
 import json
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -153,6 +153,93 @@ def _loss_and_grads(params: Tree, batch: Dict[str, torch.Tensor],
     return loss.detach(), tree_unflatten(treedef, list(grads))
 
 
+def make_single_step(cfg: ModelConfig, optimizer, *, donate: bool = True
+                     ) -> Callable:
+    """The single trainer's step (the reference's ``step_fn``, jitted with
+    ``donate_argnums=(0,)``): ``step(state, batch) -> (state, loss)`` on
+    ``{"params", "opt", "step"}``.  Donated, AdamW writes into the
+    state's own tensors and the state comes back itself: the old state is
+    dead once the step returns.  ``donate=False`` is its functional twin,
+    a new state a step."""
+    def step(state, batch):
+        loss, grads = _loss_and_grads(state["params"], batch, cfg)
+        with torch.no_grad():
+            if donate:
+                optimizer.apply_(state["params"], grads, state["opt"])
+                state["step"] += 1
+                return state, loss
+            p, o = optimizer.apply(state["params"], grads, state["opt"])
+        return {"params": p, "opt": o, "step": state["step"] + 1}, loss
+
+    return step
+
+
+def _pod_losses_and_grads(pod_params: Tree, stacked: Dict[str, torch.Tensor],
+                          cfg: ModelConfig):
+    """Each pod's loss and gradient, a pod at a time, restacked."""
+    leaves, treedef = tree_flatten(pod_params)
+    losses, grads = [], []
+    for i in range(int(leaves[0].shape[0])):
+        loss, g = _loss_and_grads(
+            tree_unflatten(treedef, [x[i] for x in leaves]),
+            {k: v[i] for k, v in stacked.items()}, cfg)
+        grads.append(tree_flatten(g)[0])
+        losses.append(loss)
+    stacked_grads = [torch.stack([g[j] for g in grads])
+                     for j in range(len(leaves))]
+    return torch.stack(losses), tree_unflatten(treedef, stacked_grads)
+
+
+def make_pod_step(cfg: ModelConfig, optimizer, *, donate: bool = True
+                  ) -> Callable:
+    """``train_hermes``'s pod step (the reference's ``pod_step``, jitted
+    with ``donate_argnums=(0, 1)``): ``pod_step(pod_params, pod_opt,
+    stacked) -> (pod_params, pod_opt, losses)``, every pod's forward and
+    backward, then AdamW on the stacked trees.  Donated, the update is
+    written into ``pod_params``' and ``pod_opt``'s own tensors, which come
+    back themselves; ``donate=False`` is the functional twin."""
+    def pod_step(pod_params, pod_opt, stacked):
+        losses, grads = _pod_losses_and_grads(pod_params, stacked, cfg)
+        with torch.no_grad():
+            if donate:
+                optimizer.apply_(pod_params, grads, pod_opt)
+            else:
+                pod_params, pod_opt = optimizer.apply(pod_params, grads,
+                                                      pod_opt)
+        return pod_params, pod_opt, losses
+
+    return pod_step
+
+
+def make_async_round_fns(hcfg: HermesConfig,
+                         groups: Optional[PodGroups] = None):
+    """The async round's two halves, ``(dispatch, commit)`` (the
+    reference's ``make_async_round_jits``): one definition for
+    ``train_hermes``, the analyzer and the tests.
+
+    ``dispatch(pod_params, gup, pod_losses, w_global, L, error, *,
+    round_step, noise)`` is ``hermes_cluster_dispatch``.  ``commit(
+    pod_params, pending, w_global)`` is ``hermes_cluster_commit`` with
+    ``pod_params`` and ``pending`` donated, as the reference donates them:
+    the refreshed rows are written into ``pod_params``' own leaves, and
+    ``pending`` is emptied, which frees its payload.  Both are dead after
+    the call; a caller that needs them clones first.  At one cluster both
+    halves call the flat ones verbatim."""
+    def dispatch(pod_params, gup, pod_losses, w_global, L, error, *,
+                 round_step: int, noise: Optional[NoiseFn]):
+        return hermes_cluster_dispatch(
+            pod_params, gup, pod_losses, w_global, L, hcfg, error=error,
+            round_step=round_step, noise=noise, groups=groups)
+
+    def commit(pod_params, pending, w_global):
+        cm = hermes_cluster_commit(pod_params, pending, w_global, cfg=hcfg,
+                                   groups=groups, in_place=True)
+        pending.clear()
+        return cm
+
+    return dispatch, commit
+
+
 def train_single(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
                  opt_cfg: OptimizerConfig, ckpt_dir: Optional[str] = None,
                  restore: bool = False, log_every: int = 20, seed: int = 0,
@@ -167,7 +254,8 @@ def train_single(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
     ``params0`` (numpy arrays) replaces the port's own init.  Returns the
     reference's summary (final_loss: the mean of the last 10 losses,
     first_loss, steps) plus this run's ``losses`` and ``ms_per_step``
-    (CUDA events on the card, the host clock on the CPU).  The loop reads
+    (CUDA events on the card, the host clock on the CPU).  Its step
+    (:func:`make_single_step`) updates the state in place.  The loop reads
     the device only at log steps, checkpoints and after the loop."""
     dev = _start(device)
     cfg.validate()
@@ -187,6 +275,7 @@ def train_single(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
     # resume the data stream, don't replay already-consumed batches
     batches = make_batches(tokens, batch, seq, rng,
                            skip=min(start_step, steps))
+    step_fn = make_single_step(cfg, optimizer)
     losses: List[torch.Tensor] = []
     clock = _PhaseClock(dev)
     t0 = time.time()
@@ -194,12 +283,8 @@ def train_single(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
         b = {k: _to_device(v, dev) for k, v in next(batches).items()}
         started = clock.start()
         with torch.profiler.record_function("single/step"):
-            loss, grads = _loss_and_grads(state["params"], b, cfg)
-            with torch.no_grad():
-                p, o = optimizer.apply(state["params"], grads, state["opt"])
-            del grads
+            state, loss = step_fn(state, b)
         clock.stop(started)
-        state = {"params": p, "opt": o, "step": state["step"] + 1}
         losses.append(loss)
         if (i + 1) % log_every == 0:
             recent = [float(x) for x in _host_fetch(losses[-log_every:])]
@@ -244,7 +329,10 @@ def train_hermes(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
     Hermes trainer writes no checkpoint.  Every round goes through the
     two-tier entry points (``hermes_cluster_round``, or ``_dispatch`` and
     ``_commit``), which call the flat round at ``hcfg.n_clusters == 1``.
-    Returns the reference's summary (global_loss, merges, rounds,
+    As in the reference, the pod step (:func:`make_pod_step`) and the
+    async commit (:func:`make_async_round_fns`) donate: they update the
+    pod parameters and the optimizer state in place.  Returns the
+    reference's summary (global_loss, merges, rounds,
     pod_losses, history, and the async accounting async_rounds,
     dispatched, committed, drained; with async rounds ``merges`` counts
     commits) plus the time per step and per round: CUDA events on the
@@ -297,18 +385,8 @@ def train_hermes(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
     noise = noise if noise is not None else GeneratorNoise(seed, dev)
     logs = groups is None or groups.rank == 0
 
-    def pod_losses_and_grads(pod_params, stacked):
-        leaves, treedef = tree_flatten(pod_params)
-        losses, grads = [], []
-        for i in range(n_mine):
-            loss, g = _loss_and_grads(
-                tree_unflatten(treedef, [x[i] for x in leaves]),
-                {k: v[i] for k, v in stacked.items()}, cfg)
-            grads.append(tree_flatten(g)[0])
-            losses.append(loss)
-        stacked_grads = [torch.stack([g[j] for g in grads])
-                         for j in range(len(leaves))]
-        return torch.stack(losses), tree_unflatten(treedef, stacked_grads)
+    pod_step = make_pod_step(cfg, optimizer)
+    dispatch, commit_pending = make_async_round_fns(hcfg, groups)
 
     @torch.no_grad()
     def pod_eval(pod_params):
@@ -325,10 +403,11 @@ def train_hermes(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
         """Merge the pending round; the global loss is re-evaluated only
         when it merged.  A dispatch encodes a payload only for an open
         gate (its own host read), so a pending payload is the host's flag.
-        Returns the merge as a device int32 for the counters."""
-        cm = hermes_cluster_commit(pod_params, pending, w_global, cfg=hcfg,
-                                   groups=groups)
-        if pending_merges(pending):
+        Returns the merge as a device int32 for the counters; the pods
+        and ``pending`` are donated."""
+        merged = pending_merges(pending)
+        cm = commit_pending(pod_params, pending, w_global)
+        if merged:
             L_global = eval_global(cm["w_global"])
         return (cm["pod_params"], cm["w_global"], L_global,
                 cm["any_push"].to(torch.int32))
@@ -350,11 +429,8 @@ def train_hermes(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
         t0 = step_clock.start()
         # the named ranges are what a torch.profiler trace of a run reads
         with torch.profiler.record_function("hermes/pod_step"):
-            losses, grads = pod_losses_and_grads(pod_params, stacked)
-            with torch.no_grad():
-                pod_params, pod_opt = optimizer.apply(pod_params, grads,
-                                                      pod_opt)
-            del grads
+            pod_params, pod_opt, losses = pod_step(pod_params, pod_opt,
+                                                   stacked)
         step_clock.stop(t0)
         if (i + 1) % hcfg.lam == 0 or i == 0:
             t0 = round_clock.start()
@@ -371,10 +447,9 @@ def train_hermes(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
                         pending = None  # frees the payload
                         merges = merges + opened
                         committed = committed + opened
-                    out = hermes_cluster_dispatch(
-                        pod_params, gup, pod_losses, w_global, L_global,
-                        hcfg, error=error, round_step=i, noise=noise,
-                        groups=groups)
+                    out = dispatch(pod_params, gup, pod_losses, w_global,
+                                   L_global, error, round_step=i,
+                                   noise=noise)
                     pending = out["pending"]
                     dispatched = dispatched + out["any_push"].to(torch.int32)
                 else:

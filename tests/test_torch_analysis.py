@@ -649,7 +649,13 @@ def test_analyze_self_test_cli_on_cpu(tmp_path):
     assert len([l for l in labels if l.startswith("kernel[")]) == \
         len(ops.kernel_lint_cases()) + 1
     assert {f["expected_class"] for f in record["self_test"]} == \
-        {"fp32-model-crossing", "host-sync-in-loop", "tile-misaligned"}
+        {"fp32-model-crossing", "dropped-donation", "host-sync-in-loop",
+         "tile-misaligned"}
+    # the donation halves run: nothing waits for another slice
+    assert "waits" not in record
+    rules = {t["label"]: t["rules"] for t in record["targets"]}
+    assert [k for k, v in rules.items() if "donation-aliasing" in v] == \
+        ["hermes_commit[int4]", "train_step[qwen3-8b]"]
 
 
 def test_bad_tiles_selftest_on_cpu_lints_and_launches_nothing():

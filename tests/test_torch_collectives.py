@@ -13,8 +13,8 @@ import torch
 import torch_parity  # noqa: F401  (one torch thread)
 
 from repro_torch.analysis import (
-    AnalysisError, CollectivePlacement, analyze, classify_collectives,
-    control_traffic_allowance,
+    Aliasing, AnalysisError, CollectivePlacement, DonationAliasing, analyze,
+    classify_collectives, control_traffic_allowance,
 )
 from repro_torch.analysis import collectives as C
 from repro_torch.dist import wire
@@ -173,9 +173,14 @@ def per_rank(tmp_path_factory):
                                    "check_async_halves", "check_admission",
                                    "check_train_step"])
 def test_analyzer_round_targets_clean_on_two_ranks(per_rank, check):
+    """Each check clean on both ranks; the commit and the train step are
+    held to the donation rule too."""
     reports = getattr(A, check)(per_rank)
     assert reports and all(r.ok for r in reports)
-    assert all(r.rules == ["collective-placement"] for r in reports)
+    for r in reports:
+        donates = r.label.startswith(("hermes_commit", "train_step"))
+        assert r.rules == ["collective-placement"] + (
+            ["donation-aliasing"] if donates else []), r.label
 
 
 def test_open_round_ships_the_bill_and_the_closed_one_the_gates(per_rank):
@@ -192,6 +197,28 @@ def test_open_round_ships_the_bill_and_the_closed_one_the_gates(per_rank):
     labels = set(per_rank[0])
     assert {f"hermes_round[{mode},prate=0.5,{a}]" for a in ("topk", "prob")} \
         <= labels
+
+
+def test_donation_halves_alias_on_two_ranks(per_rank):
+    """Each rank's donation records: the commit's pods and the train
+    step's whole state (every tensor leaf; the step counts are Python
+    ints, without storage) come back in their own storage; a record whose
+    outputs lost one donated storage raises ``dropped-donation``."""
+    mode = A._cfg().compression
+    for recs in per_rank:
+        don = recs["donation"]
+        assert set(don) == {f"hermes_commit[{mode}]", "train_step[qwen3-8b]"}
+        assert don[f"hermes_commit[{mode}]"]["donated"] == \
+            {"pod_params": [0, 2]}
+        for label, rec in don.items():
+            al = Aliasing.from_json(rec["aliasing"])
+            (lo, hi), = rec["donated"].values()
+            held = [p for p in al.inputs[lo:hi] if p is not None]
+            assert held and set(held) <= al.outputs, label
+            broken = Aliasing(al.inputs, al.outputs - {held[0]})
+            rule = DonationAliasing({"x": range(lo, hi)})
+            with pytest.raises(AnalysisError, match="dropped-donation"):
+                analyze([rule], aliasing=broken, label=label)
 
 
 def test_fp32_hoist_fixture_raises_its_class(per_rank):

@@ -2,8 +2,9 @@
 (``repro_torch.launch.placed_audit``'s elastic cases), and the pod-group
 layouts of ``repro_torch.launch.mesh`` that a resize builds.
 
-One module-scoped audit spawns four ranks once (a ``FileStore`` under
-``tmp_path``, no port) and runs ``drop``, ``rejoin`` and
+One module-scoped audit spawns four ranks once
+(``launch.spawn.spawn_ranks``: a ``FileStore`` under ``tmp_path``, no
+port; a rank that fails fails the audit with its traceback) and runs ``drop``, ``rejoin`` and
 ``cluster_resize`` for ``none`` and ``int8``, the formats the reference
 pins resize-invariant.  The parent runs the never-resized oracle (every
 row kept, the dead stretch live-masked, the dead row re-seeded at the
@@ -20,6 +21,8 @@ import pytest
 import torch
 
 from repro_torch.launch import mesh, placed_audit
+
+import torch_parity  # noqa: F401  (one torch thread)
 
 FORMATS = ("none", "int8")
 KEYS = [f"{f}/{c}" for f in FORMATS for c in placed_audit.ELASTIC]
@@ -166,6 +169,25 @@ def test_proofs_hold_placed(audit, compression):
             (4, None if rank == 1 else 3)
         assert (rejoin["shrunk_group"], rejoin["regrown_group"]) == \
             (None if rank == 3 else 3, 4)
+
+
+def test_a_failing_rank_fails_the_spawn_with_its_traceback(tmp_path):
+    """``launch.spawn.spawn_ranks``, which every audit spawns through: a
+    rank that raises makes the spawn raise with that rank's traceback, not
+    only its exit code, and the ranks waiting on it are stopped."""
+    from repro_torch.launch.spawn import spawn_ranks
+    import torch_ranks
+    with pytest.raises(RuntimeError) as e:
+        spawn_ranks(4, {"rank": 2}, torch_ranks.fails_on_rank, timeout=120,
+                    workdir=str(tmp_path))
+    text = str(e.value)
+    assert "--- rank 2 raised:" in text and "Traceback" in text
+    assert "ValueError: rank 2 fails on purpose" in text
+    assert "fails_on_rank" in text          # the frame that raised
+    assert list(tmp_path.iterdir()) == []   # its directory is removed
+    ok = spawn_ranks(4, {"rank": -1}, torch_ranks.fails_on_rank, timeout=120,
+                     workdir=str(tmp_path))
+    assert [r["rank"] for r in ok] == [0, 1, 2, 3]
 
 
 def test_layouts_of_a_resize():

@@ -139,7 +139,7 @@ def test_rules_dedupe_and_replicate_like_reference():
         assert tsh.replica_axes(shape) == jreplica_axes(_jmesh(shape))
     assert tsh.replica_axes(None) == ()
     assert tsh.constrain("x", None, "batch") == "x"
-    with pytest.raises(ValueError, match="item 9"):
+    with pytest.raises(ValueError, match="no device mesh bound"):
         tsh.AxisRules({}).sharding(("batch",))
     assert tmesh.mesh_axis_size(tmesh.make_production_mesh(), "pod") == 1
 
@@ -203,3 +203,56 @@ def test_a_hint_that_moves_the_axis_rebills():
     assert fmt.payload_bytes(s) == jfmt.payload_bytes(s)
     # two whole-block axes bill the same bytes, measured twice
     assert {(s, 0), (s, 1)} <= set(fmt._measured_bytes)
+
+
+def test_sharding_on_a_bound_device_mesh(tmp_path):
+    """qwen3-8b's smoke model on a live (2, 4) (data, model) DeviceMesh of
+    8 spawned gloo ranks, its rules bound (``AxisRules.bind``): every
+    leaf's spec is the reference's ``arch_rules`` spec at batch 16, its
+    ``.sharding`` placements are that spec's (``Shard(d)`` where the spec
+    puts "model" on dimension ``d``, ``Replicate()`` on "data", which no
+    parameter takes), a leaf placed with them keeps its slice and gathers
+    back whole; ``constrain`` gives each rank its slice of a (16, 32)
+    batch by the spec of ``("batch", "seq")`` (8 rows a data row, and the
+    sequence over "model" as sequence parallelism puts it) and back, and
+    is the identity with no device mesh bound."""
+    from repro_torch.launch.spawn import spawn_ranks
+    from repro.configs import get_smoke_config as jsmoke
+    from repro_torch.configs import get_smoke_config
+    import torch_ranks
+    reports = spawn_ranks(8, {"shape": (2, 4)}, torch_ranks.mesh_placements,
+                          timeout=300, workdir=str(tmp_path))
+    shape = tsh.MeshShape(("data", "model"), (2, 4))
+    jr = jmesh.arch_rules(jsmoke("qwen3-8b"), _jmesh(shape), JParallel(),
+                          batch=16)
+    _, ja = jabstract(jsmoke("qwen3-8b"), jax.random.PRNGKey(0))
+    cfg = get_smoke_config("qwen3-8b")
+    shapes = [tuple(x.shape) for x in tree_flatten(
+        abstract_init_lm(cfg)[0])[0]]
+    want = [tuple(jr.spec(a)) for a in _jaxes(ja)]
+    assert any("model" in s for s in want)
+    for rank, rep in enumerate(reports):
+        assert len(rep["leaves"]) == len(want)
+        for leaf, spec, full in zip(rep["leaves"], want, shapes):
+            got = tuple(tuple(e) if isinstance(e, list) else e
+                        for e in leaf["spec"])
+            assert got == spec
+            on = [d for d, e in enumerate(spec) if e == "model"]
+            assert leaf["placements"] == leaf["direct"] == [
+                "replicate", f"shard{on[0]}" if on else "replicate"]
+            local = list(full)
+            if on:
+                local[on[0]] //= 4
+            assert leaf["local"] == local and leaf["whole"]
+        # the batch by its spec: rows over "data", and the sequence over
+        # "model" under sequence parallelism
+        batch = np.arange(16 * 32).reshape(16, 32)
+        coord = {"data": rank // 4, "model": rank % 4}
+        for d, e in enumerate(jr.spec(("batch", "seq"))):
+            names = () if e is None else (e,) if isinstance(e, str) else e
+            for name in names:
+                n = batch.shape[d] // shape.axis_size(name)
+                batch = np.take(batch, range(coord[name] * n,
+                                             coord[name] * n + n), axis=d)
+        assert rep["batch_local"] == batch.tolist()
+        assert rep["batch_back"] and rep["identity"]
