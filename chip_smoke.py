@@ -209,7 +209,20 @@ Phases (any failure raises and the script exits nonzero):
     printed; (b) ``launch.elastic.run_demo`` on 8 gloo ranks sharing the
     card: qwen3-8b's smoke model on a (2, 4) DeviceMesh, checkpointed and
     restored onto (1, 4), the meshes, losses and ``loss_continuous``;
-18. a ``kernels`` JSON line, the ``nvidia-smi`` line, and the result line.
+18. the dry run's cost half at qwen3-8b (``launch.dryrun``): (a) its
+    train_4k, prefill_32k and decode_32k cells counted on ``meta`` tensors
+    at full width, depth and batch (the layer repeat), each ``ok``, with
+    the bound on ``roofline.analysis.HW_H100``; (b) prefill_32k (batch 1)
+    and decode_32k (batch 4) at all 36 layers with ``impl="kernel"``
+    (36 ``flash_prefill``, 36 ``flash_decode`` and combine launches inside
+    the step: ``dryrun_launches`` in the ``kernels`` line) and train_4k at
+    1 of 36 layers, batch 1, each counted on the card and equal to the
+    ``meta`` count of the same cut cell, then timed on the card's clock
+    beside its bound, the model-FLOPs share at that time and its peak
+    memory beside the count's argument + temp bytes, held to 40 GB;
+    (c) each serve cell's flash calls replayed alone, their time beside
+    their bound and the rest of the step's time beside its own;
+19. a ``kernels`` JSON line, the ``nvidia-smi`` line, and the result line.
 
 It needs the repository's ``src/`` beside it and imports neither JAX nor
 the JAX package.
@@ -226,12 +239,6 @@ import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
-# dense peak operation rates of one H100 SXM by operand type (NVIDIA's data
-# sheet; fp32 outside the tensor cores, TF32 stays off): a kernel's
-# operation bound takes the fastest type among its inputs
-PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12, "float16": 989e12,
-            "int8": 1979e12}
 EPS32 = 2.0 ** -23            # fp32 machine epsilon
 WIRE_SOURCE = "src/repro_torch/kernels/csrc/wire_kernels.cu"
 MODEL_SOURCE = "src/repro_torch/kernels/csrc/model_kernels.cu"
@@ -357,15 +364,26 @@ def device_ms(torch, fn, reps: int = 10) -> float:
     return total / reps
 
 
-def nbytes(ts) -> int:
-    return sum(t.numel() * t.element_size() for t in ts)
+def costed(name, cost, inputs, outputs):
+    """A kernel module's ``cost`` (operations, bytes) of a call, held to
+    the bytes of the call's own input and output tensors."""
+    from repro_torch.analysis.cost import tensor_bytes
+    moved = sum(map(tensor_bytes, list(inputs) + list(outputs)))
+    if cost[1] != moved:
+        raise AssertionError(f"{name}: cost() says {cost[1]} B, the call "
+                             f"moves {moved}")
+    return cost
 
 
 def bound(flops, moved, dtypes):
     """(bound_ms, bound_by): the larger of the bytes over the memory rate
-    and the operations over the peak rate of the fastest input type."""
-    peak = max(PEAK_OPS[str(dt).removeprefix("torch.")] for dt in dtypes)
-    bytes_ms = 1e3 * moved / HBM_BYTES_PER_S
+    and the operations over the peak rate of the fastest input type, the
+    H100 SXM's data sheet as ``roofline.analysis.HW_H100`` holds it (fp32
+    outside the tensor cores: TF32 stays off).  ``flops`` and ``moved``
+    are a kernel module's ``cost``."""
+    from repro_torch.roofline.analysis import HW_H100
+    peak = max(HW_H100.peak(dt) for dt in dtypes)
+    bytes_ms = 1e3 * moved / HW_H100.hbm_bw
     ops_ms = 1e3 * flops / peak
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
                                    else "operations")
@@ -462,12 +480,16 @@ def decode_kernels(torch, results, q, k, v, qpos, kvpos, window, want,
 def serving_kernels(torch, dev, results) -> None:
     """Phase 6: flash attention, WKV6 and the RG-LRU at the serving path's
     shapes, against their plain versions, timed."""
+    from repro_torch.kernels.flash_attention import cost as flash_cost
     from repro_torch.kernels.flash_attention import (
-        design, flash_attention_cuda, flash_attention_plain, visible)
+        design, flash_attention_cuda, flash_attention_plain, visible,
+        visible_counts)
+    from repro_torch.kernels.rglru_scan import cost as rglru_cost
     from repro_torch.kernels.rglru_scan import grid as rglru_grid
     from repro_torch.kernels.rglru_scan import rglru_cuda, rglru_plain
     from repro_torch.kernels.rglru_scan import (
         vector_path as rglru_vector_path)
+    from repro_torch.kernels.rwkv6_scan import cost as wkv6_cost
     from repro_torch.kernels.rwkv6_scan import plan as wkv6_plan
     from repro_torch.kernels.rwkv6_scan import wkv6_cuda, wkv6_plain
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -540,10 +562,12 @@ def serving_kernels(torch, dev, results) -> None:
         err64 = float((got.double() - exact).abs().max())
         plain64 = float((want.double() - exact).abs().max())
         del exact
-        pairs = int(visible(qpos, kvpos, causal=True, window=window).sum())
-        flops = 4 * D * pairs * B * H
-        moved = (q.numel() + k.numel() + v.numel() + got.numel()) \
-            * q.element_size() + (Sq + Skv) * 4
+        # the keys and values this run's data needs: the slots some query
+        # sees (lm100m prefill: the 512 written of 577)
+        pairs, seen = visible_counts(qpos, kvpos, causal=True,
+                                     window=window)
+        flops, moved = flash_cost(q.shape, k.shape, q.dtype, pairs=pairs,
+                                  seen=seen)
         ms = time_ms(torch, lambda: flash_attention_cuda(q, k, v, qpos,
                                                          kvpos, **kw),
                      reps=20)
@@ -636,9 +660,8 @@ def serving_kernels(torch, dev, results) -> None:
                                  f"{scale_y}), state err {err_s} (max "
                                  f"{scale_s}) against its plain version")
         worst = max(worst, err_y, err_s)
-        flops = 7 * D * D * B * H * T
-        moved = 3 * r.numel() * 2 + log_w.numel() * 4 + u.numel() * 4 \
-            + y.numel() * 2 + 2 * s0.numel() * 4
+        flops, moved = costed("wkv6", wkv6_cost(r.shape, r.dtype, u.dtype),
+                              (r, k, v, log_w, u, s0), (y, s1))
         # ms: the card's own time per call (device_ms); the wall time of
         # back-to-back calls beside it (at T 1 the host's issue of each)
         ms = device_ms(torch, lambda: wkv6_cuda(r, k, v, log_w, u, s0))
@@ -684,9 +707,8 @@ def serving_kernels(torch, dev, results) -> None:
                             (hT - hT_ref).abs().max()))
             raise AssertionError(f"rglru {label}: kernel differs from its "
                                  f"plain version (max abs err {err})")
-        flops = 2 * B * T * W
-        moved = (a.numel() + b.numel() + y.numel() + h0.numel()
-                 + hT.numel()) * 4
+        flops, moved = costed("rglru", rglru_cost((B, T, W)), (a, b, h0),
+                              (y, hT))
         ms = device_ms(torch, lambda: rglru_cuda(a, b, h0))
         wall_ms = time_ms(torch, lambda: rglru_cuda(a, b, h0), reps=20)
         plain_ms = time_ms(torch, lambda: rglru_plain(a, b, h0), reps=3,
@@ -1061,8 +1083,10 @@ def analyzer(torch, dev, results) -> None:
     torch.cuda.synchronize()
     if not torch.equal(got, want):
         raise AssertionError("tile_copy differs from its plain version")
-    moved = 2 * x.numel() * x.element_size()
-    bound_ms, bound_by = bound(0, moved, (x.dtype,))
+    from repro_torch.kernels.tile_copy import cost as copy_cost
+    flops, moved = costed("tile_copy", copy_cost(tuple(x.shape)), (x,),
+                          (got,))
+    bound_ms, bound_by = bound(flops, moved, (x.dtype,))
     # the card's own time per call (device_ms), the wall time of
     # back-to-back calls (the host's issue) beside it
     ms = device_ms(torch, lambda: tile_copy_cuda(x), reps=20)
@@ -1154,6 +1178,7 @@ def level_a(torch, dev, results) -> None:
     from repro_torch.dist import wire
     from repro_torch.dist.compression import payload_bytes
     from repro_torch.kernels import build
+    from repro_torch.kernels.pack import cost as pack_cost
     from repro_torch.kernels.pack import (
         pack_int4_group_cuda, pack_int4_group_plain, unpack_int4_group_cuda,
         unpack_int4_group_plain)
@@ -1224,23 +1249,25 @@ def level_a(torch, dev, results) -> None:
         cases[f"pack_int4[{arch}]"] = (
             "pack_int4", lambda lv=pack_leaves: pack_int4_group_cuda(lv),
             lambda lv=pack_leaves: pack_int4_group_plain(lv),
-            [q.narrow(ax, 0, d) for q, d, ax in pack_leaves])
+            [q.narrow(ax, 0, d) for q, d, ax in pack_leaves], pack_leaves)
         cases[f"unpack_int4[{arch}]"] = (
             "unpack_int4",
             lambda lv=unpack_leaves: unpack_int4_group_cuda(lv),
-            lambda lv=unpack_leaves: unpack_int4_group_plain(lv), wires)
+            lambda lv=unpack_leaves: unpack_int4_group_plain(lv), wires,
+            unpack_leaves)
         log(f"[9b] {arch}: {len(pack_leaves)} leaves, blocked axes and real "
             f"lengths {[(ax, d) for _, d, ax in pack_leaves]}; int4 push "
             f"{payload_bytes(params, 'int4'):,} B (none "
             f"{payload_bytes(params, 'none'):,})")
-    for name, (kernel, kern, plain, inputs) in cases.items():
+    for name, (kernel, kern, plain, inputs, leaves) in cases.items():
         got, want = kern(), plain()
         torch.cuda.synchronize()
         if not all(torch.equal(a, b) for a, b in zip(got, want)):
             raise AssertionError(f"{name}: kernel differs from its plain "
                                  f"version")
-        moved = nbytes(inputs) + nbytes(got)
-        bound_ms, bound_by = bound(0, moved, (torch.int8,))
+        flops, moved = costed(name, pack_cost(kernel, [
+            (t.shape, d, ax) for t, d, ax in leaves]), inputs, got)
+        bound_ms, bound_by = bound(flops, moved, (torch.int8,))
         build.reset_launches()
         kern()
         per_pass = build.LAUNCHES[kernel]
@@ -1729,6 +1756,7 @@ def two_tier(torch, dev, results) -> None:
     from repro_torch.dist import hermes_sync as hs
     from repro_torch.dist import wire
     from repro_torch.kernels import build
+    from repro_torch.kernels.pack import cost as pack_cost
     from repro_torch.kernels.pack import (
         pack_int4_group_cuda, pack_int4_group_plain, unpack_int4_group_cuda,
         unpack_int4_group_plain)
@@ -1833,21 +1861,23 @@ def two_tier(torch, dev, results) -> None:
         leaves.append((q, d, ax))
     wires = pack_int4_group_plain(leaves)
     unpack_leaves = [(p, d, ax) for p, (_, d, ax) in zip(wires, leaves)]
-    for name, kernel, kern, plain, inputs in (
+    for name, kernel, kern, plain, inputs, lv in (
             ("pack_int4[cluster]", "pack_int4",
              lambda: pack_int4_group_cuda(leaves),
              lambda: pack_int4_group_plain(leaves),
-             [q.narrow(ax, 0, d) for q, d, ax in leaves]),
+             [q.narrow(ax, 0, d) for q, d, ax in leaves], leaves),
             ("unpack_int4[cluster]", "unpack_int4",
              lambda: unpack_int4_group_cuda(unpack_leaves),
-             lambda: unpack_int4_group_plain(unpack_leaves), wires)):
+             lambda: unpack_int4_group_plain(unpack_leaves), wires,
+             unpack_leaves)):
         got, want = kern(), plain()
         torch.cuda.synchronize()
         if not all(torch.equal(a, b) for a, b in zip(got, want)):
             raise AssertionError(f"{name}: kernel differs from its plain "
                                  f"version")
-        moved_b = nbytes(inputs) + nbytes(got)
-        bound_ms, bound_by = bound(0, moved_b, (torch.int8,))
+        flops, moved_b = costed(name, pack_cost(kernel, [
+            (t.shape, d, ax) for t, d, ax in lv]), inputs, got)
+        bound_ms, bound_by = bound(flops, moved_b, (torch.int8,))
         build.reset_launches()
         kern()
         per_pass = build.LAUNCHES[kernel]
@@ -2247,6 +2277,7 @@ def flash_case(torch, dev, gen, label, B, Sq, H, K, D, Dv, q0, kvpos, dt,
     back-to-back calls) beside the plain version, called as it was held,
     and one SDPA call with the same boolean mask; returns the ``kernels``
     entry."""
+    from repro_torch.kernels.flash_attention import cost as flash_cost
     from repro_torch.kernels.flash_attention import (
         design, flash_attention_cuda, flash_attention_plain, visible)
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -2284,12 +2315,11 @@ def flash_case(torch, dev, gen, label, B, Sq, H, K, D, Dv, q0, kvpos, dt,
     # without a causal or window term the mask is one row: broadcast it
     mask = visible(qpos, kvpos, causal=causal, window=0).expand(Sq, Skv)
     pairs = int(mask.sum())
-    flops = 2 * B * H * pairs * (D + Dv)
     # the keys and values this run's data needs: the slots some query sees
     # (seamless's self decode: 33 written of 1057)
     seen = int(mask.any(0).sum())
-    moved = (q.numel() + got.numel() + B * seen * K * (D + Dv)) \
-        * q.element_size() + (Sq + Skv) * 4
+    flops, moved = flash_cost(q.shape, k.shape, dt, Dv, pairs=pairs,
+                              seen=seen)
     dev_ms = device_ms(torch, lambda: flash_attention_cuda(
         q, k, v, qpos, kvpos, **kw))
     wall_ms = time_ms(torch, lambda: flash_attention_cuda(
@@ -2941,6 +2971,8 @@ def wire_audits(torch, dev, results) -> None:
     from repro_torch.kernels import build, ref
     from repro_torch.kernels.dequant_merge import (
         dequant_merge_group_cuda, dequant_merge_packed_group_cuda)
+    from repro_torch.kernels.dequant_merge import cost as merge_cost
+    from repro_torch.kernels.loss_weighted_update import cost as lwu_cost
     from repro_torch.kernels.loss_weighted_update import (
         loss_weighted_update_group_cuda, loss_weighted_update_group_plain)
     from repro_torch.dist import hermes_sync as hs
@@ -3054,7 +3086,8 @@ def wire_audits(torch, dev, results) -> None:
                 list(zip(g_leaves, pods)), w1, w2, denom, push)
             plain = lambda: loss_weighted_update_group_plain(  # noqa: E731
                 list(zip(g_leaves, pods)), w1, w2, denom, push)
-            flops = 2 + 2 * n_pods
+            cost = lwu_cost([(g.shape, g.dtype, p.dtype)
+                             for g, p in zip(g_leaves, pods)], n_pods)
         else:
             pays = wire.get_format(fmt).encode_group(
                 deltas, [(0, i) for i in range(len(deltas))],
@@ -3071,16 +3104,17 @@ def wire_audits(torch, dev, results) -> None:
             plain = lambda: [oracle(  # noqa: E731
                 g, q, sc, w2, denom, push, axis=ax)
                 for g, q, sc, ax in leaves]
-            flops = 2 + 3 * n_pods
+            cost = merge_cost([(g.shape, g.dtype, q.shape, sc.shape)
+                               for g, q, sc, _ in leaves], n_pods)
         got = kern()
         err = 0.0
         for a, b in zip(got, plain()):
             if not torch.equal(a, b):
                 raise AssertionError(f"bf16 {name} differs from its plain "
                                      f"version at {tuple(a.shape)}")
-        moved = nbytes(ins) + nbytes(got)
+        flops, moved = costed(name, cost, ins, got)
         del got
-        bound_ms, bound_by = bound(n * flops, moved, {t.dtype for t in ins})
+        bound_ms, bound_by = bound(flops, moved, {t.dtype for t in ins})
         build.reset_launches()
         kern()
         per_pass = build.LAUNCHES[name]
@@ -3291,6 +3325,160 @@ def donation_and_restart(torch, dev, results) -> None:
     log(f"[17] phase wall {time.perf_counter() - t_phase:.1f} s")
 
 
+def attention_split(torch, cell, card, step_ms) -> None:
+    """The flash kernels' share of a dry-run step on the card: the step's
+    own ``flash_attention`` calls, recorded in one run of it, replayed
+    alone on the card's clock (``device_ms``) beside their bound on
+    ``HW_H100``, and the rest of the step beside the rest of its count."""
+    from repro_torch.kernels import ops
+    from repro_torch.roofline.analysis import HW_H100
+
+    calls, real = [], ops.flash_attention
+
+    def record(*args, **kw):
+        calls.append((args, kw))
+        return real(*args, **kw)
+
+    ops.flash_attention = record
+    try:
+        cell.setup.step_fn(*cell.args)
+    finally:
+        ops.flash_attention = real
+    flash_ms = device_ms(torch, lambda: [real(*a, **kw) for a, kw in calls],
+                         reps=3)
+    flash_b = sum(b for op, b in card.bytes_by_op.items()
+                  if op.startswith("kernel:flash"))
+    others = card.launches - sum(n for op, n in card.launches_by_op.items()
+                                 if op.startswith("kernel:flash"))
+    # every kernel of these steps is a flash kernel; bf16 throughout
+    peak = HW_H100.peak(torch.bfloat16)
+    flash_bound = 1e3 * max(flash_b / HW_H100.hbm_bw,
+                            card.kernel_flops / peak)
+    rest_bound = 1e3 * max((card.bytes - flash_b) / HW_H100.hbm_bw,
+                           (card.flops - card.kernel_flops) / peak)
+    log(f"[18c] {cell.shape.name}: its {len(calls)} flash_attention calls "
+        f"alone {flash_ms:.2f} ms of the step's {step_ms:.2f} "
+        f"({flash_ms / step_ms:.1%}), against their bound "
+        f"{flash_bound:.2f} ms ({flash_bound / flash_ms:.1%} of it); the "
+        f"rest of the step {step_ms - flash_ms:.2f} ms against its bound "
+        f"{rest_bound:.2f} ms, {others} other ops  "
+        f"[{nvidia_smi_line()}]")
+    if len(calls) != cell.cfg.num_layers:
+        raise AssertionError(f"{len(calls)} flash calls in a step of "
+                             f"{cell.cfg.num_layers} layers")
+
+
+def dryrun_counts(torch, dev, results) -> None:
+    """Phase 18: the dry run's cost half at qwen3-8b (``launch.dryrun``).
+    (a) The three cells at full width, depth and batch, counted on
+    ``meta`` tensors at the dry run's defaults (blocked attention, auto to
+    decode; the layer repeat), each ``ok``, its FLOPs, bytes and bound on
+    ``HW_H100``.  (b) Executed on the card, cut only where the 40 GB hold
+    forces it (``reduced``): prefill_32k at batch 1 and decode_32k at
+    batch 4 with ``impl="kernel"`` (``flash_prefill``, ``flash_decode`` +
+    ``flash_decode_combine`` inside the step, all 36 layers), train_4k at
+    1 of 36 layers and batch 1 (blocked attention, as the reference
+    trains).  Each is counted on the card (every layer) and must equal the
+    ``meta`` count of the same cut cell, FLOPs, bytes and launches by op;
+    then its step is timed on the card's clock (``device_ms``), beside the
+    bound, its dominant term and the model-FLOPs share at that time, and
+    its peak ``max_memory_allocated`` beside the count's argument + temp
+    bytes.  (c) The serve cells' time split by :func:`attention_split`."""
+    from repro_torch.kernels import build
+    from repro_torch.launch import dryrun as D
+    from repro_torch.roofline.analysis import (
+        HW_H100, model_flops, record_cost, roofline_terms)
+
+    t_phase = time.perf_counter()
+    arch, hold = "qwen3-8b", 40e9
+    out = ROOT / "results" / "torch" / "smoke_dryrun"
+    for shape in ("train_4k", "prefill_32k", "decode_32k"):
+        t0 = time.perf_counter()
+        rec = D.run_cell(arch, shape, "single", str(out), save_ops=False)
+        if rec["status"] != "ok":
+            raise AssertionError(f"dry run {arch} {shape}: {rec}")
+        c = rec["cost"]
+        t = roofline_terms(record_cost(rec), HW_H100)
+        mem = rec["memory"]
+        log(f"[18a] {arch} {shape} on meta (depths "
+            f"{rec['depths_counted']}): {c['flops']:.4e} FLOPs, "
+            f"{c['bytes accessed']:.4e} B, {c['launches']} launches; bound "
+            f"{t['bound_s']:.4f} s ({t['dominant']}); argument "
+            f"{mem['argument_size_in_bytes'] / 1e9:.2f} GB, temp "
+            f"{mem['temp_size_in_bytes'] / 1e9:.2f} GB; "
+            f"{time.perf_counter() - t0:.1f} s")
+
+    cells = (("prefill_32k", dict(batch=1, impl="kernel"),
+              {"flash_prefill": 36}),
+             ("decode_32k", dict(batch=4, impl="kernel"),
+              {"flash_decode": 36, "flash_decode_combine": 36}),
+             ("train_4k", dict(batch=1, layers=1, impl="blocked"), {}))
+    for shape, kw, kernels in cells:
+        t0 = time.perf_counter()
+        meta = D.count_cell(D.make_cell(arch, shape, **kw))
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        cell = D.make_cell(arch, shape, device=dev, **kw)
+        torch.cuda.synchronize()
+        args_bytes = torch.cuda.memory_allocated() - base
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launches()
+        card = D.count_cell(cell)
+        torch.cuda.synchronize()
+        launches = dict(build.LAUNCHES)
+        rise = torch.cuda.max_memory_allocated() - before
+        peak = torch.cuda.max_memory_allocated() - base
+        if card.counts() != meta.counts():
+            a, b = card.counts(), meta.counts()
+            raise AssertionError(f"{shape}: the card's count differs from "
+                                 f"meta: " + str({k: (a[k], b[k]) for k in a
+                                                  if a[k] != b[k]}))
+        for name, n in kernels.items():
+            if launches[name] != n:
+                raise AssertionError(f"{shape}: {name} launched "
+                                     f"{launches[name]} times, want {n}")
+            entry = results.setdefault(name, {"name": name})
+            entry["dryrun_launches"] = {
+                **entry.get("dryrun_launches", {}), shape: n}
+        ms = device_ms(torch, lambda: cell.setup.step_fn(*cell.args),
+                       reps=2 if shape == "prefill_32k" else 3)
+        t = roofline_terms(card, HW_H100)
+        tokens = cell.shape.global_batch * (1 if cell.kind == "decode"
+                                            else cell.shape.seq_len)
+        mf = model_flops(cell.cfg.param_count(active_only=True), tokens,
+                         kind="train" if cell.kind == "train" else "fwd")
+        share = mf / (1e-3 * ms) / HW_H100.peak_flops
+        m = meta.memory
+        est = m["argument_size_in_bytes"] + m["temp_size_in_bytes"]
+        log(f"[18b] {arch} {shape} on the card, reduced {cell.reduced}, "
+            f"launches {({k: v for k, v in launches.items() if v})}: "
+            f"counts equal meta's ({card.flops:.4e} FLOPs, "
+            f"{card.bytes:.4e} B, {card.launches} launches); step "
+            f"{ms:.2f} ms (device_ms) against the bound "
+            f"{1e3 * t['bound_s']:.2f} ms ({t['dominant']}), "
+            f"{1e3 * t['bound_s'] / ms:.1%} of it; model-FLOPs share "
+            f"{share:.2%}; peak {peak / 1e9:.3f} GB against the count's "
+            f"argument + temp {est / 1e9:.3f} GB (gap "
+            f"{(peak - est) / 1e9:+.3f} GB; arguments allocated "
+            f"{args_bytes / 1e9:.3f} against "
+            f"{m['argument_size_in_bytes'] / 1e9:.3f}, the step's rise "
+            f"{rise / 1e9:.3f} against temp "
+            f"{m['temp_size_in_bytes'] / 1e9:.3f}); "
+            f"{time.perf_counter() - t0:.1f} s  [{nvidia_smi_line()}]")
+        if peak > hold:
+            raise AssertionError(f"{shape}: peak {peak / 1e9:.2f} GB over "
+                                 f"the {hold / 1e9:.0f} GB hold")
+        if kernels:
+            attention_split(torch, cell, card, ms)
+        del cell, card, meta
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[18] phase wall {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3309,6 +3497,10 @@ def main() -> int:
     from repro_torch.kernels import build, ref
     from repro_torch.kernels.dequant_merge import (
         dequant_merge_group_cuda, dequant_merge_packed_group_cuda)
+    from repro_torch.kernels.dequant_merge import cost as merge_cost
+    from repro_torch.kernels.loss_weighted_update import cost as lwu_cost
+    from repro_torch.kernels.pack import cost as pack_cost
+    from repro_torch.kernels.quantize import cost as qz_cost
     from repro_torch.kernels.loss_weighted_update import (
         loss_weighted_update_group_cuda, loss_weighted_update_group_plain)
     from repro_torch.kernels.pack import (
@@ -3378,15 +3570,24 @@ def main() -> int:
     denom = w1 + w2.sum()
     push = torch.tensor(True, device=dev)
 
-    # name: (kernel, plain version, fp32 operations per output element,
+    # name: (kernel, plain version, the module's cost of a pass,
     #        one PyTorch call computing the same function or None)
+    merge_leaves = {
+        fmt_name: [(g.shape, g.dtype, p[key].shape, p["scales"].shape)
+                   for g, p in zip(g_leaves, pays)]
+        for fmt_name, pays, key in (("int4", payloads, "q_packed"),
+                                    ("int8", payloads8, "q"))}
     cases = {
         # pack and unpack: one grouped launch over every leaf, tails
         # included, as the round's encode
         "pack_int4": (lambda: pack_int4_group_cuda(pack_leaves),
-                      lambda: pack_int4_group_plain(pack_leaves), 0, None),
+                      lambda: pack_int4_group_plain(pack_leaves),
+                      pack_cost("pack_int4", [(q.shape, d, ax) for q, d, ax
+                                              in pack_leaves]), None),
         "unpack_int4": (lambda: unpack_int4_group_cuda(unpack_leaves),
-                        lambda: unpack_int4_group_plain(unpack_leaves), 0,
+                        lambda: unpack_int4_group_plain(unpack_leaves),
+                        pack_cost("unpack_int4", [
+                            (p.shape, d, ax) for p, d, ax in unpack_leaves]),
                         None),
         # the merges and the loss-weighted update: one grouped launch over
         # every leaf, as the round
@@ -3398,13 +3599,14 @@ def main() -> int:
             lambda: [ref.dequant_merge_packed_ref(
                 g, p["q_packed"], p["scales"], w2, denom, push, axis=ax)
                 for g, p, ax in zip(g_leaves, payloads, axes)],
-            2 + 3 * PODS, None),
+            merge_cost(merge_leaves["int4"], PODS), None),
         "loss_weighted_update": (
             lambda: loss_weighted_update_group_cuda(
                 list(zip(g_leaves, pods_f32)), w1, w2, denom, push),
             lambda: loss_weighted_update_group_plain(
                 list(zip(g_leaves, pods_f32)), w1, w2, denom, push),
-            2 + 2 * PODS, None),
+            lwu_cost([(g.shape, g.dtype, p.dtype)
+                      for g, p in zip(g_leaves, pods_f32)], PODS), None),
         "dequant_merge": (
             lambda: dequant_merge_group_cuda(
                 [(g, p["q"], p["scales"], ax)
@@ -3413,18 +3615,21 @@ def main() -> int:
             lambda: [ref.dequant_merge_ref(
                 g, p["q"], p["scales"], w2, denom, push, axis=ax)
                 for g, p, ax in zip(g_leaves, payloads8, axes)],
-            2 + 3 * PODS, None),
+            merge_cost(merge_leaves["int8"], PODS), None),
         "quantize_int8": (
             lambda: [t for d in deltas for t in quantize_int8_cuda(d)],
             lambda: [t for d in deltas for t in ref.quantize_int8_ref(d)],
-            6, None),
+            tuple(map(sum, zip(*[qz_cost("quantize_int8", d.shape)
+                                 for d in deltas]))), None),
         "dequantize_int8": (
             lambda: [dequantize_int8_cuda(q, sc, d.shape)
                      for (q, sc), d in zip(flat8, deltas)],
             lambda: [ref.dequantize_int8_ref(q, sc, d.shape)
                      for (q, sc), d in zip(flat8, deltas)],
+            tuple(map(sum, zip(*[qz_cost("dequantize_int8", d.shape)
+                                 for d in deltas]))),
             # int8 x fp32 promotes to fp32 in one elementwise kernel
-            1, lambda: [torch.mul(q, sc) for q, sc in flat8]),
+            lambda: [torch.mul(q, sc) for q, sc in flat8]),
     }
     inputs = {
         # the real nibbles pack reads, not the quantizer's padding
@@ -3440,7 +3645,7 @@ def main() -> int:
     results = {}
     log(f"[3] kernels at {cfg.name} ({n_params:,} parameters) x {PODS} pods, "
         f"the whole tree per call")
-    for name, (kern, plain, flops_per_out, library) in cases.items():
+    for name, (kern, plain, cost, library) in cases.items():
         got, want = kern(), plain()
         torch.cuda.synchronize()
         exact = all(torch.equal(a, b) for a, b in zip(got, want))
@@ -3449,9 +3654,8 @@ def main() -> int:
         if not exact:
             raise AssertionError(f"{name}: kernel differs from its plain "
                                  f"version (max abs err {err})")
-        moved = nbytes(inputs[name]) + nbytes(got)
-        n_out = sum(t.numel() for t in got)
-        bound_ms, bound_by = bound(n_out * flops_per_out, moved,
+        flops, moved = costed(name, cost, inputs[name], got)
+        bound_ms, bound_by = bound(flops, moved,
                                    {t.dtype for t in inputs[name]})
         del got, want
         build.reset_launches()
@@ -3648,14 +3852,15 @@ def main() -> int:
                        (15, lambda: encdec_and_vlm(torch, dev, results)),
                        (16, lambda: wire_audits(torch, dev, results)),
                        (17, lambda: donation_and_restart(torch, dev,
-                                                         results))):
+                                                         results)),
+                       (18, lambda: dryrun_counts(torch, dev, results))):
         gc.collect()
         log(f"--- phase {phase} starts at {time.perf_counter() - t_start:.1f}"
             f" s, {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
         run()
     log(f"--- all phases done at {time.perf_counter() - t_start:.1f} s")
 
-    # ---- 18. result lines -------------------------------------------------
+    # ---- 19. result lines -------------------------------------------------
     print(json.dumps({"kernels": list(results.values())}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

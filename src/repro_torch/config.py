@@ -13,7 +13,7 @@ set of values configures both sides of a parity test.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 from repro_torch.dist.wire import available_formats
 
@@ -133,6 +133,12 @@ class ModelConfig:
     def is_hybrid(self) -> bool:
         return self.recurrent is not None and bool(self.recurrent.block_pattern)
 
+    @property
+    def supports_long_context(self) -> bool:
+        """Decode over a 500k state is sub-quadratic: the recurrent
+        stacks (RWKV6, and the hybrid, whose attention is windowed)."""
+        return self.recurrent is not None
+
     def layer_is_recurrent(self, layer_idx: int) -> bool:
         """A hybrid layer's kind by the pattern: ``rec`` (RG-LRU) or an
         attention block."""
@@ -157,11 +163,13 @@ class ModelConfig:
             raise ValueError(f"{self.name}: parameters are fp32 in the port "
                              f"(got {self.param_dtype!r})")
 
-    def param_count(self) -> int:
+    def param_count(self, active_only: bool = False) -> int:
         """The exact parameter count of the port's (and the reference's)
         tree; the reference's own ``param_count`` approximates RWKV6, MoE
         and MLA, and leaves out the decoder's cross-attention and part of
-        the norms."""
+        the norms.  ``active_only`` counts what one token touches: of the
+        MoE block the router, the shared experts and ``top_k`` of the
+        ``num_experts`` routed ones (the roofline's model FLOPs read it)."""
         d, L, hd, f = self.d_model, self.num_layers, self.resolved_head_dim, \
             self.d_ff
         H = self.num_heads
@@ -184,8 +192,8 @@ class ModelConfig:
             # joint (d, n_shared * shared_ff) matrices
             me = self.moe
             shared = (me.shared_ff or me.expert_ff) * me.num_shared_experts
-            mlp = d * me.num_experts \
-                + n_mat * d * me.expert_ff * me.num_experts \
+            routed = me.top_k if active_only else me.num_experts
+            mlp = d * me.num_experts + n_mat * d * me.expert_ff * routed \
                 + n_mat * d * shared
         if self.is_hybrid:
             # RG-LRU: w_in_x, w_in_g (d x w), gate_a_w, gate_x_w (w x w),
@@ -228,6 +236,15 @@ class ShapeConfig:
     def validate(self) -> None:
         if self.kind not in ("train", "prefill", "decode"):
             raise ValueError(f"shape kind {self.kind!r}")
+
+
+#: the reference's four input-shape cells (``src/repro/config.py``)
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
 
 
 @dataclass(frozen=True)

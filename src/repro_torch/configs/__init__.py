@@ -7,7 +7,7 @@ Each module exports ``CONFIG`` (the published configuration) and
 from __future__ import annotations
 
 import importlib
-from typing import Dict
+from typing import Dict, List
 
 from repro_torch.config import ModelConfig
 
@@ -24,6 +24,12 @@ _REGISTRY: Dict[str, str] = {
     "seamless-m4t-large-v2": "seamless_m4t_large_v2",
     "llava-next-34b": "llava_next_34b",
 }
+
+#: the ten assigned architectures, in the reference's order
+ASSIGNED_ARCHS: List[str] = [
+    "rwkv6-3b", "phi3-mini-3.8b", "qwen3-8b", "yi-6b", "granite-34b",
+    "llava-next-34b", "seamless-m4t-large-v2", "grok-1-314b",
+    "deepseek-v2-lite-16b", "recurrentgemma-2b"]
 
 
 def _module(arch: str):

@@ -313,3 +313,18 @@ def launch_spec(kernel: str, g_shape, n_pods: int, axis: int = -1,
                    "kColPairs": COL_PAIRS, "kColWidth": COL_WIDTH,
                    "kMergeLeaves": GROUP_LEAVES,
                    "kMergeBlocksPerSm": BLOCKS_PER_SM})
+
+
+def cost(leaves, n_pods: int) -> Tuple[int, int]:
+    """``(operations, bytes)`` of one grouped merge (int8 or packed int4)
+    over ``leaves``, ``(g_shape, g_dtype, payload_shape, scales_shape)``
+    each: g, the payload bytes and the fp32 scales read once, the merged
+    leaf written once; ``2 + 3 * n_pods`` operations an element (each
+    pod's dequantize, weight and add, then the scale and divide)."""
+    ops = moved = 0
+    for g_shape, g_dtype, q_shape, s_shape in leaves:
+        n = math.prod(g_shape)
+        ops += n * (2 + 3 * n_pods)
+        moved += 2 * n * g_dtype.itemsize + math.prod(q_shape) \
+            + 4 * math.prod(s_shape)
+    return ops, moved

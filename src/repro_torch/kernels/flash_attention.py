@@ -38,6 +38,7 @@ own launches under its own name.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -466,3 +467,61 @@ def combine_launch_spec(q_shape, k_shape, dtype: str = "float32",
                   build.Operand("out", (rows, D), (1, D), dtype)),
         accumulator="acc", template={"T": dtype}, threads_of="kFcThreads",
         constants={"kFcThreads": COMBINE_THREADS})
+
+
+# -- cost (what a call does, for the counter and the bound) ---------------
+
+def visible_counts(q_positions: torch.Tensor, kv_positions: torch.Tensor,
+                   *, causal: bool, window: int) -> Tuple[int, int]:
+    """``(pairs, seen)``: the (query, key) pairs the contract's mask lets
+    through, and the key slots some query sees, read off the positions
+    by sorting and binary search (no ``(Sq, Skv)`` mask: at 32k x 32k
+    that would be a gigabyte)."""
+    kp = kv_positions.to(torch.int64)
+    keys = torch.sort(kp[kp >= 0]).values
+    qs = torch.sort(q_positions.to(torch.int64)).values
+    if keys.numel() == 0 or qs.numel() == 0:
+        return 0, 0
+    big = torch.iinfo(torch.int64).max // 4
+    hi = qs if causal else torch.full_like(qs, big)
+    lo = qs - window + 1 if window > 0 else torch.full_like(qs, -big)
+    pairs = (torch.searchsorted(keys, hi, right=True)
+             - torch.searchsorted(keys, lo)).clamp(min=0).sum()
+    # a key k is seen when some query q has (not causal or k <= q) and
+    # (no window or q < k + window)
+    first = keys if causal else torch.full_like(keys, -big)
+    last = keys + window - 1 if window > 0 else torch.full_like(keys, big)
+    seen = ((torch.searchsorted(qs, last, right=True)
+             - torch.searchsorted(qs, first)) > 0).sum()
+    return int(pairs), int(seen)
+
+
+@functools.lru_cache(maxsize=64)
+def assumed_counts(Sq: int, Skv: int, *, causal: bool, window: int
+                   ) -> Tuple[int, int]:
+    """:func:`visible_counts` where a ``meta`` tensor holds no positions:
+    every key slot written at positions ``0..Skv-1`` and the queries the
+    last ``Sq`` of them, as in a dry run's cells (a prompt into a cache of
+    its own length, a decode step at the last slot of a full cache, a
+    ring of the window's width)."""
+    return visible_counts(torch.arange(Skv - Sq, Skv), torch.arange(Skv),
+                          causal=causal, window=window)
+
+
+def cost(q_shape, k_shape, dtype, dv: Optional[int] = None, *, pairs: int,
+         seen: int) -> Tuple[int, int]:
+    """``(operations, bytes)`` of one call at q ``(B, Sq, H, D)``, k ``(B,
+    Skv, K, D)`` and v of head dim ``dv`` (default ``D``) in ``dtype``, with
+    ``pairs`` visible (query, key) pairs a head and ``seen`` key slots
+    some query sees (:func:`visible_counts`): ``2 (D + Dv)`` operations a
+    visible pair and head; q, the seen keys and values and the output
+    moved once, and both positions arrays."""
+    B, Sq, H, D = q_shape
+    Skv, K = k_shape[1], k_shape[2]
+    dv = D if dv is None else dv
+    size = dtype.itemsize if isinstance(dtype, torch.dtype) \
+        else _ITEMSIZE[dtype]
+    flops = 2 * B * H * pairs * (D + dv)
+    moved = (B * Sq * H * (D + dv) + B * seen * K * (D + dv)) * size \
+        + (Sq + Skv) * 4
+    return flops, moved

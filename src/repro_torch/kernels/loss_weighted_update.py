@@ -151,3 +151,16 @@ def launch_spec(g_shape, n_pods: int, dtype: str = "float32"
         constants={"kThreads": build.WIRE_THREADS, "kLwuSlots": SLOTS,
                    "kLwuBlocksPerSm": BLOCKS_PER_SM, "kLwuTile": TILE,
                    "kMergeLeaves": GROUP_LEAVES})
+
+
+def cost(leaves, n_pods: int) -> Tuple[int, int]:
+    """``(operations, bytes)`` of one grouped update over ``leaves``,
+    ``(g_shape, g_dtype, pods_dtype)`` each: g and the ``n_pods`` pod
+    rows read once, the update written once; ``2 + 2 * n_pods``
+    operations an element."""
+    ops = moved = 0
+    for g_shape, g_dtype, pods_dtype in leaves:
+        n = math.prod(g_shape)
+        ops += n * (2 + 2 * n_pods)
+        moved += n * (2 * g_dtype.itemsize + n_pods * pods_dtype.itemsize)
+    return ops, moved

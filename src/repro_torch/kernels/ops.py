@@ -1,10 +1,20 @@
 """Kernel dispatch: a CUDA tensor goes to the CUDA kernel, a CPU tensor to
 its plain PyTorch version.  There is no other route: a CUDA tensor reaches
-the kernel or an exception, never the plain version."""
+the kernel or an exception, never the plain version.
+
+Under a cost counter (``analysis/cost.py``) each entry charges its kernel
+once a call, ``kernel:<name>`` with its module's ``cost``, whatever runs:
+the kernel on a card, the plain version on the CPU (its own ops
+uncharged), and on ``meta`` tensors nothing, the entry returning empty
+outputs of the right shapes.  Outside a counter an entry only picks the
+route: no cost or shape is worked out."""
 from __future__ import annotations
+
+import functools
 
 import torch
 
+from repro_torch.analysis.cost import active, charge_kernel
 from repro_torch.kernels import dequant_merge as _dqm
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import loss_weighted_update as _lwu
@@ -12,135 +22,204 @@ from repro_torch.kernels import pack as _pk
 from repro_torch.kernels import quantize as _qz
 from repro_torch.kernels import rglru_scan as _lru
 from repro_torch.kernels import rwkv6_scan as _wkv
+from repro_torch.kernels.ref import BLOCK
 
 
+def _entry(cuda, plain):
+    """An entry: ``cuda(*args, **kw)`` if its lead tensor (the first
+    argument, or a group's first leaf) is on a card, else ``plain``; an
+    empty group goes to ``plain``.  The decorated function gives the
+    call's ``(name, cost, meta)`` for :func:`charge_kernel`, and runs only
+    under a counter."""
+    def wrap(charge):
+        @functools.wraps(charge)
+        def entry(*args, **kw):
+            lead = args[0]
+            if isinstance(lead, (list, tuple)):
+                if not lead:
+                    return plain(*args, **kw)
+                lead = lead[0][0]
+            run = cuda if lead.is_cuda else plain
+            if active() is None:
+                return run(*args, **kw)
+            name, cost, meta = charge(*args, **kw)
+            return charge_kernel(name, cost, meta, lambda: run(*args, **kw),
+                                 lead.is_meta)
+        return entry
+    return wrap
+
+
+def _resized(t: torch.Tensor, axis: int, n: int) -> torch.Tensor:
+    """An empty int8 array of ``t``'s shape with ``n`` along ``axis``."""
+    shape = list(t.shape)
+    shape[axis % t.ndim] = n
+    return t.new_empty(shape, dtype=torch.int8)
+
+
+@_entry(_pk.pack_int4_cuda, _pk.pack_int4_plain)
 def pack_int4(q: torch.Tensor, *, axis: int = -1) -> torch.Tensor:
     """Two int4 nibbles per int8 byte along the blocked ``axis``."""
-    if q.is_cuda:
-        return _pk.pack_int4_cuda(q, axis=axis)
-    return _pk.pack_int4_plain(q, axis=axis)
+    d = q.shape[axis]
+    return ("pack_int4",
+            lambda: _pk.cost("pack_int4", [(q.shape, d, axis)]),
+            lambda: _resized(q, axis, d // 2))
 
 
+@_entry(_pk.unpack_int4_cuda, _pk.unpack_int4_plain)
 def unpack_int4(p: torch.Tensor, *, axis: int = -1) -> torch.Tensor:
     """Inverse of :func:`pack_int4` (exact, sign included)."""
-    if p.is_cuda:
-        return _pk.unpack_int4_cuda(p, axis=axis)
-    return _pk.unpack_int4_plain(p, axis=axis)
+    d = 2 * p.shape[axis]
+    return ("unpack_int4",
+            lambda: _pk.cost("unpack_int4", [(p.shape, d, axis)]),
+            lambda: _resized(p, axis, d))
 
 
+def _group_shapes(leaves):
+    return [(t.shape, d, ax) for t, d, ax in leaves]
+
+
+@_entry(_pk.pack_int4_group_cuda, _pk.pack_int4_group_plain)
 def pack_int4_group(leaves):
     """Pack every leaf ``(q, d, axis)`` into its wire bytes, whole blocks
     and tail: one launch on a card."""
-    if leaves and leaves[0][0].is_cuda:
-        return _pk.pack_int4_group_cuda(leaves)
-    return _pk.pack_int4_group_plain(leaves)
+    return ("pack_int4",
+            lambda: _pk.cost("pack_int4", _group_shapes(leaves)),
+            lambda: [_resized(q, ax, _pk.wire_rows(d))
+                     for q, d, ax in leaves])
 
 
+@_entry(_pk.unpack_int4_group_cuda, _pk.unpack_int4_group_plain)
 def unpack_int4_group(leaves):
     """Unpack every wire leaf ``(p, d, axis)`` into its ``d`` nibbles along
     ``axis``: one launch on a card."""
-    if leaves and leaves[0][0].is_cuda:
-        return _pk.unpack_int4_group_cuda(leaves)
-    return _pk.unpack_int4_group_plain(leaves)
+    return ("unpack_int4",
+            lambda: _pk.cost("unpack_int4", _group_shapes(leaves)),
+            lambda: [_resized(p, ax, d) for p, d, ax in leaves])
 
 
+@_entry(_qz.quantize_int8_cuda, _qz.quantize_int8_plain)
 def quantize_int8(x: torch.Tensor):
     """Flat blockwise absmax int8: ``(q (nb, 256), scales (nb, 1))``."""
-    if x.is_cuda:
-        return _qz.quantize_int8_cuda(x)
-    return _qz.quantize_int8_plain(x)
+    nb = -(-x.numel() // BLOCK)
+    return ("quantize_int8",
+            lambda: _qz.cost("quantize_int8", x.shape, x.dtype),
+            lambda: (x.new_empty((nb, BLOCK), dtype=torch.int8),
+                     x.new_empty((nb, 1), dtype=torch.float32)))
 
 
+@_entry(_qz.dequantize_int8_cuda, _qz.dequantize_int8_plain)
 def dequantize_int8(q: torch.Tensor, scales: torch.Tensor, shape
                     ) -> torch.Tensor:
     """Inverse of :func:`quantize_int8`, cut to ``prod(shape)`` elements."""
-    if q.is_cuda:
-        return _qz.dequantize_int8_cuda(q, scales, shape)
-    return _qz.dequantize_int8_plain(q, scales, shape)
+    return ("dequantize_int8",
+            lambda: _qz.cost("dequantize_int8", tuple(shape)),
+            lambda: q.new_empty(tuple(shape), dtype=torch.float32))
 
 
+def _merge_cost(leaves):
+    """A merge's ``cost`` over ``(g, q, scales, axis)`` leaves."""
+    return _dqm.cost([(g.shape, g.dtype, q.shape, s.shape)
+                      for g, q, s, _ in leaves], leaves[0][1].shape[0])
+
+
+@_entry(_dqm.dequant_merge_cuda, _dqm.dequant_merge_plain)
 def dequant_merge(g, q, scales, w2, denom, any_push, *,
                   axis: int = -1) -> torch.Tensor:
     """Merge blocked int8 payloads straight into the global leaf."""
-    if g.is_cuda:
-        return _dqm.dequant_merge_cuda(g, q, scales, w2, denom, any_push,
-                                       axis=axis)
-    return _dqm.dequant_merge_plain(g, q, scales, w2, denom, any_push,
-                                    axis=axis)
+    return ("dequant_merge",
+            lambda: _merge_cost([(g, q, scales, axis)]),
+            lambda: torch.empty_like(g))
 
 
+@_entry(_dqm.dequant_merge_packed_cuda, _dqm.dequant_merge_packed_plain)
 def dequant_merge_packed(g, q_packed, scales, w2, denom, any_push, *,
                          axis: int = -1) -> torch.Tensor:
     """Merge nibble-packed int4 payloads straight into the global leaf."""
-    if g.is_cuda:
-        return _dqm.dequant_merge_packed_cuda(g, q_packed, scales, w2, denom,
-                                              any_push, axis=axis)
-    return _dqm.dequant_merge_packed_plain(g, q_packed, scales, w2, denom,
-                                           any_push, axis=axis)
+    return ("dequant_merge_packed",
+            lambda: _merge_cost([(g, q_packed, scales, axis)]),
+            lambda: torch.empty_like(g))
 
 
+@_entry(_dqm.dequant_merge_group_cuda, _dqm.dequant_merge_group_plain)
 def dequant_merge_group(leaves, w2, denom, any_push):
     """Merge int8 payloads into their global leaves, ``leaves`` a list of
     ``(g, q, scales, axis)``: one launch on a card."""
-    if leaves and leaves[0][0].is_cuda:
-        return _dqm.dequant_merge_group_cuda(leaves, w2, denom, any_push)
-    return _dqm.dequant_merge_group_plain(leaves, w2, denom, any_push)
+    return ("dequant_merge", lambda: _merge_cost(leaves),
+            lambda: [torch.empty_like(g) for g, *_ in leaves])
 
 
+@_entry(_dqm.dequant_merge_packed_group_cuda,
+        _dqm.dequant_merge_packed_group_plain)
 def dequant_merge_packed_group(leaves, w2, denom, any_push):
     """Merge int4 payloads into their global leaves, ``leaves`` a list of
     ``(g, q_packed, scales, axis)``: one launch on a card."""
-    if leaves and leaves[0][0].is_cuda:
-        return _dqm.dequant_merge_packed_group_cuda(leaves, w2, denom,
-                                                    any_push)
-    return _dqm.dequant_merge_packed_group_plain(leaves, w2, denom, any_push)
+    return ("dequant_merge_packed", lambda: _merge_cost(leaves),
+            lambda: [torch.empty_like(g) for g, *_ in leaves])
 
 
+@_entry(_lwu.loss_weighted_update_cuda, _lwu.loss_weighted_update_plain)
 def loss_weighted_update(g, pods, w1, w2, denom, any_push) -> torch.Tensor:
     """``any_push ? (w1*g + sum_i w2_i*pods_i) / denom : g``."""
-    if g.is_cuda:
-        return _lwu.loss_weighted_update_cuda(g, pods, w1, w2, denom,
-                                              any_push)
-    return _lwu.loss_weighted_update_plain(g, pods, w1, w2, denom, any_push)
+    return ("loss_weighted_update",
+            lambda: _lwu.cost([(g.shape, g.dtype, pods.dtype)],
+                              pods.shape[0]),
+            lambda: torch.empty_like(g))
 
 
+@_entry(_lwu.loss_weighted_update_group_cuda,
+        _lwu.loss_weighted_update_group_plain)
 def loss_weighted_update_group(leaves, w1, w2, denom, any_push):
     """:func:`loss_weighted_update` of every leaf ``(g, pods)``: one launch
     a dtype on a card."""
-    if leaves and leaves[0][0].is_cuda:
-        return _lwu.loss_weighted_update_group_cuda(leaves, w1, w2, denom,
-                                                    any_push)
-    return _lwu.loss_weighted_update_group_plain(leaves, w1, w2, denom,
-                                                 any_push)
+    return ("loss_weighted_update",
+            lambda: _lwu.cost([(g.shape, g.dtype, p.dtype)
+                               for g, p in leaves], leaves[0][1].shape[0]),
+            lambda: [torch.empty_like(g) for g, _ in leaves])
 
 
+@_entry(_fa.flash_attention_cuda, _fa.flash_attention_plain)
 def flash_attention(q, k, v, q_positions, kv_positions, *,
                     causal: bool = True, window: int = 0,
                     scale=None) -> torch.Tensor:
     """GQA attention masked by positions: q (B,Sq,H,D), k/v (B,Skv,K,Dv)
-    -> (B,Sq,H,Dv) in q's dtype."""
-    if q.is_cuda:
-        return _fa.flash_attention_cuda(q, k, v, q_positions, kv_positions,
-                                        causal=causal, window=window,
-                                        scale=scale)
-    return _fa.flash_attention_plain(q, k, v, q_positions, kv_positions,
-                                     causal=causal, window=window,
-                                     scale=scale)
+    -> (B,Sq,H,Dv) in q's dtype.  Charged as the kernel
+    :func:`flash_attention.design` picks, over the pairs the positions
+    make visible (on ``meta`` tensors, :func:`flash_attention.
+    assumed_counts`)."""
+    B, Sq, H, D = q.shape
+    Dv = v.shape[-1]
+
+    def cost():
+        if q.is_meta:
+            pairs, seen = _fa.assumed_counts(Sq, k.shape[1], causal=causal,
+                                             window=window)
+        else:
+            pairs, seen = _fa.visible_counts(q_positions, kv_positions,
+                                             causal=causal, window=window)
+        return _fa.cost(q.shape, k.shape, q.dtype, Dv, pairs=pairs,
+                        seen=seen)
+
+    return (_fa.design(Sq, D, q.dtype, Dv), cost,
+            lambda: q.new_empty((B, Sq, H, Dv)))
 
 
+@_entry(_wkv.wkv6_cuda, _wkv.wkv6_plain)
 def wkv6(r, k, v, log_w, u, state):
     """The exact WKV6 recurrence: (B,T,H,D) inputs -> (y, new state)."""
-    if r.is_cuda:
-        return _wkv.wkv6_cuda(r, k, v, log_w, u, state)
-    return _wkv.wkv6_plain(r, k, v, log_w, u, state)
+    B, T, H, D = r.shape
+    return ("wkv6", lambda: _wkv.cost(r.shape, r.dtype, u.dtype),
+            lambda: (torch.empty_like(r),
+                     r.new_empty((B, H, D, D), dtype=torch.float32)))
 
 
+@_entry(_lru.rglru_cuda, _lru.rglru_plain)
 def rglru(a, b, h0=None):
     """The diagonal recurrence ``h_t = a_t h_{t-1} + b_t``: fp32 (B,T,W)
     inputs -> (every step's h, the last h)."""
-    if a.is_cuda:
-        return _lru.rglru_cuda(a, b, h0)
-    return _lru.rglru_plain(a, b, h0)
+    B, T, W = a.shape
+    return ("rglru", lambda: _lru.cost(a.shape, h0 is not None),
+            lambda: (a.new_empty((B, T, W), dtype=torch.float32),
+                     a.new_empty((B, W), dtype=torch.float32)))
 
 
 def kernel_lint_cases():

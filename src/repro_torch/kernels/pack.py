@@ -308,3 +308,19 @@ def launch_spec(kernel: str, shape, axis: int = -1) -> build.LaunchSpec:
                    "kPackUnroll": UNROLL, "kTileSlots": TILE_SLOTS,
                    "kPackLeaves": GROUP_LEAVES,
                    "kPackBlocksPerSm": BLOCKS_PER_SM})
+
+
+def cost(kernel: str, leaves) -> Tuple[int, int]:
+    """``(operations, bytes)`` of one grouped call of ``kernel`` over
+    ``leaves``, ``(shape, d, axis)`` each as in :data:`Leaf` (``shape`` the
+    array's): the ``d`` real nibbles of each leaf read once and its wire
+    bytes written once (pack), or the wire bytes read and ``d`` nibbles
+    written (unpack).  No arithmetic is counted."""
+    moved = 0
+    for shape, d, axis in leaves:
+        s = tuple(shape) or (1,)
+        ax = axis % len(s)
+        rest = math.prod(s) // s[ax]
+        wire = wire_rows(d) if kernel == "pack_int4" else s[ax]
+        moved += rest * (d + wire)
+    return 0, moved

@@ -11,6 +11,7 @@ kernels are bound by HBM bytes; see ``csrc/wire_kernels.cu``.
 from __future__ import annotations
 
 import math
+from typing import Tuple
 
 import torch
 
@@ -96,3 +97,18 @@ def launch_spec(kernel: str, shape) -> build.LaunchSpec:
         function=f"{kernel}_kernel", grid=(grid, 1, 1), threads=t, smem=0,
         operands=ops, threads_of="kThreads",
         constants={"kBlock": BLOCK, "kThreads": t})
+
+
+def cost(kernel: str, shape, dtype: torch.dtype = torch.float32
+         ) -> Tuple[int, int]:
+    """``(operations, bytes)`` of one call on an array of ``shape`` (the
+    quantized array's, in ``dtype``; the dequantize writes fp32): the
+    array, ``q`` and ``scales`` each moved once.  The quantize's
+    operations are 6 an output element (abs, max, divide, round, clamp,
+    convert), the dequantize's one multiply an output element."""
+    n = math.prod(shape)
+    nb = -(-n // BLOCK)
+    wire = nb * BLOCK + 4 * nb
+    if kernel == "quantize_int8":
+        return 6 * (nb * BLOCK + nb), n * dtype.itemsize + wire
+    return n, wire + 4 * n

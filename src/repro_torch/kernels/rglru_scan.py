@@ -15,7 +15,7 @@ multiply-add, so the kernel equals :func:`rglru_plain` bit for bit.  See
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -100,3 +100,11 @@ def launch_spec(shape) -> build.LaunchSpec:
         accumulator="h", threads_of="kLruChannels",
         constants={"kLruChannels": CHANNELS, "kLruSteps": STEPS,
                    "kLruStages": STAGES})
+
+
+def cost(shape, h0: bool = True) -> Tuple[int, int]:
+    """``(operations, bytes)`` of one call at ``(B, T, W)``, fp32: a and b
+    read once, every step's h and the last h written once, and ``h0``
+    read when given; a multiply and an add a step and channel."""
+    B, T, W = shape
+    return 2 * B * T * W, 4 * (3 * B * T * W + B * W * (2 if h0 else 1))

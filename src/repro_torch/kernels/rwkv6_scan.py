@@ -21,6 +21,7 @@ below about -0.5 over a 64-step chunk); that clamp is not copied.  T = 1
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Tuple
 
 import torch
 
@@ -152,3 +153,17 @@ def launch_spec(shape, dtype: str = "bfloat16") -> build.LaunchSpec:
         threads_of=f"{D} / kWkvCols * ({pl.keys} / {pl.run})",
         constants={"kWkvKeys": KEYS, "kWkvCols": COLS, "kWkvSteps": STEPS,
                    "kWkvSlots": SLOTS})
+
+
+def cost(shape, dtype=torch.bfloat16, u_dtype=torch.float32
+         ) -> Tuple[int, int]:
+    """``(operations, bytes)`` of one call at r / k / v ``(B, T, H, D)`` in
+    ``dtype`` with fp32 ``log_w`` and state and ``u`` in ``u_dtype``: r, k,
+    v, log_w, u and the state read once, y and the new state written once;
+    7 operations a state element a step (k v, u k v, add, r dot, decay,
+    accumulate, and the read-out's sum)."""
+    B, T, H, D = shape
+    n = B * T * H * D
+    state = B * H * D * D
+    return 7 * D * D * B * H * T, \
+        n * (4 * dtype.itemsize + 4) + H * D * u_dtype.itemsize + 8 * state

@@ -65,3 +65,9 @@ def launch_spec(shape: Tuple[int, int] = SHAPE,
         kernel="tile_copy", source=build.source("fixture_kernels"),
         function="tile_copy_kernel", grid=_grid(shape, tile),
         threads=tile[1], smem=0, operands=ops)
+
+
+def cost(shape: Tuple[int, int] = SHAPE) -> Tuple[int, int]:
+    """``(operations, bytes)`` of one copy of an fp32 ``shape``: read and
+    written once, no arithmetic."""
+    return 0, 2 * 4 * shape[0] * shape[1]

@@ -80,9 +80,10 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 def lru_gates(p, x: torch.Tensor):
     """x (B, T, w) -> (a, gated input), both fp32."""
     xf = x.to(torch.float32)
-    r = torch.sigmoid(xf @ p["gate_a_w"] + p["gate_a_b"])
-    i = torch.sigmoid(xf @ p["gate_x_w"] + p["gate_x_b"])
-    log_a = -LRU_C * torch.nn.functional.softplus(p["lam"]) * r
+    f32 = torch.float32
+    r = torch.sigmoid(xf @ p["gate_a_w"].to(f32) + p["gate_a_b"].to(f32))
+    i = torch.sigmoid(xf @ p["gate_x_w"].to(f32) + p["gate_x_b"].to(f32))
+    log_a = -LRU_C * torch.nn.functional.softplus(p["lam"].to(f32)) * r
     a = torch.exp(log_a)
     gated = torch.sqrt(torch.clamp(1.0 - torch.square(a), min=1e-12)) \
         * (i * xf)

@@ -93,8 +93,9 @@ def _time_mix_proj(p, x, xprev, cfg: ModelConfig):
     k = (x_k @ p["wk"].to(dt)).reshape(B, T, H, D)
     v = (x_v @ p["wv"].to(dt)).reshape(B, T, H, D)
     g = torch.nn.functional.silu(x_g @ p["wg"].to(dt))
-    dec = p["decay_base"] + (x_w.to(torch.float32) @ p["decay_w1"]) \
-        @ p["decay_w2"]
+    f32 = torch.float32
+    dec = p["decay_base"].to(f32) + (x_w.to(f32) @ p["decay_w1"].to(f32)) \
+        @ p["decay_w2"].to(f32)
     log_w = -torch.exp(dec).reshape(B, T, H, D)  # log w_t < 0: w in (0, 1)
     return r, k, v, g, log_w
 
